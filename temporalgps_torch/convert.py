@@ -21,10 +21,12 @@ def _leaf(value, N, time_ndim, dtype, device):
     return Fill(t, N) if t.ndim == time_ndim else t
 
 
-def lgssm_from_numpy(As, offs, Qs, H, h, s, x0_mean, x0_cov, N, *, dtype, device="cpu"):
+def lgssm_from_numpy(As, offs, Qs, H, h, s, x0_mean, x0_cov, N, *, dtype, device="cuda"):
     """The port's LGSSM from the reference LGSSM's leaves: each of As (D, D),
     offs (D,), Qs (D, D), H (D,), h (), s () is a Fill value, or the same with
-    a leading time axis of length N (s is typically (N,))."""
+    a leading time axis of length N (s is typically (N,)). The leaves of a
+    tangent model (the reference's jax.jvp of its model function) come across
+    the same way. On the card unless the caller passes device="cpu"."""
     leaf = lambda v, nd: _leaf(v, N, nd, dtype, device)
     x0 = Gaussian(
         torch.tensor(np.asarray(x0_mean), dtype=dtype, device=device),
@@ -34,6 +36,13 @@ def lgssm_from_numpy(As, offs, Qs, H, h, s, x0_mean, x0_cov, N, *, dtype, device
         GaussMarkov(As=leaf(As, 2), offs=leaf(offs, 1), Qs=leaf(Qs, 2), x0=x0, forward=True),
         ScalarEmissions(H=leaf(H, 1), h=leaf(h, 0), s=leaf(s, 0)),
     )
+
+
+def tangent_lgssms_from_numpy(tangent_leaves, N, *, dtype, device="cuda"):
+    """The port's `model_tangents` (ops.block.logpdf_fwd_grad) from k tuples
+    (As, offs, Qs, H, h, s, x0_mean, x0_cov) of tangent leaves as numpy."""
+    return [lgssm_from_numpy(*leaves, N, dtype=dtype, device=device)
+            for leaves in tangent_leaves]
 
 
 _ATOMS = {"Matern12": K.Matern12, "Matern32": K.Matern32, "Matern52": K.Matern52}

@@ -5,6 +5,12 @@
 // in the same order of operations; nvcc may contract a*b+c into one fused
 // multiply-add where the CPU rounds twice, so results agree to rounding, not
 // bit for bit. One thread holds one block's matrices in registers.
+//
+// Beside each of step_element, combine and kalman_step stands its tangent,
+// *_jvp: the primal and ONE directional derivative from (primal inputs,
+// tangent inputs), written out by hand at matrix level (the reference
+// linearises the same functions in-kernel with jax.linearize; the plain
+// versions get theirs from PyTorch's forward-mode autodiff).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -16,6 +22,7 @@ struct Dims {
   static constexpr int kElem = 3 * D * D + 2 * D;    // filtering-element rows
   static constexpr int kState = D + D * D;           // state rows (m, P)
   static constexpr int kParams = 2 * D * D + 2 * D + 1;
+  static constexpr int kParamsS = kParams + 1;       // params plus the noise slot
 };
 
 __device__ __forceinline__ float dev_log(float x) { return logf(x); }
@@ -425,6 +432,150 @@ __device__ __forceinline__ T kalman_step(Vec<T, D>& m, Mat<T, D>& P, const Param
   const Vec<T, D> K = vscale(T(1) / S, V);
   m = vadd(mp, vscale(resid, K));
   P = sym(msub(Pp, outer(K, V)));
+  return lml;
+}
+
+// ---------------------------------------------------------------------------
+// Tangents. Every *_jvp returns the primal (the same operations, in the same
+// order, as the function above it) and its directional derivative along one
+// tangent of the inputs. The observation y is data and carries no tangent.
+// ---------------------------------------------------------------------------
+
+template <typename T, int D>
+__device__ __forceinline__ Elem<T, D> zero_elem() {
+  Elem<T, D> e;
+  e.A = zeros_mat<T, D>();
+  e.b = zeros_vec<T, D>();
+  e.C = zeros_mat<T, D>();
+  e.eta = zeros_vec<T, D>();
+  e.J = zeros_mat<T, D>();
+  return e;
+}
+
+template <typename T, int D>
+struct ElemJvp {
+  Elem<T, D> primal;
+  Elem<T, D> tangent;
+};
+
+// step_element and its tangent along (dp, ds). With r = 1/S:
+//   dS = dH.QH + H.(dQ H + Q dH) + ds,   dr = -dS r^2,
+//   dK = dr QH + r d(QH),   d(I - K H^T) = -(dK H^T + K dH^T),
+// and the product rule for the five outputs; sym is linear.
+template <typename T, int D>
+__device__ __forceinline__ ElemJvp<T, D> step_element_jvp(const Params<T, D>& p,
+                                                          const Params<T, D>& dp, T s, T ds,
+                                                          T y) {
+  const Vec<T, D> QH = mv(p.Q, p.H);
+  const Vec<T, D> dQH = vadd(mv(dp.Q, p.H), mv(p.Q, dp.H));
+  const T S = vdot(p.H, QH) + s;
+  const T dS = vdot(dp.H, QH) + vdot(p.H, dQH) + ds;
+  const T rS = T(1) / S;
+  const T drS = -dS * rS * rS;
+  const Vec<T, D> K = vscale(rS, QH);
+  const Vec<T, D> dK = vadd(vscale(drS, QH), vscale(rS, dQH));
+  const Mat<T, D> ImKH = msub(eye<T, D>(), outer(K, p.H));
+  const Mat<T, D> dImKH = msub(zeros_mat<T, D>(), madd(outer(dK, p.H), outer(K, dp.H)));
+  const T resid = y - (vdot(p.H, p.a) + p.h);
+  const T dresid = -(vdot(dp.H, p.a) + vdot(p.H, dp.a) + dp.h);
+  const Vec<T, D> w = mTv(p.A, p.H);
+  const Vec<T, D> dw = vadd(mTv(dp.A, p.H), mTv(p.A, dp.H));
+  const T c = resid / S;
+  const T dc = dresid * rS + resid * drS;
+  ElemJvp<T, D> out;
+  out.primal.A = mm(ImKH, p.A);
+  out.tangent.A = madd(mm(dImKH, p.A), mm(ImKH, dp.A));
+  out.primal.b = vadd(p.a, vscale(resid, K));
+  out.tangent.b = vadd(dp.a, vadd(vscale(dresid, K), vscale(resid, dK)));
+  out.primal.C = sym(mm(ImKH, p.Q));
+  out.tangent.C = sym(madd(mm(dImKH, p.Q), mm(ImKH, dp.Q)));
+  out.primal.eta = vscale(c, w);
+  out.tangent.eta = vadd(vscale(dc, w), vscale(c, dw));
+  const Mat<T, D> ww = outer(w, w);
+  out.primal.J = mscale(rS, ww);
+  out.tangent.J = madd(mscale(drS, ww), mscale(rS, madd(outer(dw, w), outer(w, dw))));
+  return out;
+}
+
+// combine and its tangent: (ei, dei) first, then (ej, dej). The inverse
+// M = (I + Ci Jj)^-1 is differentiated as dM = -M (dCi Jj + Ci dJj) M, not
+// through the adjugate's cofactors.
+template <typename T, int D>
+__device__ __forceinline__ ElemJvp<T, D> combine_jvp(const Elem<T, D>& ei, const Elem<T, D>& dei,
+                                                     const Elem<T, D>& ej,
+                                                     const Elem<T, D>& dej) {
+  const Mat<T, D> CiJj = mm(ei.C, ej.J);
+  const Mat<T, D> dCiJj = madd(mm(dei.C, ej.J), mm(ei.C, dej.J));
+  const Mat<T, D> M = inv(madd(CiJj, eye<T, D>()));
+  const Mat<T, D> dM = msub(zeros_mat<T, D>(), mm(M, mm(dCiJj, M)));
+  const Mat<T, D> AjM = mm(ej.A, M);
+  const Mat<T, D> dAjM = madd(mm(dej.A, M), mm(ej.A, dM));
+  const Mat<T, D> MAi = mm(M, ei.A);
+  const Mat<T, D> dMAi = madd(mm(dM, ei.A), mm(M, dei.A));
+  ElemJvp<T, D> out;
+  out.primal.A = mm(ej.A, MAi);
+  out.tangent.A = madd(mm(dej.A, MAi), mm(ej.A, dMAi));
+
+  const Vec<T, D> u = vadd(ei.b, mv(ei.C, ej.eta));
+  const Vec<T, D> du = vadd(dei.b, vadd(mv(dei.C, ej.eta), mv(ei.C, dej.eta)));
+  out.primal.b = vadd(mv(AjM, u), ej.b);
+  out.tangent.b = vadd(vadd(mv(dAjM, u), mv(AjM, du)), dej.b);
+
+  const Mat<T, D> X = mm(AjM, ei.C);
+  const Mat<T, D> dX = madd(mm(dAjM, ei.C), mm(AjM, dei.C));
+  out.primal.C = sym(madd(mmT(X, ej.A), ej.C));
+  out.tangent.C = sym(madd(madd(mmT(dX, ej.A), mmT(X, dej.A)), dej.C));
+
+  const Vec<T, D> v = vsub(ej.eta, mv(ej.J, ei.b));
+  const Vec<T, D> dv = vsub(dej.eta, vadd(mv(dej.J, ei.b), mv(ej.J, dei.b)));
+  out.primal.eta = vadd(mTv(MAi, v), ei.eta);
+  out.tangent.eta = vadd(vadd(mTv(dMAi, v), mTv(MAi, dv)), dei.eta);
+
+  const Mat<T, D> Y = mm(ej.J, ei.A);
+  const Mat<T, D> dY = madd(mm(dej.J, ei.A), mm(ej.J, dei.A));
+  out.primal.J = sym(madd(mTm(MAi, Y), ei.J));
+  out.tangent.J = sym(madd(madd(mTm(dMAi, Y), mTm(MAi, dY)), dei.J));
+  return out;
+}
+
+// The step's log marginal likelihood and its tangent.
+template <typename T>
+struct LmlJvp {
+  T primal;
+  T tangent;
+};
+
+// kalman_step and its tangent, in place on (m, P) and (dm, dP):
+//   d log S = dS / S,   d(resid^2 / S) = 2 resid dresid / S - resid^2 dS / S^2,
+//   dS = dH.V + H.dV + ds with V = Pp H.
+template <typename T, int D>
+__device__ __forceinline__ LmlJvp<T> kalman_step_jvp(Vec<T, D>& m, Vec<T, D>& dm, Mat<T, D>& P,
+                                                     Mat<T, D>& dP, const Params<T, D>& p,
+                                                     const Params<T, D>& dp, T s, T ds, T y) {
+  const T kLog2Pi = T(1.8378770664093453);  // log(2 pi)
+  const Vec<T, D> mp = vadd(mv(p.A, m), p.a);
+  const Vec<T, D> dmp = vadd(vadd(mv(dp.A, m), mv(p.A, dm)), dp.a);
+  const Mat<T, D> AP = mm(p.A, P);
+  const Mat<T, D> dAP = madd(mm(dp.A, P), mm(p.A, dP));
+  const Mat<T, D> Pp = madd(sym(mmT(AP, p.A)), p.Q);
+  const Mat<T, D> dPp = madd(sym(madd(mmT(dAP, p.A), mmT(AP, dp.A))), dp.Q);
+  const Vec<T, D> V = mv(Pp, p.H);
+  const Vec<T, D> dV = vadd(mv(dPp, p.H), mv(Pp, dp.H));
+  const T S = vdot(p.H, V) + s;
+  const T dS = vdot(dp.H, V) + vdot(p.H, dV) + ds;
+  const T resid = y - (vdot(p.H, mp) + p.h);
+  const T dresid = -(vdot(dp.H, mp) + vdot(p.H, dmp) + dp.h);
+  const T rS = T(1) / S;
+  const T drS = -dS * rS * rS;
+  LmlJvp<T> lml;
+  lml.primal = T(-0.5) * (kLog2Pi + dev_log(S) + resid * resid / S);
+  lml.tangent = T(-0.5) * (dS * rS + T(2) * resid * dresid * rS + resid * resid * drS);
+  const Vec<T, D> K = vscale(rS, V);
+  const Vec<T, D> dK = vadd(vscale(drS, V), vscale(rS, dV));
+  m = vadd(mp, vscale(resid, K));
+  dm = vadd(dmp, vadd(vscale(dresid, K), vscale(resid, dK)));
+  P = sym(msub(Pp, outer(K, V)));
+  dP = sym(msub(dPp, madd(outer(dK, V), outer(K, dV))));
   return lml;
 }
 

@@ -102,7 +102,7 @@ def _matern_atoms(lam: float, d: int, P_inf, dtype, device) -> SDEAtoms:
     return SDEAtoms(torch.tensor(P_inf, dtype=dtype, device=device), H, transition)
 
 
-def sde_atoms(k: Kernel, dtype=torch.float64, device="cpu") -> SDEAtoms:
+def sde_atoms(k: Kernel, dtype=torch.float64, device="cuda") -> SDEAtoms:
     """Recursive SDE construction (standard Matern state-space results,
     Sarkka & Solin, Applied SDEs, ch. 12)."""
     if isinstance(k, Matern12):

@@ -6,8 +6,11 @@ inputs into the `LGSSM` on which inference runs. `RegularSpacing` inputs give
 one shared (A, Q) wrapped in `Fill`s; an (N,) tensor of times gives
 per-step transitions.
 
-The storage dtype and the device are explicit: `to_sde(f, ArrayStorage(
-torch.float32), device="cuda")` puts every tensor of the model there.
+The storage dtype and the device are explicit per model. The device is the
+CUDA card unless the caller asks for the CPU: `to_sde(f, ArrayStorage(
+torch.float32))` puts every tensor of the model on "cuda", `to_sde(f,
+device="cpu")` on the CPU. Nothing is detected and nothing falls back: with
+the default and no card, building the model raises PyTorch's own error.
 """
 
 import dataclasses
@@ -55,14 +58,14 @@ class LTISDE:
 
     f: GP
     storage: ArrayStorage = ArrayStorage()
-    device: torch.device = torch.device("cpu")
+    device: torch.device = torch.device("cuda")
 
     def __call__(self, x, noise=None):
         dtype = _storage_dtype(self.storage)
         return FiniteLTISDE(self, x, _canon_noise(noise, x, dtype, self.device))
 
 
-def to_sde(f: GP, storage=None, *, device="cpu") -> LTISDE:
+def to_sde(f: GP, storage=None, *, device="cuda") -> LTISDE:
     return LTISDE(f, storage if storage is not None else ArrayStorage(),
                   torch.device(device))
 

@@ -25,6 +25,11 @@ def fill_in_missings(noise, y):
     return noise_filled, y_filled, mask.sum()
 
 
+def volume_compensation(n_missing, dtype):
+    """What n_missing filled observations take from the lml, to add back."""
+    return n_missing.to(dtype) * _HALF_LOG_2PI_LARGE_VAR
+
+
 def transform_model_and_obs(model: LGSSM, y):
     """(model', y', compensation) with the missing entries marginalised out.
     Only the noise leaf is materialised; the other leaves stay Fills."""
@@ -32,7 +37,7 @@ def transform_model_and_obs(model: LGSSM, y):
     if is_fill(noise):
         noise = noise.value.expand(noise.N)
     noise_filled, y_filled, n_missing = fill_in_missings(noise, y)
-    comp = n_missing.to(y_filled.dtype) * _HALF_LOG_2PI_LARGE_VAR
+    comp = volume_compensation(n_missing, y_filled.dtype)
     emis = dataclasses.replace(model.emis, s=noise_filled)
     return LGSSM(model.trans, emis), y_filled, comp
 

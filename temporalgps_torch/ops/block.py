@@ -17,9 +17,12 @@ scalar observations with streamed noise, and D <= 3: the Matern models on
 RegularSpacing. Other models raise NotImplementedError here and run on
 engine="sequential".
 
-The gradient is a torch.autograd.Function whose backward re-runs the plain
-PyTorch blocked schedule under autograd (the reference's custom_vjp backward
-runs its XLA schedule the same way).
+The reverse-mode gradient is a torch.autograd.Function whose backward re-runs
+the plain PyTorch blocked schedule under autograd (the reference's custom_vjp
+backward runs its XLA schedule the same way). The forward-mode gradient,
+`logpdf_fwd_grad`, carries k tangent models beside the primal through the
+same three phases on K4-K6 (kernels.phase1_jvp, phase2_jvp_starts,
+phase3_jvp_lml): the path a hyperparameter fit takes.
 """
 
 import math
@@ -29,6 +32,7 @@ import torch
 
 from ..config import LARGE_VAR
 from ..models.emissions import ScalarEmissions
+from ..models.missings import fill_in_missings, volume_compensation
 from ..utils.fill import is_fill, tmaterialize
 from ..utils.psd import symmetrize
 from . import kernels
@@ -161,3 +165,79 @@ def logpdf(model, y, *, n_blocks=None, fused=None):
     if fused:
         return _LogpdfFused.apply(B, *leaves)
     return _logpdf_fused_impl(*leaves, B, PLAIN_PHASES)
+
+
+def _fwd_grad_supported(model, model_tangents) -> bool:
+    """The models `logpdf_fwd_grad` takes: a primal the fused kernels take,
+    and tangents of Fill leaves, the noise tangent included."""
+    if not _pallas_supported(model):
+        return False
+    for t in model_tangents:
+        tr, e = t.trans, t.emis
+        if not (
+            isinstance(e, ScalarEmissions)
+            and all(is_fill(leaf) for leaf in (tr.As, tr.offs, tr.Qs, e.H, e.h, e.s))
+        ):
+            return False
+    return True
+
+
+def _tangent_rows(model, model_tangents):
+    """((1+k, PK2) parameter rows, (1+k, SD) prior rows) of K4-K6: the primal
+    first, then each tangent. The primal noise slot is unused (the noise is
+    streamed, with its fills); the tangent slots carry the time-invariant
+    noise tangent."""
+    dtype = model.dtype
+
+    def row(m, s_slot):
+        t, e = m.trans, m.emis
+        return kernels.pack_params_s(t.As.value, t.offs.value, t.Qs.value, e.H.value,
+                                     e.h.value, s_slot, dtype)
+
+    def prior_row(x0):
+        return torch.cat([x0.mean.reshape(-1), symmetrize(x0.cov).reshape(-1)]).to(dtype)
+
+    rows = torch.stack([row(model, model.trans.x0.mean.new_zeros(()))]
+                       + [row(t, t.emis.s.value) for t in model_tangents])
+    priors = torch.stack([prior_row(model.trans.x0)]
+                         + [prior_row(t.trans.x0) for t in model_tangents])
+    return rows, priors
+
+
+def logpdf_fwd_grad(model, y, model_tangents, *, n_blocks=None):
+    """(logpdf, (k,) tensor of d logpdf . tangent_j) in one forward-mode pass.
+
+    `model_tangents` is a list of k tangent LGSSMs: the derivative of every
+    leaf of `model` along one parameter direction, as Fills (learning.
+    value_and_grad_fwd_lgssm builds them with torch.func.jacfwd of
+    `model_fn`). The primal and the k tangent recursions run together through
+    K4-K6. y carries no tangent, and NaNs in it are missing observations,
+    filled here; the time-invariant noise tangent enters masked, so missing
+    and padding steps, whose lml is the constant the compensation adds back,
+    contribute no derivative.
+
+    Raises TypeError for models it does not take (`_fwd_grad_supported`)."""
+    if not _fwd_grad_supported(model, model_tangents):
+        raise TypeError(
+            "logpdf_fwd_grad requires Fill-parameter scalar-emission models "
+            "(primal and tangents) with D <= 3"
+        )
+    k = len(model_tangents)
+    if k < 1:
+        raise ValueError("logpdf_fwd_grad needs at least one tangent model")
+    D = model.latent_dim
+    dtype = model.dtype
+    N = len(model)
+    # The reference shrinks B by 1+k here, a VMEM bound of its phase-2 kernel
+    # that K5 does not have: value and gradient cut time the same way.
+    B = min(n_blocks or _pallas_blocks(N), N)
+    y = torch.as_tensor(y, dtype=dtype, device=model.device)
+    s, y_f, n_missing = fill_in_missings(tmaterialize(model.emis.s), y)
+    y_main, s_main, comp = _blocked_streams(y_f, s, B)
+    comp = comp + volume_compensation(n_missing, dtype)
+
+    rows, priors = _tangent_rows(model, model_tangents)
+    comps = kernels.phase1_jvp(y_main, s_main, rows, D, k)
+    starts = kernels.phase2_jvp_starts(comps, priors, D, k)
+    totals = kernels.phase3_jvp_lml(y_main, s_main, rows, starts, D, k).sum(dim=1)
+    return totals[0] + comp, totals[1:]

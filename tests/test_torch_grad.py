@@ -51,7 +51,8 @@ def _jax_grad(name, y, **engine):
 def _torch_grad(name, y, **engine):
     p = torch.tensor(P0, requires_grad=True)
     s2, sc, noise = torch.exp(p)
-    fx = to_sde(GP((s2 * TORCH_KERNEL[name]()).stretch(sc)))(tt.RegularSpacing(0.0, 0.1, N), noise)
+    fx = to_sde(GP((s2 * TORCH_KERNEL[name]()).stretch(sc)), device="cpu")(
+        tt.RegularSpacing(0.0, 0.1, N), noise)
     lml = tt.logpdf(fx, y, **engine)
     (grad,) = torch.autograd.grad(lml, p)
     return lml.item(), grad.numpy()

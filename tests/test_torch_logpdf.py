@@ -52,7 +52,7 @@ def _jax_fx(name, dtype, x=None):
 def _torch_fx(name, dtype, x=None):
     kern = (S2 * TORCH_KERNEL[name]()).stretch(SC)
     x = tt.RegularSpacing(0.0, 0.1, N) if x is None else x
-    return to_sde(GP(kern), ArrayStorage(dtype))(x, NOISE)
+    return to_sde(GP(kern), ArrayStorage(dtype), device="cpu")(x, NOISE)
 
 
 def _jax_lml(fx, y, **engine):
@@ -131,7 +131,7 @@ def test_lgssm_from_numpy_gives_the_reference_lml():
     model_t = convert.lgssm_from_numpy(
         np.asarray(t.As.value), np.asarray(t.offs.value), np.asarray(t.Qs.value),
         np.asarray(e.H.value), np.asarray(e.h.value), s,
-        np.asarray(t.x0.mean), np.asarray(t.x0.cov), N, dtype=torch.float64,
+        np.asarray(t.x0.mean), np.asarray(t.x0.cov), N, dtype=torch.float64, device="cpu",
     )
     y0 = torch.from_numpy(np.nan_to_num(y))
     for engine in ("sequential", "block"):
@@ -142,7 +142,7 @@ def test_lgssm_from_numpy_gives_the_reference_lml():
 def test_kernel_from_spec_rebuilds_the_reference_model():
     fx_j = _jax_fx("Matern52", torch.float64)
     kern = convert.kernel_from_spec(_spec(fx_j.f.f.kernel))
-    model_t = build_lgssm(to_sde(GP(kern))(tt.RegularSpacing(0.0, 0.1, N), NOISE))
+    model_t = build_lgssm(to_sde(GP(kern), device="cpu")(tt.RegularSpacing(0.0, 0.1, N), NOISE))
     model_j = japi.build_lgssm(fx_j)
     pairs = [
         (model_t.trans.As.value, model_j.trans.As.value),
@@ -160,7 +160,7 @@ def test_sde_atoms_match_reference(name):
     from temporalgps_torch.gp import kernels as tkernels
 
     atoms_j = jkernels.sde_atoms((S2 * getattr(jgp, name)()).stretch(SC))
-    atoms_t = tkernels.sde_atoms((S2 * TORCH_KERNEL[name]()).stretch(SC))
+    atoms_t = tkernels.sde_atoms((S2 * TORCH_KERNEL[name]()).stretch(SC), device="cpu")
     dts = np.array([0.01, 0.3, 2.0])
     pairs = [
         (atoms_t.P_inf, atoms_j.P_inf),
