@@ -48,15 +48,46 @@ Phases; any failure exits non-zero without the final result line:
      kernel's bound from this run's shapes.
   8. Where the time of one vg(p0) call goes: torch.profiler over 10 calls
      (device busy by kernel, idle share) and host-clock stages.
+  9. The state-emitting kernels (K7 phase3_states, K8 affine_phase1, K9
+     affine_phase2_starts, K10 affine_phase3_states) against their plain
+     versions at the main shapes (D = 3, N = 1M, B = 2048, L = 489), float64
+     and float32. K7 takes the lml path's streams; K8-K10 take the affine
+     rows of the N = 1M posterior of phase 10 (the reverse model's
+     iteration view). The gate is on the state rows (K7's and K10's own,
+     and those the plain phases compute downstream of K8 and K9), each row
+     scaled by its largest entry: 1e-10 in float64, 1e-4 in float32, for
+     the rounding and FMA reason of phase 3.
+ 10. The posterior path, through the public entry points:
+       marginals(posterior(fx, y)(x, 0.1))   (temporalgps_torch.gp.posterior)
+     for the reference's bench config c1 (GP(Matern32()), float32,
+     RegularSpacing(0, 1e-3, 10_000), noise 0.1, y from default_rng(0)) and
+     for the main model (phase 5's, N = 1M, one NaN) in both dtypes, and
+     the prior marginals(fx). K1, K2, K7 and K8-K10 must launch on the
+     posterior call, K3 must not. Gates: c1 float32 within 1e-3 relative of
+     float64; float64 on the card within 1e-9 of the port's sequential
+     engine on the CPU at N = 20k; at N = 1M the float32 error against
+     float64 is printed beside the sizes it compares, with finite values and
+     positive variances gated; a posterior at new times (2k training and 500
+     prediction times, interleaved: the sequential filter, then K8-K10) on
+     the card within 1e-9 of the CPU in float64; cov refuses.
+ 11. Time K7-K10 as phase 7 does, each plain version once, and the
+     end-to-end posterior-marginals call at c1 and at N = 1M, with each
+     kernel's bound from this run's shapes.
+ 12. Where the time of one posterior-marginals call at N = 1M goes:
+     torch.profiler over 10 calls (device busy by kernel, idle share, the
+     count of other device kernels) and host-clock stages (build_lgssm,
+     missing data, K1/K2/K7, the reversal of the dynamics, the affine rows,
+     K8-K10, the projection).
 
 The third line from the end is the card's name and power limit, the second
-{"kernels": [...]} with the float32 (main path) numbers, the last
-{"ok": true, "device": {...}}.
+{"kernels": [...]} with the float32 (main path) numbers of all ten kernels,
+the last {"ok": true, "device": {...}}.
 """
 
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -79,6 +110,10 @@ SOURCES = {
     "phase1_jvp": "temporalgps_torch/csrc/block_phases_jvp.cu",
     "phase2_jvp_starts": "temporalgps_torch/csrc/block_phases_jvp.cu",
     "phase3_jvp_lml": "temporalgps_torch/csrc/block_phases_jvp.cu",
+    "phase3_states": "temporalgps_torch/csrc/block_states.cu",
+    "affine_phase1": "temporalgps_torch/csrc/block_states.cu",
+    "affine_phase2_starts": "temporalgps_torch/csrc/block_states.cu",
+    "affine_phase3_states": "temporalgps_torch/csrc/block_states.cu",
 }
 REPLACES = {
     "phase1_aggregate": "temporalgps_tpu/ops/pallas_kernels.py:227",
@@ -87,9 +122,17 @@ REPLACES = {
     "phase1_jvp": "temporalgps_tpu/ops/pallas_kernels.py:471",
     "phase2_jvp_starts": "temporalgps_tpu/ops/pallas_kernels.py:563",
     "phase3_jvp_lml": "temporalgps_tpu/ops/pallas_kernels.py:641",
+    "phase3_states": "temporalgps_tpu/ops/pallas_kernels.py:810",
+    "affine_phase1": "temporalgps_tpu/ops/pallas_kernels.py:905",
+    "affine_phase2_starts": "temporalgps_tpu/ops/pallas_kernels.py:974",
+    "affine_phase3_states": "temporalgps_tpu/ops/pallas_kernels.py:1017",
 }
 VALUE_KERNELS = ("phase1_aggregate", "phase2_starts", "phase3_lml")
 JVP_KERNELS = ("phase1_jvp", "phase2_jvp_starts", "phase3_jvp_lml")
+STATE_KERNELS = ("phase3_states", "affine_phase1", "affine_phase2_starts", "affine_phase3_states")
+POSTERIOR_KERNELS = ("phase1_aggregate", "phase2_starts") + STATE_KERNELS
+N_C1 = 10_000
+N_TRAIN_NEW, N_PRED_NEW = 2_000, 500
 KERNEL_RTOL = {"float64": 1e-10, "float32": 1e-4}
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): device memory rate,
@@ -145,10 +188,27 @@ def flops_kalman_step_tangent(D):
             + 4 * c["dot"] + 17 + 4 * c["vscale"] + 2 * c["outer"])
 
 
+def flops_kalman_state_step(D):
+    """kalman_step without its lml (a log, two adds, a multiply, a divide
+    and the -0.5 scale), which phase3_states does not keep."""
+    return flops_kalman_step(D) - 6
+
+
+def flops_affine_combine(D):
+    c = _op_counts(D)
+    return 3 * c["mm"] + c["mv"] + c["vadd"] + c["sym"] + c["madd"]
+
+
+def flops_affine_step(D):
+    c = _op_counts(D)
+    return 2 * c["mm"] + c["mv"] + c["vadd"] + c["sym"] + c["madd"]
+
+
 def kernel_work(name, L, B, D, k):
     """(operations, values moved) of one call: the primal once and each of
     the k tangents once; every input read once, every output written once."""
     K, SD, PK = 3 * D * D + 2 * D, D + D * D, 2 * D * D + 2 * D + 1
+    KT = 2 * D * D + D
     steps = L * B
     if name == "phase1_aggregate":
         return steps * (flops_step_element(D) + flops_combine(D)), 2 * steps + PK + K * B
@@ -166,6 +226,14 @@ def kernel_work(name, L, B, D, k):
     if name == "phase3_jvp_lml":
         ops = flops_kalman_step(D) + k * flops_kalman_step_tangent(D)
         return steps * ops, 2 * steps + (1 + k) * (PK + 1) + (1 + k) * (SD * B + B)
+    if name == "phase3_states":
+        return steps * flops_kalman_state_step(D), 2 * steps + PK + SD * B + SD * steps
+    if name == "affine_phase1":
+        return steps * flops_affine_combine(D), KT * steps + KT * B
+    if name == "affine_phase2_starts":
+        return B * flops_affine_combine(D), KT * B + SD + SD * B
+    if name == "affine_phase3_states":
+        return steps * flops_affine_step(D), KT * steps + SD * B + SD * steps
     raise KeyError(name)
 
 
@@ -213,11 +281,14 @@ def main():
     sys.path.insert(0, HERE)
     import numpy as np
 
-    from temporalgps_torch import (RegularSpacing, fit, learning, logpdf,
+    from temporalgps_torch import (RegularSpacing, fit, learning, logpdf, marginals,
                                    value_and_grad_fwd_lgssm)
-    from temporalgps_torch.gp import GP, ArrayStorage, Matern52, to_sde
+    from temporalgps_torch.gp import GP, ArrayStorage, Matern32, Matern52, to_sde
+    from temporalgps_torch.gp import posterior as gpost
     from temporalgps_torch.gp.lti_sde import build_lgssm
-    from temporalgps_torch.models.missings import transform_model_and_obs
+    from temporalgps_torch.models.missings import (posterior_with_missings,
+                                                   replace_observation_noise_cov,
+                                                   transform_model_and_obs)
     from temporalgps_torch.ops import block, kernels
     from temporalgps_torch.utils.psd import symmetrize
 
@@ -300,7 +371,7 @@ def main():
         packed = kernels.pack_params(A, a, Q, H, h, dtype)
         return y_main, s_main, packed, m0, symmetrize(P0)
 
-    def record_comparison(kname, name, k_out, p_out, partials, want):
+    def record_comparison(kname, name, k_out, p_out, partials, want, label="lml-partials"):
         """`partials` (downstream of the kernel) against `want`, row by row
         relative to each row's largest entry."""
         finite = bool(torch.isfinite(k_out).all())
@@ -308,10 +379,10 @@ def main():
         scale = want.abs().amax(dim=-1, keepdim=True)
         r = ((partials - want).abs() / scale).max().item()
         smoke.record.setdefault(kname, {})[name] = {"max_abs_err": max_abs,
-                                                    "lml_partials_rel": r}
+                                                    f"{label.replace('-', '_')}_rel": r}
         smoke.check(finite and r <= KERNEL_RTOL[name],
                     f"{kname} {name}: finite={finite} max_abs_err={max_abs:.3e} "
-                    f"lml-partials rel={r:.3e} (tol {KERNEL_RTOL[name]:g})")
+                    f"{label} rel={r:.3e} (tol {KERNEL_RTOL[name]:g})")
 
     def phase_compare():
         for name in dtypes:
@@ -559,60 +630,77 @@ def main():
                     lambda: logpdf(fx, y_dev[name], engine="block", fused=False)),
                 "end_to_end_value_and_grad": (lambda: vg(p0), None),
             }
-            for kname, (kernel_call, plain_call) in calls.items():
-                with torch.no_grad():
-                    k_ms = events_ms(kernel_call, reps=10, batches=5)
-                    # The plain versions ran in the compare phases: one call, no warm-up.
-                    p_ms = (events_ms(plain_call, reps=1, batches=1, warm_up=False)
-                            if plain_call else (None,))
-                entry = smoke.record.setdefault(kname, {}).setdefault(name, {})
-                entry.update({"ms": k_ms[0], "ms_range": k_ms[1:], "plain_ms": p_ms[0]})
-                line = f"  {name} {kname}: {k_ms[0]!r} ms (range {k_ms[1]!r}..{k_ms[2]!r})"
-                if plain_call:
-                    line += f", plain {p_ms[0]!r} ms (one call)"
-                if kname in REPLACES:
-                    bound_ms, bound_by = kernel_bound(kname, name, L, B, D, k)
-                    entry.update({"bound_ms": bound_ms, "bound_by": bound_by})
-                    line += f", bound {bound_ms!r} ms by {bound_by}"
-                print(line, flush=True)
+            time_calls(name, calls, L, B)
+
+    def time_calls(name, calls, L, B):
+        """Median of 5 batches of 10 calls of each kernel call, one call of
+        its plain version, and the kernel's bound at (L, B)."""
+        for kname, (kernel_call, plain_call) in calls.items():
+            with torch.no_grad():
+                k_ms = events_ms(kernel_call, reps=10, batches=5)
+                # The plain versions ran in the compare phases: one call, no warm-up.
+                p_ms = (events_ms(plain_call, reps=1, batches=1, warm_up=False)
+                        if plain_call else (None,))
+            entry = smoke.record.setdefault(kname, {}).setdefault(name, {})
+            entry.update({"ms": k_ms[0], "ms_range": k_ms[1:], "plain_ms": p_ms[0]})
+            line = f"  {name} {kname}: {k_ms[0]!r} ms (range {k_ms[1]!r}..{k_ms[2]!r})"
+            if plain_call:
+                line += f", plain {p_ms[0]!r} ms (one call)"
+            if kname in REPLACES:
+                bound_ms, bound_by = kernel_bound(kname, name, L, B, D, k)
+                entry.update({"bound_ms": bound_ms, "bound_by": bound_by})
+                line += f", bound {bound_ms!r} ms by {bound_by}"
+            print(line, flush=True)
 
     # ---- 8. where the time of one vg(p0) call goes -----------------------
-    def phase_profile():
+    def device_profile(call, calls):
+        """({kernel name: device us per call}, device kernels launched) of
+        `calls` calls under torch.profiler."""
         from torch.profiler import ProfilerActivity, profile
 
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                call()
+            torch.cuda.synchronize()
+        device_us = {}
+        n_device_ops = 0
+        for event in prof.key_averages():
+            us = getattr(event, "device_time_total", 0) or getattr(event, "cuda_time_total", 0)
+            is_kernel = "Kernel" in str(getattr(event, "device_type", "")) or \
+                str(getattr(event, "device_type", "")).endswith("CUDA")
+            if us and is_kernel:
+                device_us[event.key] = us / calls
+                n_device_ops += event.count
+        return device_us, n_device_ops
+
+    def kernel_us(device_us, short):
+        """Device us of the kernel `<short>_kernel`, mangled or not: its name
+        must not run on from a longer one (phase3_states_kernel within
+        affine_phase3_states_kernel)."""
+        pattern = re.compile(rf"(?<![A-Za-z_]){short}_kernel")
+        return sum(us for key, us in device_us.items() if pattern.search(key))
+
+    def stage_ms(fn, reps=20):
+        """Median host-clock ms of fn() between two synchronises, and its output."""
+        fn()
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(times), out
+
+    def phase_profile():
         calls = 10
         for name, dtype in dtypes.items():
             model_fn = make_model_fn(dtype, N_MAIN, DEVICE)
             vg = value_and_grad_fwd_lgssm(model_fn, y_dev[name])
             call_ms = events_ms(lambda: vg(p0), reps=calls, batches=3)[0]
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                for _ in range(calls):
-                    vg(p0)
-                torch.cuda.synchronize()
-            device_us = {}
-            n_device_ops = 0
-            for event in prof.key_averages():
-                us = getattr(event, "device_time_total", 0) or getattr(event, "cuda_time_total", 0)
-                is_kernel = "Kernel" in str(getattr(event, "device_type", "")) or \
-                    str(getattr(event, "device_type", "")).endswith("CUDA")
-                if us and is_kernel:
-                    device_us[event.key] = us / calls
-                    n_device_ops += event.count
+            device_us, n_device_ops = device_profile(lambda: vg(p0), calls)
             busy_us = sum(device_us.values())
-            ours = {short: sum(us for key, us in device_us.items() if f"{short}_kernel" in key)
-                    for short in ("phase1_jvp", "phase2_jvp_starts", "phase3_jvp_lml")}
-
-            def stage_ms(fn, reps=20):
-                fn()
-                times = []
-                for _ in range(reps):
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    out = fn()
-                    torch.cuda.synchronize()
-                    times.append(1e3 * (time.perf_counter() - t0))
-                return statistics.median(times), out
-
+            ours = {short: kernel_us(device_us, short) for short in JVP_KERNELS}
             build_ms, _ = stage_ms(lambda: model_fn(p0))
             tangents_ms, (model, tangents) = stage_ms(
                 lambda: learning._model_and_tangents(model_fn, p0))
@@ -632,6 +720,217 @@ def main():
             smoke.check(busy_us > 0 and all(us > 0 for us in ours.values()),
                         f"{name}: the profiler saw K4-K6 on the device")
 
+
+    # ---- 9-12. smoothing and prediction ------------------------------------
+    y_c1 = np.random.default_rng(SEED).standard_normal(N_C1)
+
+    def make_c1(dtype, device):
+        """The reference's bench config c1: GP(Matern32()), noise 0.1."""
+        return to_sde(GP(Matern32()), ArrayStorage(dtype), device=device)(
+            RegularSpacing(0.0, 1e-3, N_C1), NOISE)
+
+    def posterior_marginals(fx, y):
+        """The public call: the posterior's marginals at the training inputs
+        with prediction noise 0.1."""
+        return gpost.marginals(gpost.posterior(fx, y)(fx.x, NOISE))
+
+    def affine_inputs(name):
+        """The affine rows, initial mean and covariance that the N = 1M
+        posterior's marginals hand K8-K10 (the reverse iteration view)."""
+        post = posterior_with_missings(build_lgssm(make_fx(dtypes[name], N_MAIN, DEVICE)),
+                                       y_dev[name])
+        params = block._affine_comps_iteration(post, block._pallas_blocks(N_MAIN))
+        return params, post.trans.x0.mean, symmetrize(post.trans.x0.cov)
+
+    def rel_max(a, b):
+        """Largest error relative to the largest entry of the reference b
+        (0 where both are all zeros, as the prior's means are)."""
+        scale = b.abs().max().clamp_min(torch.finfo(torch.float64).tiny)
+        return ((a - b).abs().max() / scale).item()
+
+    def finite(*ts):
+        return all(bool(torch.isfinite(t).all()) for t in ts)
+
+    # ---- 9. state-emitting kernels against their plain versions ---------
+    def phase_compare_states():
+        SD = D + D * D
+        rows = lambda t: t.reshape(SD, -1)
+        for name in dtypes:
+            y_main, s_main, packed, m0, P0 = main_inputs(name)
+            starts = kernels.phase2_starts(
+                kernels.phase1_aggregate(y_main, s_main, packed, D), m0, P0, D)
+            params, am0, aP0 = affine_inputs(name)
+            L, B = y_main.shape
+            print(f"  {name}: L={L} B={B} D={D}, affine rows {tuple(params.shape)}")
+            p7 = kernels.phase3_states_plain(y_main, s_main, packed, starts, D)
+            p8 = kernels.affine_phase1_plain(params, D)
+            p9 = kernels.affine_phase2_starts_plain(p8, am0, aP0, D)
+            p10 = kernels.affine_phase3_states_plain(params, p9, D)
+            k7 = kernels.phase3_states(y_main, s_main, packed, starts, D)
+            k8 = kernels.affine_phase1(params, D)
+            k9 = kernels.affine_phase2_starts(p8, am0, aP0, D)
+            k10 = kernels.affine_phase3_states(params, p9, D)
+            torch.cuda.synchronize()
+            via_k8 = kernels.affine_phase3_states_plain(
+                params, kernels.affine_phase2_starts_plain(k8, am0, aP0, D), D)
+            via_k9 = kernels.affine_phase3_states_plain(params, k9, D)
+            record_comparison("phase3_states", name, k7, p7, rows(k7), rows(p7), "states")
+            record_comparison("affine_phase1", name, k8, p8, rows(via_k8), rows(p10), "states")
+            record_comparison("affine_phase2_starts", name, k9, p9, rows(via_k9), rows(p10),
+                              "states")
+            record_comparison("affine_phase3_states", name, k10, p10, rows(k10), rows(p10),
+                              "states")
+
+    # ---- 10. posterior path ----------------------------------------------
+    def phase_posterior():
+        rec = smoke.record["posterior"] = {}
+        # The main path: float32 first, its launch counts are the kernels line's.
+        main = {}
+        for name in ("float32", "float64"):
+            fx = make_fx(dtypes[name], N_MAIN, DEVICE)
+            kernels.reset_launch_counts()
+            m, v = posterior_marginals(fx, y_dev[name])
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            if name == "float32":
+                smoke.record["launches"].update({kn: counts[kn] for kn in STATE_KERNELS})
+            smoke.check(all(counts[kn] >= 1 for kn in POSTERIOR_KERNELS)
+                        and counts["phase3_lml"] == 0,
+                        f"{name} N={N_MAIN} posterior marginals: K1, K2, K7-K10 launched, "
+                        f"K3 not: {counts}")
+            smoke.check(m.shape == v.shape == (N_MAIN,) and finite(m, v) and bool((v > 0).all()),
+                        f"{name} N={N_MAIN}: finite means, positive variances, shape ({N_MAIN},)")
+            main[name] = (m.double(), v.double())
+        (m32, v32), (m64, v64) = main["float32"], main["float64"]
+        rec["main_f32_vs_f64"] = {
+            "means_rel": rel_max(m32, m64), "vars_rel": rel_max(v32, v64),
+            "means_abs": (m32 - m64).abs().max().item(), "vars_abs": (v32 - v64).abs().max().item(),
+            "max_abs_mean": m64.abs().max().item(), "var_min": v64.min().item(),
+            "var_max": v64.max().item()}
+        print(f"  N={N_MAIN} D={D} float32 vs float64: {json.dumps(rec['main_f32_vs_f64'])}")
+
+        c1 = {}
+        for name in ("float32", "float64"):
+            fx = make_c1(dtypes[name], DEVICE)
+            kernels.reset_launch_counts()
+            m, v = posterior_marginals(fx, y_c1)
+            pm, pv = marginals(fx)
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            smoke.check(all(counts[kn] >= 1 for kn in POSTERIOR_KERNELS) and finite(m, v, pm, pv),
+                        f"c1 {name}: kernels launched {counts}, finite")
+            c1[name] = [t.double() for t in (m, v, pm, pv)]
+        r_c1 = [rel_max(a, b) for a, b in zip(c1["float32"], c1["float64"])]
+        rec["c1_f32_vs_f64_rel"] = dict(zip(("post_means", "post_vars", "prior_means",
+                                             "prior_vars"), r_c1))
+        smoke.check(max(r_c1) <= 1e-3,
+                    f"c1 float32 vs float64 rel {rec['c1_f32_vs_f64_rel']} (tol 1e-3)")
+
+        y_small = y_np[:N_SMALL]
+        m_k, v_k = posterior_marginals(make_fx(torch.float64, N_SMALL, DEVICE), y_small)
+        m_s, v_s = posterior_marginals(make_fx(torch.float64, N_SMALL, "cpu"), y_small)
+        r_seq = max(rel_max(m_k.cpu(), m_s), rel_max(v_k.cpu(), v_s))
+        rec["f64_20k_rel_vs_sequential"] = r_seq
+        smoke.check(r_seq <= 1e-9,
+                    f"float64 N={N_SMALL} card vs sequential engine on the CPU rel={r_seq:.3e} "
+                    f"(tol 1e-9)")
+
+        x_pr = np.sort(np.random.default_rng(SEED + 1).uniform(0.0, 1e-3 * N_TRAIN_NEW,
+                                                               N_PRED_NEW))
+
+        def new_times(device):
+            fx = make_fx(torch.float64, N_TRAIN_NEW, device)
+            fp = gpost.posterior(fx, y_np[:N_TRAIN_NEW])
+            return gpost.marginals(fp(x_pr, 0.05))
+
+        kernels.reset_launch_counts()
+        m_n, v_n = new_times(DEVICE)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        m_c, v_c = new_times("cpu")
+        r_new = max(rel_max(m_n.cpu(), m_c), rel_max(v_n.cpu(), v_c))
+        rec["new_times_rel_vs_cpu"] = r_new
+        smoke.check(all(counts[kn] == 1 for kn in STATE_KERNELS[1:])
+                    and counts["phase3_states"] == 0 and m_n.shape == (N_PRED_NEW,),
+                    f"new times: sequential filter, then K8-K10: {counts}")
+        smoke.check(r_new <= 1e-9,
+                    f"float64 new times ({N_TRAIN_NEW} + {N_PRED_NEW}) card vs CPU "
+                    f"rel={r_new:.3e} (tol 1e-9)")
+        try:
+            gpost.cov(gpost.posterior(make_c1(torch.float64, DEVICE), y_c1)(RegularSpacing(0.0, 1e-3, 4)))
+            refused = False
+        except NotImplementedError:
+            refused = True
+        smoke.check(refused, "the dense posterior covariance is refused")
+
+    # ---- 11. timing of the posterior path --------------------------------
+    def phase_timing_states():
+        for name, dtype in dtypes.items():
+            y_main, s_main, packed, m0, P0 = main_inputs(name)
+            L, B = y_main.shape
+            starts = kernels.phase2_starts(
+                kernels.phase1_aggregate(y_main, s_main, packed, D), m0, P0, D)
+            params, am0, aP0 = affine_inputs(name)
+            agg = kernels.affine_phase1(params, D)
+            astarts = kernels.affine_phase2_starts(agg, am0, aP0, D)
+            fx, fx_c1 = make_fx(dtype, N_MAIN, DEVICE), make_c1(dtype, DEVICE)
+            calls = {
+                "phase3_states": (
+                    lambda: kernels.phase3_states(y_main, s_main, packed, starts, D),
+                    lambda: kernels.phase3_states_plain(y_main, s_main, packed, starts, D)),
+                "affine_phase1": (
+                    lambda: kernels.affine_phase1(params, D),
+                    lambda: kernels.affine_phase1_plain(params, D)),
+                "affine_phase2_starts": (
+                    lambda: kernels.affine_phase2_starts(agg, am0, aP0, D),
+                    lambda: kernels.affine_phase2_starts_plain(agg, am0, aP0, D)),
+                "affine_phase3_states": (
+                    lambda: kernels.affine_phase3_states(params, astarts, D),
+                    lambda: kernels.affine_phase3_states_plain(params, astarts, D)),
+                "end_to_end_posterior_marginals": (
+                    lambda: posterior_marginals(fx, y_dev[name]), None),
+                "end_to_end_posterior_marginals_c1": (
+                    lambda: posterior_marginals(fx_c1, y_c1), None),
+            }
+            time_calls(name, calls, L, B)
+
+    # ---- 12. where the time of one posterior-marginals call goes ---------
+    def phase_profile_posterior():
+        calls = 10
+        for name, dtype in dtypes.items():
+            fx = make_fx(dtype, N_MAIN, DEVICE)
+            y = y_dev[name]
+            call_ms = events_ms(lambda: posterior_marginals(fx, y), reps=calls, batches=3)[0]
+            device_us, n_device_ops = device_profile(lambda: posterior_marginals(fx, y), calls)
+            busy_us = sum(device_us.values())
+            ours = {short: kernel_us(device_us, short) for short in POSTERIOR_KERNELS}
+
+            B = block._pallas_blocks(N_MAIN)
+            build_ms, model = stage_ms(lambda: build_lgssm(fx))
+            missing_ms, (model_f, y_f, _) = stage_ms(lambda: transform_model_and_obs(model, y))
+            filter_ms, xf = stage_ms(lambda: block._filter_state_comps(model_f, y_f, None, None))
+            reversal_ms, post = stage_ms(lambda: block._reversed_model(model_f, xf))
+            post = replace_observation_noise_cov(post, fx.noise.value.expand(N_MAIN))
+            rows_ms, params = stage_ms(lambda: block._affine_comps_iteration(post, B))
+            affine_ms, comps = stage_ms(lambda: block._affine_states(post, params, None))
+            project_ms, _ = stage_ms(lambda: block._project(post, comps))
+            summary = {
+                "call_ms": call_ms, "device_busy_us": busy_us,
+                "idle_share": 1.0 - busy_us / (1e3 * call_ms) if busy_us else None,
+                "kernel_us": ours, "other_device_us": busy_us - sum(ours.values()),
+                "device_ops_per_call": n_device_ops / calls,
+                "other_device_ops_per_call": n_device_ops / calls - len(POSTERIOR_KERNELS),
+                "host_stage_ms": {"build_lgssm": build_ms, "missing_data": missing_ms,
+                                  "K1_K2_K7_filter_states": filter_ms,
+                                  "reversal_of_dynamics": reversal_ms,
+                                  "affine_comps_iteration": rows_ms, "K8_K9_K10": affine_ms,
+                                  "projection": project_ms},
+            }
+            smoke.record.setdefault("profile_posterior", {})[name] = summary
+            print(f"  {name}: {json.dumps(summary)}", flush=True)
+            smoke.check(busy_us > 0 and all(us > 0 for us in ours.values()),
+                        f"{name}: the profiler saw K1, K2, K7-K10 on the device")
+
     smoke.phase("1. versions and card", phase_versions)
     smoke.phase("2. build", phase_build)
     smoke.phase("3. value kernels vs plain versions at N=1M", phase_compare)
@@ -640,6 +939,10 @@ def main():
     smoke.phase("6. training path", phase_training)
     smoke.phase("7. timing at N=1M", phase_timing)
     smoke.phase("8. profile of value_and_grad at N=1M", phase_profile)
+    smoke.phase("9. state-emitting kernels vs plain versions at N=1M", phase_compare_states)
+    smoke.phase("10. posterior path", phase_posterior)
+    smoke.phase("11. timing of the posterior path", phase_timing_states)
+    smoke.phase("12. profile of posterior marginals at N=1M", phase_profile_posterior)
 
     print("== detail", json.dumps(smoke.record, default=str))
     if smoke.failures:

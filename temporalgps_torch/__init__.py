@@ -12,6 +12,11 @@ card unless the caller asks for the CPU with `to_sde(..., device="cpu")`:
         RegularSpacing(0.0, 1e-3, N), 0.1)
     lml = logpdf(fx, y)
 
+Prediction: `marginals(fx)` gives the prior's (means, variances), and
+`gp.posterior.marginals(posterior(fx, y)(x_new, noise))` the posterior's at
+the training or at new inputs, through the smoother as a reverse-ordered
+LGSSM (ops/block.py on K1, K2, K7 and the affine kernels K8-K10).
+
 Hyperparameters are fitted on the lml and its forward-mode gradient, which
 runs the primal and k tangent filters through one pass of kernels
 (learning.value_and_grad_fwd_lgssm, fit, fit_lbfgs).
@@ -19,7 +24,8 @@ runs the primal and k tangent filters through one pass of kernels
 The JAX package temporalgps_tpu is the reference this port is held to.
 """
 
-from .gp.lti_sde import logpdf
+from .gp.lti_sde import logpdf, marginals, mean, mean_and_var, var
+from .gp.posterior import posterior
 from .learning import (
     constrained,
     fit,
@@ -33,6 +39,11 @@ from .utils.regular_spacing import RegularSpacing
 __all__ = [
     "RegularSpacing",
     "logpdf",
+    "posterior",
+    "marginals",
+    "mean",
+    "var",
+    "mean_and_var",
     "fit",
     "fit_lbfgs",
     "positive",

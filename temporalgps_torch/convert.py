@@ -21,19 +21,22 @@ def _leaf(value, N, time_ndim, dtype, device):
     return Fill(t, N) if t.ndim == time_ndim else t
 
 
-def lgssm_from_numpy(As, offs, Qs, H, h, s, x0_mean, x0_cov, N, *, dtype, device="cuda"):
+def lgssm_from_numpy(As, offs, Qs, H, h, s, x0_mean, x0_cov, N, *, dtype, device="cuda",
+                     forward=True):
     """The port's LGSSM from the reference LGSSM's leaves: each of As (D, D),
     offs (D,), Qs (D, D), H (D,), h (), s () is a Fill value, or the same with
-    a leading time axis of length N (s is typically (N,)). The leaves of a
-    tangent model (the reference's jax.jvp of its model function) come across
-    the same way. On the card unless the caller passes device="cpu"."""
+    a leading time axis of length N (s is typically (N,)). `forward` is the
+    reference's `trans.forward`: False for a smoother's posterior, whose
+    transition leaves are per step. The leaves of a tangent model (the
+    reference's jax.jvp of its model function) come across the same way. On
+    the card unless the caller passes device="cpu"."""
     leaf = lambda v, nd: _leaf(v, N, nd, dtype, device)
     x0 = Gaussian(
         torch.tensor(np.asarray(x0_mean), dtype=dtype, device=device),
         torch.tensor(np.asarray(x0_cov), dtype=dtype, device=device),
     )
     return LGSSM(
-        GaussMarkov(As=leaf(As, 2), offs=leaf(offs, 1), Qs=leaf(Qs, 2), x0=x0, forward=True),
+        GaussMarkov(As=leaf(As, 2), offs=leaf(offs, 1), Qs=leaf(Qs, 2), x0=x0, forward=forward),
         ScalarEmissions(H=leaf(H, 1), h=leaf(h, 0), s=leaf(s, 0)),
     )
 

@@ -1,0 +1,232 @@
+// The state-emitting phases of smoothing and prediction, written for Hopper
+// (sm_90a), float and double, D in 1..3.
+//
+//   K7  phase3_states         replaces temporalgps_tpu/ops/pallas_kernels.py phase3_states
+//   K8  affine_phase1         replaces temporalgps_tpu/ops/pallas_kernels.py affine_phase1
+//   K9  affine_phase2_starts  replaces temporalgps_tpu/ops/pallas_kernels.py affine_phase2_starts
+//   K10 affine_phase3_states  replaces temporalgps_tpu/ops/pallas_kernels.py affine_phase3_states
+//
+// Layout: y and s are (L, B) row-major streams, element l*B + b is step l of
+// block b. Affine maps are (KT, L, B), KT = 2D^2 + D rows A, b, C: row k of
+// step l of block b at k*L*B + l*B + b. Aggregates are (KT, B), starts
+// (SD, B), and the states written after every step (SD, L, B), SD = D + D^2
+// rows m, P. Each kernel launches on the caller's stream and allocates
+// nothing; each C entry returns cudaGetLastError() after its launch.
+//
+// K7, K8 and K10 run one thread per block, like K1 and K3: a thread reads and
+// writes its block's rows at l*B + b, so a warp touches 32 neighbouring
+// addresses in every row. On paper they are bound by bytes (K7 writes SD
+// values a step, K8 reads KT, K10 reads KT and writes SD; each does a few
+// hundred flops a step at D = 3). With B = 2048 threads on 132 SMs they are
+// bound in practice by the latency of the serial per-block recursion, which
+// one warp per thread block spreads over as many schedulers as there are
+// warps. K9 is one thread block, as K2 (see below).
+
+#include "lanes.cuh"
+
+namespace tgps {
+
+constexpr int kStateThreads = 32;        // K7, K8, K10: one warp per thread block
+constexpr int kAffineScanThreads = 128;  // K9: threads of the single thread block
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kStateThreads)
+phase3_states_kernel(const T* __restrict__ y, const T* __restrict__ s,
+                     const T* __restrict__ params, const T* __restrict__ starts,
+                     T* __restrict__ out, int L, int B) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const long long LB = static_cast<long long>(L) * B;
+  const Params<T, D> p = load_params<T, D>(params);
+  Vec<T, D> m;
+  Mat<T, D> P;
+  load_state(starts + b, B, m, P);
+  for (int l = 0; l < L; ++l) {
+    const long long i = static_cast<long long>(l) * B + b;
+    kalman_step(m, P, p, s[i], y[i]);
+    store_state(m, P, out + i, LB);
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kStateThreads)
+affine_phase1_kernel(const T* __restrict__ params, T* __restrict__ out, int L, int B) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const long long LB = static_cast<long long>(L) * B;
+  Affine<T, D> acc = identity_affine<T, D>();
+  for (int l = 0; l < L; ++l) {
+    acc = affine_combine(acc, load_affine<T, D>(params + static_cast<long long>(l) * B + b, LB));
+  }
+  store_affine(acc, out + b, B);
+}
+
+// Exclusive prefix of the B aggregates seeded with x0, the element
+// (0, m0, P0): starts[b] = x0 then agg_0, ..., agg_{b-1}, written as (m, P)
+// rows. Composition is associative but not commutative, so every step keeps
+// the earlier operand on the left.
+//
+// The reference holds all (KT, B) aggregates in TPU VMEM; at B = 2048 in
+// double that is 344 KB, above the 227 KB of shared memory a thread block may
+// have. So the scan is two-level, as K2's: (1) each thread folds a contiguous
+// run of ceil(B / kAffineScanThreads) aggregates; (2) an inclusive
+// Hillis-Steele scan of the partials in shared memory (KT x 128 values:
+// 21.5 KB in double at D = 3); (3) each thread re-folds its run from its
+// exclusive prefix, seeded with x0, writing each block's start on the way.
+template <typename T, int D>
+__global__ void __launch_bounds__(kAffineScanThreads)
+affine_phase2_starts_kernel(const T* __restrict__ agg, const T* __restrict__ prior,
+                            T* __restrict__ starts, int B) {
+  __shared__ T partials[Dims<D>::kAffine * kAffineScanThreads];
+  const int t = threadIdx.x;
+  const int run = (B + kAffineScanThreads - 1) / kAffineScanThreads;
+  const int lo = min(t * run, B);
+  const int hi = min(lo + run, B);
+
+  Affine<T, D> own = identity_affine<T, D>();
+  for (int b = lo; b < hi; ++b) own = affine_combine(own, load_affine<T, D>(agg + b, B));
+
+  store_affine(own, partials + t, kAffineScanThreads);
+  __syncthreads();
+  for (int offset = 1; offset < kAffineScanThreads; offset <<= 1) {
+    Affine<T, D> next = own;
+    if (t >= offset) {
+      next = affine_combine(load_affine<T, D>(partials + (t - offset), kAffineScanThreads), own);
+    }
+    __syncthreads();
+    own = next;
+    store_affine(own, partials + t, kAffineScanThreads);
+    __syncthreads();
+  }
+
+  Affine<T, D> state;
+  state.A = zeros_mat<T, D>();
+  load_state(prior, 1, state.b, state.C);
+  if (t > 0) {
+    state = affine_combine(state, load_affine<T, D>(partials + (t - 1), kAffineScanThreads));
+  }
+  for (int b = lo; b < hi; ++b) {
+    store_state(state.b, state.C, starts + b, B);
+    state = affine_combine(state, load_affine<T, D>(agg + b, B));
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kStateThreads)
+affine_phase3_states_kernel(const T* __restrict__ params, const T* __restrict__ starts,
+                            T* __restrict__ out, int L, int B) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const long long LB = static_cast<long long>(L) * B;
+  Vec<T, D> m;
+  Mat<T, D> P;
+  load_state(starts + b, B, m, P);
+  for (int l = 0; l < L; ++l) {
+    const long long i = static_cast<long long>(l) * B + b;
+    affine_step(m, P, load_affine<T, D>(params + i, LB));
+    store_state(m, P, out + i, LB);
+  }
+}
+
+inline int state_grid(int B) { return (B + kStateThreads - 1) / kStateThreads; }
+
+template <typename T>
+int launch_phase3_states(const T* y, const T* s, const T* params, const T* starts, T* out,
+                         int L, int B, int D, cudaStream_t stream) {
+  if (L < 1 || B < 1) return static_cast<int>(cudaErrorInvalidValue);
+  switch (D) {
+    case 1: phase3_states_kernel<T, 1><<<state_grid(B), kStateThreads, 0, stream>>>(y, s, params, starts, out, L, B); break;
+    case 2: phase3_states_kernel<T, 2><<<state_grid(B), kStateThreads, 0, stream>>>(y, s, params, starts, out, L, B); break;
+    case 3: phase3_states_kernel<T, 3><<<state_grid(B), kStateThreads, 0, stream>>>(y, s, params, starts, out, L, B); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_affine_phase1(const T* params, T* out, int L, int B, int D, cudaStream_t stream) {
+  if (L < 1 || B < 1) return static_cast<int>(cudaErrorInvalidValue);
+  switch (D) {
+    case 1: affine_phase1_kernel<T, 1><<<state_grid(B), kStateThreads, 0, stream>>>(params, out, L, B); break;
+    case 2: affine_phase1_kernel<T, 2><<<state_grid(B), kStateThreads, 0, stream>>>(params, out, L, B); break;
+    case 3: affine_phase1_kernel<T, 3><<<state_grid(B), kStateThreads, 0, stream>>>(params, out, L, B); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_affine_phase2(const T* agg, const T* prior, T* starts, int B, int D,
+                         cudaStream_t stream) {
+  if (B < 1) return static_cast<int>(cudaErrorInvalidValue);
+  switch (D) {
+    case 1: affine_phase2_starts_kernel<T, 1><<<1, kAffineScanThreads, 0, stream>>>(agg, prior, starts, B); break;
+    case 2: affine_phase2_starts_kernel<T, 2><<<1, kAffineScanThreads, 0, stream>>>(agg, prior, starts, B); break;
+    case 3: affine_phase2_starts_kernel<T, 3><<<1, kAffineScanThreads, 0, stream>>>(agg, prior, starts, B); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_affine_phase3(const T* params, const T* starts, T* out, int L, int B, int D,
+                         cudaStream_t stream) {
+  if (L < 1 || B < 1) return static_cast<int>(cudaErrorInvalidValue);
+  switch (D) {
+    case 1: affine_phase3_states_kernel<T, 1><<<state_grid(B), kStateThreads, 0, stream>>>(params, starts, out, L, B); break;
+    case 2: affine_phase3_states_kernel<T, 2><<<state_grid(B), kStateThreads, 0, stream>>>(params, starts, out, L, B); break;
+    case 3: affine_phase3_states_kernel<T, 3><<<state_grid(B), kStateThreads, 0, stream>>>(params, starts, out, L, B); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tgps
+
+extern "C" {
+
+int tgps_phase3_states_f32(const float* y, const float* s, const float* params,
+                           const float* starts, float* out, int L, int B, int D, void* stream) {
+  return tgps::launch_phase3_states<float>(y, s, params, starts, out, L, B, D,
+                                           static_cast<cudaStream_t>(stream));
+}
+
+int tgps_phase3_states_f64(const double* y, const double* s, const double* params,
+                           const double* starts, double* out, int L, int B, int D, void* stream) {
+  return tgps::launch_phase3_states<double>(y, s, params, starts, out, L, B, D,
+                                            static_cast<cudaStream_t>(stream));
+}
+
+int tgps_affine_phase1_f32(const float* params, float* out, int L, int B, int D, void* stream) {
+  return tgps::launch_affine_phase1<float>(params, out, L, B, D, static_cast<cudaStream_t>(stream));
+}
+
+int tgps_affine_phase1_f64(const double* params, double* out, int L, int B, int D, void* stream) {
+  return tgps::launch_affine_phase1<double>(params, out, L, B, D, static_cast<cudaStream_t>(stream));
+}
+
+int tgps_affine_phase2_starts_f32(const float* agg, const float* prior, float* starts, int B,
+                                  int D, void* stream) {
+  return tgps::launch_affine_phase2<float>(agg, prior, starts, B, D,
+                                           static_cast<cudaStream_t>(stream));
+}
+
+int tgps_affine_phase2_starts_f64(const double* agg, const double* prior, double* starts, int B,
+                                  int D, void* stream) {
+  return tgps::launch_affine_phase2<double>(agg, prior, starts, B, D,
+                                            static_cast<cudaStream_t>(stream));
+}
+
+int tgps_affine_phase3_states_f32(const float* params, const float* starts, float* out, int L,
+                                  int B, int D, void* stream) {
+  return tgps::launch_affine_phase3<float>(params, starts, out, L, B, D,
+                                           static_cast<cudaStream_t>(stream));
+}
+
+int tgps_affine_phase3_states_f64(const double* params, const double* starts, double* out, int L,
+                                  int B, int D, void* stream) {
+  return tgps::launch_affine_phase3<double>(params, starts, out, L, B, D,
+                                            static_cast<cudaStream_t>(stream));
+}
+
+}  // extern "C"

@@ -23,6 +23,7 @@ struct Dims {
   static constexpr int kState = D + D * D;           // state rows (m, P)
   static constexpr int kParams = 2 * D * D + 2 * D + 1;
   static constexpr int kParamsS = kParams + 1;       // params plus the noise slot
+  static constexpr int kAffine = 2 * D * D + D;      // affine-map rows (A, b, C)
 };
 
 __device__ __forceinline__ float dev_log(float x) { return logf(x); }
@@ -577,6 +578,79 @@ __device__ __forceinline__ LmlJvp<T> kalman_step_jvp(Vec<T, D>& m, Vec<T, D>& dm
   P = sym(msub(Pp, outer(K, V)));
   dP = sym(msub(dPp, madd(outer(dK, V), outer(K, dV))));
   return lml;
+}
+
+// ---------------------------------------------------------------------------
+// Affine-Gaussian maps x -> A x + b + N(0, C): the steps of a chain's
+// marginals (ops/lanes.py affine_combine, affine_step).
+// ---------------------------------------------------------------------------
+
+template <typename T, int D>
+struct Affine {
+  Mat<T, D> A;
+  Vec<T, D> b;
+  Mat<T, D> C;
+};
+
+template <typename T, int D>
+__device__ __forceinline__ Affine<T, D> identity_affine() {
+  Affine<T, D> e;
+  e.A = eye<T, D>();
+  e.b = zeros_vec<T, D>();
+  e.C = zeros_mat<T, D>();
+  return e;
+}
+
+// Component-major affine rows A (D*D), b (D), C (D*D), row k at base[k * stride]:
+// stride B for (KT, B) aggregates, L * B for a step of (KT, L, B) maps.
+template <typename T, int D>
+__device__ __forceinline__ Affine<T, D> load_affine(const T* base, long long stride) {
+  Affine<T, D> e;
+  int k = 0;
+#pragma unroll
+  for (int r = 0; r < D; ++r)
+#pragma unroll
+    for (int c = 0; c < D; ++c) e.A.m[r][c] = base[(k++) * stride];
+#pragma unroll
+  for (int i = 0; i < D; ++i) e.b.v[i] = base[(k++) * stride];
+#pragma unroll
+  for (int r = 0; r < D; ++r)
+#pragma unroll
+    for (int c = 0; c < D; ++c) e.C.m[r][c] = base[(k++) * stride];
+  return e;
+}
+
+template <typename T, int D>
+__device__ __forceinline__ void store_affine(const Affine<T, D>& e, T* base, long long stride) {
+  int k = 0;
+#pragma unroll
+  for (int r = 0; r < D; ++r)
+#pragma unroll
+    for (int c = 0; c < D; ++c) base[(k++) * stride] = e.A.m[r][c];
+#pragma unroll
+  for (int i = 0; i < D; ++i) base[(k++) * stride] = e.b.v[i];
+#pragma unroll
+  for (int r = 0; r < D; ++r)
+#pragma unroll
+    for (int c = 0; c < D; ++c) base[(k++) * stride] = e.C.m[r][c];
+}
+
+// Composition: ei first, then ej.
+template <typename T, int D>
+__device__ __forceinline__ Affine<T, D> affine_combine(const Affine<T, D>& ei,
+                                                       const Affine<T, D>& ej) {
+  Affine<T, D> out;
+  out.A = mm(ej.A, ei.A);
+  out.b = vadd(mv(ej.A, ei.b), ej.b);
+  out.C = madd(sym(mmT(mm(ej.A, ei.C), ej.A)), ej.C);
+  return out;
+}
+
+// One step of the affine recursion, in place: m <- A m + b, P <- sym(A P A^T) + C.
+template <typename T, int D>
+__device__ __forceinline__ void affine_step(Vec<T, D>& m, Mat<T, D>& P, const Affine<T, D>& e) {
+  m = vadd(mv(e.A, m), e.b);
+  P = madd(sym(mmT(mm(e.A, P), e.A)), e.C);
 }
 
 }  // namespace tgps

@@ -7,7 +7,11 @@ from .lti_sde import (
     FiniteLTISDE,
     build_lgssm,
     logpdf,
+    marginals,
+    mean,
+    mean_and_var,
     to_sde,
+    var,
 )
 from .means import ConstMean, ZeroMean
 
@@ -19,6 +23,10 @@ __all__ = [
     "to_sde",
     "build_lgssm",
     "logpdf",
+    "marginals",
+    "mean",
+    "var",
+    "mean_and_var",
     "Kernel",
     "Matern12",
     "Matern32",

@@ -2,7 +2,8 @@
 
 A `GP` wrapped by `to_sde` becomes an `LTISDE`; calling it on inputs with
 observation noise gives a `FiniteLTISDE`; `build_lgssm` compiles kernel and
-inputs into the `LGSSM` on which inference runs. `RegularSpacing` inputs give
+inputs into the `LGSSM` on which inference runs; `logpdf` and the prior
+`marginals` run on it. `RegularSpacing` inputs give
 one shared (A, Q) wrapped in `Fill`s; an (N,) tensor of times gives
 per-step transitions.
 
@@ -19,6 +20,7 @@ from typing import Any
 import torch
 
 from ..config import DEFAULT_NOISE
+from ..models import lgssm as lgssm_mod
 from ..models import missings
 from ..models.emissions import ScalarEmissions
 from ..models.gauss_markov import GaussMarkov
@@ -186,3 +188,22 @@ def logpdf(fx: FiniteLTISDE, y, *, engine=None, **engine_kwargs):
     model = build_lgssm(fx)
     y = torch.as_tensor(y, dtype=model.dtype, device=model.device)
     return missings.logpdf_with_missings(model, y, engine=engine, **engine_kwargs)
+
+
+def marginals(fx: FiniteLTISDE, *, engine=None):
+    """Prior marginal (means, variances) of every observation, the noise
+    included. `engine=None` runs the affine block schedule (K8-K10) for a
+    model on a CUDA device and the sequential engine otherwise."""
+    return lgssm_mod.marginals_diag(build_lgssm(fx), engine=engine)
+
+
+def mean_and_var(fx: FiniteLTISDE, *, engine=None):
+    return marginals(fx, engine=engine)
+
+
+def mean(fx: FiniteLTISDE, *, engine=None):
+    return marginals(fx, engine=engine)[0]
+
+
+def var(fx: FiniteLTISDE, *, engine=None):
+    return marginals(fx, engine=engine)[1]

@@ -3,7 +3,9 @@
     x[0] ~ x0,    x[t] = A[t] x[t-1] + a[t] + eps[t],   eps[t] ~ N(0, Q[t])
 
 As, offs, Qs are (N, ...) tensors or Fills. `forward=False` is the reverse
-ordering of a smoother's posterior chain; nothing in the port builds one yet.
+ordering of a smoother's posterior chain, which models.lgssm.posterior
+builds: step t emits before its transition, and x0 is the state at the last
+step.
 """
 
 import dataclasses

@@ -5,14 +5,14 @@ A NaN in y is a missing observation: its noise becomes LARGE_VAR, its value
 n_missing * log(2 pi LARGE_VAR) / 2 back. Shapes stay static.
 """
 
-import dataclasses
 import math
 
 import torch
 
 from ..config import LARGE_VAR
 from ..utils.fill import is_fill
-from .lgssm import LGSSM, logpdf
+from . import emissions as em
+from .lgssm import LGSSM, logpdf, posterior
 
 _HALF_LOG_2PI_LARGE_VAR = 0.5 * math.log(2.0 * math.pi * LARGE_VAR)
 
@@ -30,18 +30,29 @@ def volume_compensation(n_missing, dtype):
     return n_missing.to(dtype) * _HALF_LOG_2PI_LARGE_VAR
 
 
+def replace_observation_noise_cov(model: LGSSM, new_noise) -> LGSSM:
+    """The model with its per-step observation noise leaf swapped."""
+    return LGSSM(model.trans, em.replace_noise_cov(model.emis, new_noise))
+
+
 def transform_model_and_obs(model: LGSSM, y):
     """(model', y', compensation) with the missing entries marginalised out.
     Only the noise leaf is materialised; the other leaves stay Fills."""
-    noise = model.emis.s
+    noise = em.noise_cov(model.emis)
     if is_fill(noise):
         noise = noise.value.expand(noise.N)
     noise_filled, y_filled, n_missing = fill_in_missings(noise, y)
     comp = volume_compensation(n_missing, y_filled.dtype)
-    emis = dataclasses.replace(model.emis, s=noise_filled)
-    return LGSSM(model.trans, emis), y_filled, comp
+    return replace_observation_noise_cov(model, noise_filled), y_filled, comp
 
 
 def logpdf_with_missings(model: LGSSM, y, *, engine=None, **engine_kwargs):
     model_f, y_f, comp = transform_model_and_obs(model, y)
     return logpdf(model_f, y_f, engine=engine, **engine_kwargs) + comp
+
+
+def posterior_with_missings(model: LGSSM, y, *, engine=None, **engine_kwargs):
+    """The smoothing posterior (models.lgssm.posterior) given y with NaNs for
+    the missing observations."""
+    model_f, y_f, _ = transform_model_and_obs(model, y)
+    return posterior(model_f, y_f, engine=engine, **engine_kwargs)

@@ -1,7 +1,8 @@
-"""The block-parallel Kalman filter's three phases (csrc/block_phases.cu) and
+"""The block-parallel Kalman filter's three phases (csrc/block_phases.cu),
 their forward-mode twins, which carry k tangents beside the primal
-(csrc/block_phases_jvp.cu), as kernels written by hand for Hopper, each
-beside its plain PyTorch version.
+(csrc/block_phases_jvp.cu), and the state-emitting phases of smoothing and
+prediction (csrc/block_states.cu), as kernels written by hand for Hopper,
+each beside its plain PyTorch version.
 
 Layout, as in temporalgps_tpu/ops/pallas_kernels.py: B blocks of L steps;
 y and s are (L, B) streams (row l holds step l of every block); elements and
@@ -10,6 +11,11 @@ states are component-major, (rows, B):
     element rows (K = 3D^2 + 2D):  A (D*D, row-major), b (D), C (D*D), eta (D), J (D*D)
     state rows   (SD = D + D^2):   m (D), P (D*D, row-major)
     packed params (PK = 2D^2 + 2D + 1):  A (D*D), a (D), Q (D*D), H (D), h
+    affine rows   (KT = 2D^2 + D):  A (D*D), b (D), C (D*D)
+
+The state-emitting phases write the state after every step as (SD, L, B):
+out[:, l, b] is the state after step l of block b. The affine phases take
+time-varying maps x -> A x + b + N(0, C) as (KT, L, B) rows.
 
 The forward-mode phases take (1+k, PK2) parameter rows, PK2 = PK + 1: row 0
 the packed primal parameters, row 1+j their tangent j, the extra last slot
@@ -65,6 +71,10 @@ def param_len(D: int) -> int:
 
 def param_s_len(D: int) -> int:
     return param_len(D) + 1
+
+
+def affine_rows(D: int) -> int:
+    return 2 * D * D + D
 
 
 def pack_params(A, a, Q, H, h, dtype):
@@ -145,6 +155,10 @@ _ENTRY_ARGS = {
     "phase1_jvp": (4, 4),         # y, s, rows, out; L, B, D, k
     "phase2_jvp_starts": (3, 3),  # comps, priors, starts; B, D, k
     "phase3_jvp_lml": (5, 4),     # y, s, rows, starts, lml; L, B, D, k
+    "phase3_states": (5, 3),         # y, s, params, starts, out; L, B, D
+    "affine_phase1": (2, 3),         # params, out; L, B, D
+    "affine_phase2_starts": (3, 2),  # agg, prior, starts; B, D
+    "affine_phase3_states": (3, 3),  # params, starts, out; L, B, D
 }
 
 
@@ -209,6 +223,11 @@ def _check_shape(name, t, shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
 
 
+def _prior_row(x0_mean, x0_cov, dtype):
+    """(SD,) row of an initial state: m0, then row-major P0."""
+    return torch.cat([x0_mean.reshape(-1), x0_cov.reshape(-1)]).to(dtype)
+
+
 def _check_streams(y_blocked, s_blocked):
     if y_blocked.ndim != 2:
         raise ValueError(f"y_blocked must be (L, B), got shape {tuple(y_blocked.shape)}")
@@ -242,20 +261,47 @@ def _zero_elem(shape, D, like):
     return (zmat, (zeros,) * D, zmat, (zeros,) * D, zmat)
 
 
-def _elem_rows_to_tuple(rows, D):
+def _affine_rows_to_tuple(rows, D):
+    """Rows A (D*D), b (D), C (D*D) -> component tuples (A, b, C); a
+    filtering element's first three components share this layout."""
     DD = D * D
     A = tuple(tuple(rows[r * D + c] for c in range(D)) for r in range(D))
     b = tuple(rows[DD + i] for i in range(D))
     C = tuple(tuple(rows[DD + D + r * D + c] for c in range(D)) for r in range(D))
+    return (A, b, C)
+
+
+def _elem_rows_to_tuple(rows, D):
+    DD = D * D
     eta = tuple(rows[2 * DD + D + i] for i in range(D))
     J = tuple(tuple(rows[2 * DD + 2 * D + r * D + c] for c in range(D)) for r in range(D))
-    return (A, b, C, eta, J)
+    return (*_affine_rows_to_tuple(rows, D), eta, J)
+
+
+def _flat(M):
+    """Row-major entries of a component matrix."""
+    return [x for row in M for x in row]
 
 
 def _elem_tuple_to_rows(e):
     A, b, C, eta, J = e
-    return [*(x for row in A for x in row), *b, *(x for row in C for x in row),
-            *eta, *(x for row in J for x in row)]
+    return [*_flat(A), *b, *_flat(C), *eta, *_flat(J)]
+
+
+def _state_tuple_to_rows(m, P):
+    return [*m, *_flat(P)]
+
+
+def _state_rows_to_tuple(rows, D):
+    m = tuple(rows[:D])
+    P = tuple(tuple(rows[D + r * D + c] for c in range(D)) for r in range(D))
+    return m, P
+
+
+def _seed(x0_mean, x0_cov, D, zero):
+    """(0, m0, P0) as components: the map that sets any state to x0."""
+    zmat = tuple(tuple(zero for _ in range(D)) for _ in range(D))
+    return (zmat, tuple(x0_mean.unbind(0)), tuple(tuple(row.unbind(0)) for row in x0_cov.unbind(0)))
 
 
 def phase1_aggregate_plain(y_blocked, s_blocked, packed, D):
@@ -270,38 +316,44 @@ def phase1_aggregate_plain(y_blocked, s_blocked, packed, D):
 
 
 def _shift(e, k, diag=1.0):
-    """Shift every component right by k blocks (the last axis), filling with
-    the identity element, or with its tangent, all zeros, for diag=0."""
+    """Shift every component of an element (filtering or affine: A first,
+    then vectors and matrices) right by k blocks (the last axis), filling
+    with the identity element, or with its tangent, all zeros, for diag=0."""
     def go(comp, fill):
         front = comp.new_full((*comp.shape[:-1], k), fill)
         return torch.cat([front, comp[..., : comp.shape[-1] - k]], dim=-1)
 
-    A, b, C, eta, J = e
-    D = len(b)
-    zmat = lambda M: tuple(tuple(go(x, 0.0) for x in row) for row in M)
+    def zeros(tree):
+        return tuple(map(zeros, tree)) if isinstance(tree, tuple) else go(tree, 0.0)
+
+    A, *rest = e
+    D = len(A)
     A_s = tuple(tuple(go(A[r][c], diag if r == c else 0.0) for c in range(D)) for r in range(D))
-    return (A_s, tuple(go(x, 0.0) for x in b), zmat(C), tuple(go(x, 0.0) for x in eta), zmat(J))
+    return (A_s, *map(zeros, rest))
 
 
 def phase2_starts_plain(comps, x0_mean, x0_cov, D):
     """(K, B) aggregates -> (SD, B) block-start states,
-    starts[b] = prior ∘ agg_0 ∘ ... ∘ agg_{b-1} with prior (0, m0, P0, 0, 0).
-    The prefix is the reference kernel's inclusive Kogge-Stone scan over the
-    blocks, earlier operand on the left at every level (combine is not
-    commutative), then shifted to exclusive and seeded with the prior."""
-    B = comps.shape[1]
-    e = _elem_rows_to_tuple(comps.unbind(0), D)
+    starts[b] = prior ∘ agg_0 ∘ ... ∘ agg_{b-1} with prior (0, m0, P0, 0, 0),
+    by `_prefix_starts`."""
+    zero = comps.new_zeros(())
+    zmat, m0, P0 = _seed(x0_mean, x0_cov, D, zero)
+    return _prefix_starts(_elem_rows_to_tuple(comps.unbind(0), D), lanes.combine,
+                          (zmat, m0, P0, (zero,) * D, zmat))
+
+
+def _prefix_starts(e, combine, seed):
+    """(SD, B) block starts: the state that seed, then e_0, ..., e_{b-1}
+    give for block b. The reference kernel's inclusive Kogge-Stone scan over
+    the blocks (the last axis), earlier operand on the left at every level
+    (combine is not commutative), shifted to exclusive and seeded."""
+    B = e[1][0].shape[-1]
     k = 1
     while k < B:
-        e = lanes.combine(_shift(e, k), e)
+        e = combine(_shift(e, k), e)
         k *= 2
-    e = _shift(e, 1)
-    zero = comps.new_zeros(())
-    zmat = tuple(tuple(zero for _ in range(D)) for _ in range(D))
-    m0 = tuple(x0_mean.unbind(0))
-    P0 = tuple(tuple(row.unbind(0)) for row in x0_cov.unbind(0))
-    _, b, C, _, _ = lanes.combine((zmat, m0, P0, (zero,) * D, zmat), e)
-    return torch.stack([*b, *(x for row in C for x in row)])
+    _, b, C, *_ = combine(seed, _shift(e, 1))
+    return torch.stack(_state_tuple_to_rows(b, C))
 
 
 def phase3_lml_plain(y_blocked, s_blocked, packed, starts, D):
@@ -351,12 +403,6 @@ def _split_sets(stacked, R, k):
     return primal.unbind(0), tangent.unbind(0)
 
 
-def _state_rows_to_tuple(rows, D):
-    m = tuple(rows[:D])
-    P = tuple(tuple(rows[D + r * D + c] for c in range(D)) for r in range(D))
-    return m, P
-
-
 def phase1_jvp_plain(y_blocked, s_blocked, packed_rows, D, k):
     """(L, B) streams and (1+k, PK2) rows -> ((1+k)*K, B): the primal block
     aggregates followed by their k tangents. The noise tangent of a step is
@@ -400,8 +446,7 @@ def phase2_jvp_starts_plain(comps, priors, D, k):
     prior = prior_elem(priors[0].reshape(-1, 1, 1).repeat(1, k, 1).unbind(0))
     dprior = prior_elem(priors[1:].T.reshape(-1, k, 1).unbind(0))
     (_, b, C, _, _), (_, db, dC, _, _) = torch.func.jvp(lanes.combine, (prior, e), (dprior, de))
-    return _stack_sets([*b, *(x for row in C for x in row)],
-                       [*db, *(x for row in dC for x in row)])
+    return _stack_sets(_state_tuple_to_rows(b, C), _state_tuple_to_rows(db, dC))
 
 
 def phase3_jvp_lml_plain(y_blocked, s_blocked, packed_rows, starts, D, k):
@@ -423,6 +468,54 @@ def phase3_jvp_lml_plain(y_blocked, s_blocked, packed_rows, starts, D, k):
             step, (m, P, *primal, slot), (dm, dP, *tangent, ds))
         acc, dacc = acc + lml, dacc + dlml
     return torch.cat([acc[:1], dacc])
+
+
+# ---------------------------------------------------------------------------
+# Plain state-emitting versions: smoothing and prediction
+# ---------------------------------------------------------------------------
+
+def phase3_states_plain(y_blocked, s_blocked, packed, starts, D):
+    """(L, B) streams and (SD, B) start states -> (SD, L, B): the Kalman
+    recursion of each block from its start state, keeping the filtering
+    state after every step."""
+    A, a, Q, H, h = _unpack_params(packed, D)
+    m, P = _state_rows_to_tuple(starts.unbind(0), D)
+    out = []
+    for y_l, s_l in zip(y_blocked.unbind(0), s_blocked.unbind(0)):
+        m, P, _ = lanes.kalman_step(m, P, A, a, Q, H, h, s_l, y_l)
+        out.append(torch.stack(_state_tuple_to_rows(m, P)))
+    return torch.stack(out, dim=1)
+
+
+def affine_phase1_plain(params, D):
+    """(KT, L, B) affine maps -> (KT, B) block aggregates: for each block,
+    the left fold of its L maps from the identity map (each step's map
+    applied after the carry)."""
+    carry = _identity_elem(params.shape[2:], D, params)[:3]
+    for rows in params.unbind(1):
+        carry = lanes.affine_combine(carry, _affine_rows_to_tuple(rows.unbind(0), D))
+    A, b, C = carry
+    return torch.stack([*_flat(A), *_state_tuple_to_rows(b, C)])
+
+
+def affine_phase2_starts_plain(agg, x0_mean, x0_cov, D):
+    """(KT, B) aggregates -> (SD, B) block-start states,
+    starts[b] = x0 then agg_0, ..., agg_{b-1}, with x0 the map (0, m0, P0),
+    by `_prefix_starts`."""
+    return _prefix_starts(_affine_rows_to_tuple(agg.unbind(0), D), lanes.affine_combine,
+                          _seed(x0_mean, x0_cov, D, agg.new_zeros(())))
+
+
+def affine_phase3_states_plain(params, starts, D):
+    """(KT, L, B) affine maps and (SD, B) start states -> (SD, L, B): the
+    affine recursion of each block from its start, keeping the state after
+    every step."""
+    m, P = _state_rows_to_tuple(starts.unbind(0), D)
+    out = []
+    for rows in params.unbind(1):
+        m, P = lanes.affine_step(m, P, *_affine_rows_to_tuple(rows.unbind(0), D))
+        out.append(torch.stack(_state_tuple_to_rows(m, P)))
+    return torch.stack(out, dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -468,7 +561,7 @@ def phase2_starts(comps, x0_mean, x0_cov, D):
     filtering states (mean rows, then row-major covariance rows)."""
     if _route(comps, x0_mean, x0_cov) == "cpu":
         return phase2_starts_plain(comps, x0_mean, x0_cov, D)
-    prior = torch.cat([x0_mean.reshape(-1), x0_cov.reshape(-1)]).to(comps.dtype)
+    prior = _prior_row(x0_mean, x0_cov, comps.dtype)
     _check_kernel_args(D, comps, prior)
     if comps.ndim != 2 or comps.shape[0] != elem_rows(D):
         raise ValueError(f"comps must be ({elem_rows(D)}, B), got {tuple(comps.shape)}")
@@ -598,8 +691,113 @@ def phase3_jvp_lml(y_blocked, s_blocked, packed_rows, starts, D, k):
 
 phase3_jvp_lml.launches = 0
 
+
+def _check_affine_params(params, D):
+    if params.ndim != 3 or params.shape[0] != affine_rows(D):
+        raise ValueError(f"params must be ({affine_rows(D)}, L, B), got {tuple(params.shape)}")
+
+
+# K7. Replaces temporalgps_tpu/ops/pallas_kernels.py phase3_states
+# (_phase3_states_kernel). K3's design: one thread per block, one warp per
+# thread block, runs the predict + scalar-update recursion from its start
+# state, and writes the state after every step to out[r, l, b], so a warp
+# stores 32 neighbouring addresses per row. Bound by bytes on paper (SD
+# values written a step, 215 flops at D = 3), and in practice, like K3, by
+# the latency of the serial recursion at B threads.
+def phase3_states(y_blocked, s_blocked, packed, starts, D):
+    """(L, B) streams and (SD, B) start states -> (SD, L, B) filtering
+    states after every step."""
+    if _route(y_blocked, s_blocked, packed, starts) == "cpu":
+        return phase3_states_plain(y_blocked, s_blocked, packed, starts, D)
+    _check_kernel_args(D, y_blocked, s_blocked, packed, starts)
+    _check_streams(y_blocked, s_blocked)
+    _check_shape("packed params", packed, (param_len(D),))
+    L, B = y_blocked.shape
+    _check_shape("starts", starts, (state_rows(D), B))
+    out = torch.empty((state_rows(D), L, B), dtype=y_blocked.dtype, device=y_blocked.device)
+    _launch("phase3_states", (y_blocked, s_blocked, packed, starts, out), (L, B, D))
+    phase3_states.launches += 1
+    return out
+
+
+phase3_states.launches = 0
+
+
+# K8. Replaces temporalgps_tpu/ops/pallas_kernels.py affine_phase1
+# (_affine_phase1_kernel). One thread per block folds its L time-varying
+# maps, reading KT rows a step (a warp reads 32 neighbouring addresses per
+# row); one warp per thread block, as K1. Bound by bytes on paper (KT values
+# a step against ~2 D^3 flops), in practice by the serial fold's latency.
+def affine_phase1(params, D):
+    """(KT, L, B) affine maps -> (KT, B) block aggregates."""
+    if _route(params) == "cpu":
+        return affine_phase1_plain(params, D)
+    _check_kernel_args(D, params)
+    _check_affine_params(params, D)
+    _, L, B = params.shape
+    out = torch.empty((affine_rows(D), B), dtype=params.dtype, device=params.device)
+    _launch("affine_phase1", (params, out), (L, B, D))
+    affine_phase1.launches += 1
+    return out
+
+
+affine_phase1.launches = 0
+
+
+# K9. Replaces temporalgps_tpu/ops/pallas_kernels.py affine_phase2_starts
+# (_affine_phase2_kernel). The TPU kernel holds all (KT, B) aggregates in
+# VMEM (344 KB at B = 2048 in float64, above the 227 KB of shared memory a
+# thread block may have), so this is K2's two-level scan: one thread block of
+# 128 threads, each folding a contiguous run, an inclusive scan of the 128
+# partials in shared memory (KT x 128 values, 21.5 KB in float64), and each
+# thread re-folding its run from its exclusive prefix, seeded with x0. Bound
+# by latency: ceil(B/128) + 7 + ceil(B/128) dependent combines on one SM.
+def affine_phase2_starts(agg, x0_mean, x0_cov, D):
+    """(KT, B) aggregates and the initial state (m0, P0) -> (SD, B)
+    block-start states."""
+    if _route(agg, x0_mean, x0_cov) == "cpu":
+        return affine_phase2_starts_plain(agg, x0_mean, x0_cov, D)
+    prior = _prior_row(x0_mean, x0_cov, agg.dtype)
+    _check_kernel_args(D, agg, prior)
+    if agg.ndim != 2 or agg.shape[0] != affine_rows(D):
+        raise ValueError(f"agg must be ({affine_rows(D)}, B), got {tuple(agg.shape)}")
+    _check_shape("prior", prior, (state_rows(D),))
+    B = agg.shape[1]
+    out = torch.empty((state_rows(D), B), dtype=agg.dtype, device=agg.device)
+    _launch("affine_phase2_starts", (agg, prior, out), (B, D))
+    affine_phase2_starts.launches += 1
+    return out
+
+
+affine_phase2_starts.launches = 0
+
+
+# K10. Replaces temporalgps_tpu/ops/pallas_kernels.py affine_phase3_states
+# (_affine_phase3_kernel). One thread per block replays m <- A m + b,
+# P <- sym(A P A^T) + C from its start, reading KT rows and writing SD rows
+# a step, each row a coalesced warp access; one warp per thread block.
+# Bound by bytes on paper ((KT + SD) values a step), in practice by the
+# serial replay's latency at B threads.
+def affine_phase3_states(params, starts, D):
+    """(KT, L, B) affine maps and (SD, B) start states -> (SD, L, B) states
+    after every step."""
+    if _route(params, starts) == "cpu":
+        return affine_phase3_states_plain(params, starts, D)
+    _check_kernel_args(D, params, starts)
+    _check_affine_params(params, D)
+    _, L, B = params.shape
+    _check_shape("starts", starts, (state_rows(D), B))
+    out = torch.empty((state_rows(D), L, B), dtype=params.dtype, device=params.device)
+    _launch("affine_phase3_states", (params, starts, out), (L, B, D))
+    affine_phase3_states.launches += 1
+    return out
+
+
+affine_phase3_states.launches = 0
+
 WRAPPERS = (phase1_aggregate, phase2_starts, phase3_lml,
-            phase1_jvp, phase2_jvp_starts, phase3_jvp_lml)
+            phase1_jvp, phase2_jvp_starts, phase3_jvp_lml,
+            phase3_states, affine_phase1, affine_phase2_starts, affine_phase3_states)
 
 
 def reset_launch_counts():

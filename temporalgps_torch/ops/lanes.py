@@ -180,3 +180,19 @@ def kalman_step(m: Vec, P: Mat, A: Mat, a: Vec, Q: Mat, H: Vec, h, s, y):
     m_f = vadd(mp, vscale(resid, K))
     P_f = sym(msub(Pp, outer(K, V)))
     return m_f, P_f, lml
+
+
+def affine_combine(e_i, e_j):
+    """Composition of affine-Gaussian maps (A, b, C), x -> A x + b + N(0, C):
+    e_i first, then e_j."""
+    A_i, b_i, C_i = e_i
+    A_j, b_j, C_j = e_j
+    A = mm(A_j, A_i)
+    b = vadd(mv(A_j, b_i), b_j)
+    C = madd(sym(mmT(mm(A_j, C_i), A_j)), C_j)
+    return (A, b, C)
+
+
+def affine_step(m: Vec, P: Mat, A: Mat, b: Vec, C: Mat):
+    """One step of the affine recursion: (A m + b, sym(A P A^T) + C)."""
+    return vadd(mv(A, m), b), madd(sym(mmT(mm(A, P), A)), C)

@@ -1,6 +1,6 @@
 """Per-step linear-Gaussian conditionals (temporalgps_tpu/ops/lgc.py): the
 predict and scalar-update steps of the sequential Kalman filter, which is the
-port's ground truth."""
+port's ground truth, and the scalar observation's predictive marginals."""
 
 import math
 
@@ -32,3 +32,12 @@ def posterior_and_lml_scalar(x: Gaussian, H, h, s, y):
     m_post = m + B * alpha
     P_post = P - B[:, None] * B[None, :]
     return Gaussian(m_post, P_post), lml
+
+
+def predict_marginals_scalar(x: Gaussian, H, h, s):
+    """Mean and variance of the scalar y = H x + h + N(0, s), batched over
+    leading axes: (H m + h, H P H^T + s)."""
+    m = (H * x.mean).sum(-1) + h
+    PH = (symmetrize(x.cov) @ H.unsqueeze(-1)).squeeze(-1)
+    v = (H * PH).sum(-1) + s
+    return m, v

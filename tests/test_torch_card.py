@@ -234,3 +234,113 @@ def test_fused_logpdf_and_gradient_on_card_match_cpu(cuda_device, dtype, rtol):
     v_cpu, g_cpu = run("cpu", engine="block")
     np.testing.assert_allclose(v_card, v_cpu, rtol=rtol)
     np.testing.assert_allclose(g_card.cpu().numpy(), g_cpu.numpy(), rtol=100 * rtol)
+
+
+def _rows_rel_err(got, want):
+    """Largest error of each row of `got`, relative to the row's largest
+    entry in `want` (rows are state or element components)."""
+    flat_got, flat_want = got.reshape(got.shape[0], -1), want.reshape(want.shape[0], -1)
+    scale = flat_want.abs().amax(dim=1, keepdim=True)
+    return ((flat_got - flat_want).abs() / scale).max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [1, 2, 3])
+@pytest.mark.parametrize("dtype, rtol", [(torch.float64, 1e-10), (torch.float32, 1e-4)])
+def test_state_kernels_match_plain_versions_on_card(cuda_device, D, dtype, rtol):
+    """K7-K10 against their plain versions on the same inputs, held on the
+    state rows (each scaled by its largest entry): K7's own, and for K8 and
+    K9 the states the plain phases compute downstream of them. Time-varying
+    affine maps, a missing step and B = 300 (not a multiple of the
+    thread-block sizes)."""
+    rng = np.random.default_rng(20 + D)
+    L, B = 37, 300
+    to = lambda x: torch.as_tensor(x, dtype=dtype, device=cuda_device).contiguous()
+    y = to(rng.standard_normal((L, B)))
+    s_np = np.full((L, B), 0.3)
+    s_np[5, 7] = 1e15
+    s = to(s_np)
+    A = np.eye(D) * 0.9 + 0.01 * rng.standard_normal((D, D))
+    packed = tk.pack_params(to(A), to(np.zeros(D)), to(0.1 * np.eye(D)), to(np.ones(D)),
+                            to(0.05), dtype)
+    m0, P0 = to(0.1 * rng.standard_normal(D)), to(np.eye(D))
+    starts = tk.phase2_starts_plain(tk.phase1_aggregate_plain(y, s, packed, D), m0, P0, D)
+    F = np.eye(D) * 0.95 + 0.02 * rng.standard_normal((L, B, D, D))
+    G = 0.1 * rng.standard_normal((L, B, D, D))
+    C = np.einsum("lbij,lbkj->lbik", G, G)
+    rows = np.concatenate([F.reshape(L, B, D * D), 0.1 * rng.standard_normal((L, B, D)),
+                           C.reshape(L, B, D * D)], axis=-1)
+    params = to(rows.transpose(2, 0, 1))
+    p7 = tk.phase3_states_plain(y, s, packed, starts, D)
+    p8 = tk.affine_phase1_plain(params, D)
+    p9 = tk.affine_phase2_starts_plain(p8, m0, P0, D)
+    p10 = tk.affine_phase3_states_plain(params, p9, D)
+    tk.reset_launch_counts()
+    k7 = tk.phase3_states(y, s, packed, starts, D)
+    k8 = tk.affine_phase1(params, D)
+    k9 = tk.affine_phase2_starts(p8, m0, P0, D)
+    k10 = tk.affine_phase3_states(params, p9, D)
+    torch.cuda.synchronize()
+    counts = tk.launch_counts()
+    assert [counts[n] for n in ("phase3_states", "affine_phase1", "affine_phase2_starts",
+                                "affine_phase3_states")] == [1, 1, 1, 1]
+    via_k8 = tk.affine_phase3_states_plain(params, tk.affine_phase2_starts_plain(k8, m0, P0, D), D)
+    via_k9 = tk.affine_phase3_states_plain(params, k9, D)
+    for got, want in ((k7, p7), (via_k8, p10), (via_k9, p10), (k10, p10)):
+        assert got.shape == want.shape and bool(torch.isfinite(got).all())
+        assert _rows_rel_err(got, want) <= rtol
+
+
+def _posterior_marginals(device, x_pr=None, N=3001, seed=4):
+    """gp.posterior marginals of a Matern-5/2 float64 model with one missing
+    value, at the training inputs or at x_pr."""
+    from temporalgps_torch.gp import posterior as gpost
+
+    y = np.random.default_rng(seed).standard_normal(N)
+    y[11] = np.nan
+    x = tt.RegularSpacing(0.0, 0.01, N)
+    fx = to_sde(GP((1.3 * Matern52()).stretch(0.7)), ArrayStorage(torch.float64),
+                device=device)(x, 0.2)
+    m, v = gpost.marginals(gpost.posterior(fx, y)(x if x_pr is None else x_pr, 0.1))
+    return m.cpu().numpy(), v.cpu().numpy()
+
+
+_STATE_KERNELS = ("phase1_aggregate", "phase2_starts", "phase3_states", "affine_phase1",
+                  "affine_phase2_starts", "affine_phase3_states")
+
+
+@pytest.mark.cuda
+def test_posterior_marginals_on_card_match_cpu(cuda_device):
+    """The posterior path on the card runs K1, K2, K7 and K8-K10 (not K3) and
+    agrees with the same call on the CPU (the plain versions)."""
+    tk.reset_launch_counts()
+    m_card, v_card = _posterior_marginals(cuda_device)
+    counts = tk.launch_counts()
+    assert all(counts[name] == 1 for name in _STATE_KERNELS) and counts["phase3_lml"] == 0
+    m_cpu, v_cpu = _posterior_marginals("cpu")
+    np.testing.assert_allclose(m_card, m_cpu, rtol=1e-9, atol=1e-9 * np.abs(m_cpu).max())
+    np.testing.assert_allclose(v_card, v_cpu, rtol=1e-9)
+
+
+@pytest.mark.cuda
+def test_posterior_marginals_at_new_times_on_card(cuda_device):
+    """At new times the merged model has per-step transitions: the posterior
+    runs on the sequential engine (no K1, K2, K7) and its marginals on
+    K8-K10; the result agrees with the CPU."""
+    x_pr = np.sort(np.random.default_rng(5).uniform(-0.5, 21.0, 300))
+    tk.reset_launch_counts()
+    m_card, v_card = _posterior_marginals(cuda_device, x_pr=x_pr, N=2000)
+    counts = tk.launch_counts()
+    assert [counts[n] for n in _STATE_KERNELS] == [0, 0, 0, 1, 1, 1]
+    m_cpu, v_cpu = _posterior_marginals("cpu", x_pr=x_pr, N=2000)
+    np.testing.assert_allclose(m_card, m_cpu, rtol=1e-9, atol=1e-9 * np.abs(m_cpu).max())
+    np.testing.assert_allclose(v_card, v_cpu, rtol=1e-9)
+
+
+@pytest.mark.cuda
+def test_posterior_covariance_is_refused_on_card(cuda_device):
+    from temporalgps_torch.gp import posterior as gpost
+
+    fx = to_sde(GP(Matern52()))(tt.RegularSpacing(0.0, 0.1, 16), 0.1)
+    with pytest.raises(NotImplementedError, match="Intentionally not implemented"):
+        gpost.cov(gpost.posterior(fx, np.zeros(16))(fx.x))

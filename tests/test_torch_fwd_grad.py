@@ -65,18 +65,18 @@ def _y(seed):
     return y
 
 
-def _jax_model(name, p):
+def _jax_model(name, p, n=N):
     s2, sc, noise = jnp.exp(p)
     fx = jgp.to_sde(jgp.GP((s2 * getattr(jgp, name)()).stretch(sc)))(
-        JRegularSpacing(0.0, DT, N), noise)
+        JRegularSpacing(0.0, DT, n), noise)
     return japi.build_lgssm(fx)
 
 
-def _torch_model_fn(name, x=None):
+def _torch_model_fn(name, x=None, n=N):
     def model_fn(p):
         s2, sc, noise = torch.exp(p)
         fx = to_sde(GP((s2 * TORCH_KERNEL[name]()).stretch(sc)), device="cpu")(
-            tt.RegularSpacing(0.0, DT, N) if x is None else x, noise)
+            tt.RegularSpacing(0.0, DT, n) if x is None else x, noise)
         return build_lgssm(fx)
 
     return model_fn
@@ -250,13 +250,20 @@ def test_value_and_grad_fwd_lgssm_matches_reference(name):
 
 def test_value_and_grad_fwd_lgssm_matches_reference_pallas_interpret():
     """The reference's own fused path (its Pallas kernels in interpret mode),
-    its minimal case: Matern-3/2, N = 18, 4 blocks, one NaN."""
-    y = _y(seed=77)
+    at the smallest size that keeps every feature: Matern-3/2, N = 3 in 2
+    blocks of 2 steps (one padding step), one NaN, and a live noise tangent,
+    which meets the mask at the missing and the padding step."""
+    n, n_blocks = 3, 2
+    y = np.random.default_rng(77).standard_normal(n)
+    y[1] = np.nan
     v_ref, g_ref = jlearning.value_and_grad_fwd_lgssm(
-        lambda p: _jax_model("Matern32", p), jnp.asarray(y), n_blocks=B)(jnp.asarray(P0))
-    value, grad = tt.value_and_grad_fwd_lgssm(_torch_model_fn("Matern32"), y, n_blocks=B)(_t(P0))
+        lambda p: _jax_model("Matern32", p, n=n), jnp.asarray(y), n_blocks=n_blocks)(
+        jnp.asarray(P0))
+    value, grad = tt.value_and_grad_fwd_lgssm(
+        _torch_model_fn("Matern32", n=n), y, n_blocks=n_blocks)(_t(P0))
     np.testing.assert_allclose(value.item(), float(v_ref), rtol=1e-9)
     np.testing.assert_allclose(grad.numpy(), np.asarray(g_ref), rtol=1e-9, atol=1e-10)
+    assert abs(float(g_ref[2])) > 1e-3  # the noise sensitivity is live
 
 
 def test_value_and_grad_fwd_lgssm_falls_back_on_irregular_times():

@@ -165,7 +165,8 @@ def test_wrappers_on_cpu_run_the_plain_versions():
     assert torch.equal(lml, tk.phase3_lml_plain(y_main, s_main, packed, starts, D))
     assert tk.launch_counts() == dict.fromkeys(
         ("phase1_aggregate", "phase2_starts", "phase3_lml",
-         "phase1_jvp", "phase2_jvp_starts", "phase3_jvp_lml"), 0)
+         "phase1_jvp", "phase2_jvp_starts", "phase3_jvp_lml",
+         "phase3_states", "affine_phase1", "affine_phase2_starts", "affine_phase3_states"), 0)
 
 
 def test_wrappers_refuse_devices_without_a_kernel():
