@@ -5,7 +5,8 @@
 Phases; any failure exits non-zero without the final result line:
   1. torch / CUDA versions, and the card's name and power limit (nvidia-smi).
   2. Build the hand-written kernels (csrc/, one nvcc per source, side by
-     side) and report the build time and ptxas register / spill counts.
+     side) and report the build time, ptxas register / shared-memory /
+     spill counts, and K4's and K8's chunk counts.
   3. Each value kernel (K1 phase1_aggregate, K2 phase2_starts, K3 phase3_lml)
      against its plain PyTorch version on the card, at the main path's shapes
      (Matern-5/2, D = 3, N = 1M: B = 2048 blocks of L = 489 steps), float64
@@ -18,7 +19,11 @@ Phases; any failure exits non-zero without the final result line:
      streams, k = 3 tangents). The gate is on the (1+k, B) lml rows
      downstream, each row scaled by its own largest entry, with the same two
      tolerances for the same reason: the kernels' tangents are written out by
-     hand and contract to FMA, the plain ones come from autodiff.
+     hand and contract to FMA, the plain ones come from autodiff. K4's
+     plain version runs in K4's chunk order (kernels.PHASE1_JVP_CHUNKS).
+     K4 is also held, with the same gate, at two ragged shapes of B = 96
+     blocks: L = 37 (not a multiple of the chunk count) and L = 1 (fewer
+     steps than chunks), with a missing step and padding steps.
   5. The lml path, through the public entry points:
        to_sde(GP((s2*Matern52()).stretch(sc)), ArrayStorage(float32))(
            RegularSpacing(0, 1e-3, 1_000_000), 0.1) -> logpdf
@@ -56,7 +61,9 @@ Phases; any failure exits non-zero without the final result line:
      iteration view). The gate is on the state rows (K7's and K10's own,
      and those the plain phases compute downstream of K8 and K9), each row
      scaled by its largest entry: 1e-10 in float64, 1e-4 in float32, for
-     the rounding and FMA reason of phase 3.
+     the rounding and FMA reason of phase 3. K8's plain version runs in
+     K8's chunk order (kernels.AFFINE_PHASE1_CHUNKS), and K8 is also held at
+     phase 4's two ragged shapes on time-varying maps.
  10. The posterior path, through the public entry points:
        marginals(posterior(fx, y)(x, 0.1))   (temporalgps_torch.gp.posterior)
      for the reference's bench config c1 (GP(Matern32()), float32,
@@ -134,6 +141,10 @@ POSTERIOR_KERNELS = ("phase1_aggregate", "phase2_starts") + STATE_KERNELS
 N_C1 = 10_000
 N_TRAIN_NEW, N_PRED_NEW = 2_000, 500
 KERNEL_RTOL = {"float64": 1e-10, "float32": 1e-4}
+
+# Ragged (L, B) of K4 and K8 beside the main shapes: L not a multiple of the
+# chunk counts, and fewer steps than chunks.
+RAGGED_SHAPES = ((37, 96), (1, 96))
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): device memory rate,
 # and arithmetic outside the tensor cores (float64 is half the float32 rate).
@@ -354,10 +365,13 @@ def main():
         path = kernels.build()
         kernels._library()
         print(f"  built {os.path.relpath(path, HERE)} in {time.perf_counter() - t0:.1f} s")
+        smoke.record["chunks"] = {"phase1_jvp": kernels.PHASE1_JVP_CHUNKS,
+                                  "affine_phase1": kernels.AFFINE_PHASE1_CHUNKS}
+        print(f"  chunks a block: {smoke.record['chunks']}")
         log = path.with_suffix(".log")
         if log.exists():
             for line in log.read_text().splitlines():
-                if "Compiling entry" in line or "registers" in line or "spill" in line:
+                if any(key in line for key in ("Compiling entry", "registers", "spill", "smem")):
                     print("  ptxas:", line.split("ptxas info    :")[-1].strip())
 
     # ---- 3. value kernels against their plain versions -------------------
@@ -371,18 +385,31 @@ def main():
         packed = kernels.pack_params(A, a, Q, H, h, dtype)
         return y_main, s_main, packed, m0, symmetrize(P0)
 
-    def record_comparison(kname, name, k_out, p_out, partials, want, label="lml-partials"):
+    def record_comparison(kname, name, k_out, p_out, partials, want, label="lml-partials",
+                          shape=None):
         """`partials` (downstream of the kernel) against `want`, row by row
-        relative to each row's largest entry."""
+        relative to each row's largest entry; recorded under the dtype's
+        name, or beside it for a ragged (L, B) `shape`."""
         finite = bool(torch.isfinite(k_out).all())
         max_abs = (k_out - p_out).abs().max().item()
         scale = want.abs().amax(dim=-1, keepdim=True)
         r = ((partials - want).abs() / scale).max().item()
-        smoke.record.setdefault(kname, {})[name] = {"max_abs_err": max_abs,
-                                                    f"{label.replace('-', '_')}_rel": r}
+        key = name if shape is None else f"{name}_L{shape[0]}_B{shape[1]}"
+        smoke.record.setdefault(kname, {})[key] = {"max_abs_err": max_abs,
+                                                   f"{label.replace('-', '_')}_rel": r}
         smoke.check(finite and r <= KERNEL_RTOL[name],
-                    f"{kname} {name}: finite={finite} max_abs_err={max_abs:.3e} "
+                    f"{kname} {key}: finite={finite} max_abs_err={max_abs:.3e} "
                     f"{label} rel={r:.3e} (tol {KERNEL_RTOL[name]:g})")
+
+    def ragged_streams(name, L, B):
+        """(L, B) y and s on the card: a missing step, and padding steps at
+        the end of the last block."""
+        rng = np.random.default_rng(SEED + L)
+        s = np.full((L, B), NOISE)
+        s[min(5, L - 1), 7] = 1e15
+        s[max(L - 2, 0):, B - 1] = 1e15
+        return (torch.as_tensor(rng.standard_normal((L, B)), dtype=dtypes[name], device=DEVICE),
+                torch.as_tensor(s, dtype=dtypes[name], device=DEVICE))
 
     def phase_compare():
         for name in dtypes:
@@ -421,7 +448,8 @@ def main():
             y_main, s_main, rows, priors = jvp_inputs(name)
             L, B = y_main.shape
             print(f"  {name}: L={L} B={B} D={D} k={k}")
-            p1 = kernels.phase1_jvp_plain(y_main, s_main, rows, D, k)
+            p1 = kernels.phase1_jvp_plain(y_main, s_main, rows, D, k,
+                                          chunks=kernels.PHASE1_JVP_CHUNKS)
             p2 = kernels.phase2_jvp_starts_plain(p1, priors, D, k)
             p3 = kernels.phase3_jvp_lml_plain(y_main, s_main, rows, p2, D, k)
             k1 = kernels.phase1_jvp(y_main, s_main, rows, D, k)
@@ -434,6 +462,17 @@ def main():
             record_comparison("phase1_jvp", name, k1, p1, via_k1, p3)
             record_comparison("phase2_jvp_starts", name, k2, p2, via_k2, p3)
             record_comparison("phase3_jvp_lml", name, k3, p3, k3, p3)
+            for shape in RAGGED_SHAPES:
+                y_r, s_r = ragged_streams(name, *shape)
+                p1 = kernels.phase1_jvp_plain(y_r, s_r, rows, D, k,
+                                              chunks=kernels.PHASE1_JVP_CHUNKS)
+                p3 = kernels.phase3_jvp_lml_plain(
+                    y_r, s_r, rows, kernels.phase2_jvp_starts_plain(p1, priors, D, k), D, k)
+                k1 = kernels.phase1_jvp(y_r, s_r, rows, D, k)
+                torch.cuda.synchronize()
+                via_k1 = kernels.phase3_jvp_lml_plain(
+                    y_r, s_r, rows, kernels.phase2_jvp_starts_plain(k1, priors, D, k), D, k)
+                record_comparison("phase1_jvp", name, k1, p1, via_k1, p3, shape=shape)
 
     # ---- 5. lml path -----------------------------------------------------
     def phase_main_path():
@@ -618,7 +657,8 @@ def main():
                     lambda: kernels.phase3_lml_plain(y_main, s_main, packed, starts, D)),
                 "phase1_jvp": (
                     lambda: kernels.phase1_jvp(y_main, s_main, rows, D, k),
-                    lambda: kernels.phase1_jvp_plain(y_main, s_main, rows, D, k)),
+                    lambda: kernels.phase1_jvp_plain(y_main, s_main, rows, D, k,
+                                                     chunks=kernels.PHASE1_JVP_CHUNKS)),
                 "phase2_jvp_starts": (
                     lambda: kernels.phase2_jvp_starts(jcomps, priors, D, k),
                     lambda: kernels.phase2_jvp_starts_plain(jcomps, priors, D, k)),
@@ -751,6 +791,17 @@ def main():
     def finite(*ts):
         return all(bool(torch.isfinite(t).all()) for t in ts)
 
+    def ragged_affine(name, L, B):
+        """Time-varying stable maps (KT, L, B), an initial state, on the card."""
+        rng = np.random.default_rng(SEED + L)
+        F = np.eye(D) * 0.95 + 0.02 * rng.standard_normal((L, B, D, D))
+        G = 0.1 * rng.standard_normal((L, B, D, D))
+        C = np.einsum("lbij,lbkj->lbik", G, G)
+        rows = np.concatenate([F.reshape(L, B, D * D), 0.1 * rng.standard_normal((L, B, D)),
+                               C.reshape(L, B, D * D)], axis=-1)
+        to = lambda x: torch.as_tensor(x, dtype=dtypes[name], device=DEVICE).contiguous()
+        return to(rows.transpose(2, 0, 1)), to(0.1 * rng.standard_normal(D)), to(np.eye(D))
+
     # ---- 9. state-emitting kernels against their plain versions ---------
     def phase_compare_states():
         SD = D + D * D
@@ -763,7 +814,7 @@ def main():
             L, B = y_main.shape
             print(f"  {name}: L={L} B={B} D={D}, affine rows {tuple(params.shape)}")
             p7 = kernels.phase3_states_plain(y_main, s_main, packed, starts, D)
-            p8 = kernels.affine_phase1_plain(params, D)
+            p8 = kernels.affine_phase1_plain(params, D, chunks=kernels.AFFINE_PHASE1_CHUNKS)
             p9 = kernels.affine_phase2_starts_plain(p8, am0, aP0, D)
             p10 = kernels.affine_phase3_states_plain(params, p9, D)
             k7 = kernels.phase3_states(y_main, s_main, packed, starts, D)
@@ -780,6 +831,17 @@ def main():
                               "states")
             record_comparison("affine_phase3_states", name, k10, p10, rows(k10), rows(p10),
                               "states")
+            for shape in RAGGED_SHAPES:
+                r_params, r_m0, r_P0 = ragged_affine(name, *shape)
+                p8 = kernels.affine_phase1_plain(r_params, D, chunks=kernels.AFFINE_PHASE1_CHUNKS)
+                p10 = kernels.affine_phase3_states_plain(
+                    r_params, kernels.affine_phase2_starts_plain(p8, r_m0, r_P0, D), D)
+                k8 = kernels.affine_phase1(r_params, D)
+                torch.cuda.synchronize()
+                via_k8 = kernels.affine_phase3_states_plain(
+                    r_params, kernels.affine_phase2_starts_plain(k8, r_m0, r_P0, D), D)
+                record_comparison("affine_phase1", name, k8, p8, rows(via_k8), rows(p10),
+                                  "states", shape=shape)
 
     # ---- 10. posterior path ----------------------------------------------
     def phase_posterior():
@@ -880,7 +942,8 @@ def main():
                     lambda: kernels.phase3_states_plain(y_main, s_main, packed, starts, D)),
                 "affine_phase1": (
                     lambda: kernels.affine_phase1(params, D),
-                    lambda: kernels.affine_phase1_plain(params, D)),
+                    lambda: kernels.affine_phase1_plain(params, D,
+                                                        chunks=kernels.AFFINE_PHASE1_CHUNKS)),
                 "affine_phase2_starts": (
                     lambda: kernels.affine_phase2_starts(agg, am0, aP0, D),
                     lambda: kernels.affine_phase2_starts_plain(agg, am0, aP0, D)),

@@ -18,40 +18,98 @@
 // carried the primal and k tangent elements would need (1+k)*K live values
 // and could not be unrolled over k. So the tangents are spread over the
 // grid: blockIdx.y = j, and thread (b, j) carries the primal and tangent j
-// only. The primal is recomputed k times; the j = 0 threads write it. This
-// also puts k times more warps in flight than K1 and K3 have.
+// only. The primal is recomputed k times; the j = 0 threads write it.
 //
 // The noise tangent enters a step as ds * (s < kMaskThresh): a missing or
 // padding step has the LARGE_VAR fill in the s stream, its lml is a constant
 // that the caller's compensation adds back, and its derivative with respect
 // to the noise must be exactly zero.
 //
-// All three are bound, like K1-K3, by the latency of a serial recursion.
+// K4 is bound by operations on paper (at D = 3 a step is 738 flops for the
+// primal and 1522 for the tangent, against two values read), and on this card
+// by how many warps issue them: a step is a dependent chain of about 1.5k
+// instructions, and one warp per (32 blocks, tangent) gives 192 warps at
+// B = 2048, k = 3 for 528 schedulers. The fold is associative, so K4 splits
+// each block's L steps into kPhase1JvpChunks = C contiguous chunks, one per
+// warp (lane i of every warp takes block 32 * blockIdx.x + i, so the stream
+// reads stay coalesced), and combines the chunk aggregates in order: C times
+// the warps in flight, and a serial chain of ceil(L / C) steps instead of L.
+// A thread needs all 255 registers (and spills in double at D = 3), so an
+// SM holds one thread block of 8 warps; one block of 16 warps would cap a
+// thread at 128 registers and spill. So the C = 16 warps of a (32 blocks,
+// tangent) pair are a cluster of C / kPhase1JvpWarps = 2 thread blocks of 8
+// warps, which combine their two halves through distributed shared memory:
+// 384 thread blocks of 31 steps spread over 132 SMs more evenly than 192 of
+// 62 steps (one block of C = 8 warps) would. K5 and K6 are bound, like
+// K1-K3, by the latency of a serial recursion.
+
+#include <cooperative_groups.h>
 
 #include "lanes.cuh"
 
 namespace tgps {
 
-constexpr int kJvpLaneThreads = 32;   // K4, K6: one warp per thread block
+constexpr int kJvpLaneThreads = 32;   // K4, K6: a warp's lanes take 32 neighbouring blocks
 constexpr int kJvpScanThreads = 128;  // K5: threads of each tangent's thread block
 constexpr double kMaskThresh = 1e14;  // LARGE_VAR / 10
+// K4: chunks of every block's steps, one per warp, and warps per thread
+// block; a cluster of C / W thread blocks holds a block's C warps.
+// ops/kernels.py passes its PHASE1_JVP_CHUNKS at the launch; the two must agree.
+constexpr int kPhase1JvpChunks = 16;
+constexpr int kPhase1JvpWarps = 8;
+constexpr int kPhase1JvpCluster = kPhase1JvpChunks / kPhase1JvpWarps;
+static_assert((kPhase1JvpWarps & (kPhase1JvpWarps - 1)) == 0 &&
+              (kPhase1JvpCluster & (kPhase1JvpCluster - 1)) == 0 &&
+              kPhase1JvpCluster * kPhase1JvpWarps == kPhase1JvpChunks,
+              "the chunk tree takes 2^n chunks, W a thread block, 2^m thread blocks a cluster");
 
+// Shared memory of K4's chunk tree: at each level half of the remaining
+// warps hand their primal and tangent aggregates to the warp on their left,
+// so W / 2 slots of 2K rows of 32 lanes suffice.
 template <typename T, int D>
-__global__ void __launch_bounds__(kJvpLaneThreads)
+constexpr int phase1_jvp_shared_bytes() {
+  return 2 * Dims<D>::kElem * (kPhase1JvpWarps / 2) * kJvpLaneThreads * static_cast<int>(sizeof(T));
+}
+
+// Warp w of the thread block of cluster rank z (blockIdx.z) in cluster
+// (x, j) takes chunk c = z W + w: steps [c Lc, min((c+1) Lc, L)), Lc =
+// ceil(L / C), of block b = 32x + lane for the primal and tangent j, folded
+// from the identity element with a zero tangent (an empty chunk stays that).
+// The C chunk aggregates are then combined in a log2(C)-level tree, earlier
+// chunk always on the left (combine is not commutative): at span 1, 2, 4,
+// ..., chunk c with c % 2span == span hands its aggregate to chunk c - span,
+// which combines it on the right of its own. The levels inside a thread
+// block go through its shared memory, the levels across thread blocks
+// through the cluster's (warp 0 of rank z reads rank z + span's slot). Warp
+// 0 of rank 0 ends with the block's total.
+template <typename T, int D>
+__global__ void __cluster_dims__(1, 1, kPhase1JvpCluster)
+__launch_bounds__(kJvpLaneThreads * kPhase1JvpWarps)
 phase1_jvp_kernel(const T* __restrict__ y, const T* __restrict__ s, const T* __restrict__ rows,
                   T* __restrict__ out, int L, int B) {
   constexpr int K = Dims<D>::kElem;
   constexpr int PK2 = Dims<D>::kParamsS;
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  constexpr int C = kPhase1JvpChunks;
+  constexpr int W = kPhase1JvpWarps;
+  constexpr int kSlotStride = (W / 2) * kJvpLaneThreads;  // row stride of the hand-over slots
+  extern __shared__ __align__(16) unsigned char shared_raw[];
+  T* handed = reinterpret_cast<T*>(shared_raw);
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  const int z = static_cast<int>(cluster.block_rank());
+  const int lane = threadIdx.x % kJvpLaneThreads;
+  const int w = threadIdx.x / kJvpLaneThreads;
+  const int b = blockIdx.x * kJvpLaneThreads + lane;
   const int j = blockIdx.y;
-  if (b >= B) return;
   const Params<T, D> p = load_params<T, D>(rows);
   const T* drow = rows + static_cast<long long>(1 + j) * PK2;
   const Params<T, D> dp = load_params<T, D>(drow);
   const T ds = drow[PK2 - 1];
+  const int Lc = (L + C - 1) / C;
+  const int lo = min((z * W + w) * Lc, L);
+  const int hi = b < B ? min(lo + Lc, L) : lo;  // a lane past the last block folds nothing
   Elem<T, D> acc = identity_elem<T, D>();
   Elem<T, D> dacc = zero_elem<T, D>();
-  for (int l = 0; l < L; ++l) {
+  for (int l = lo; l < hi; ++l) {
     const long long i = static_cast<long long>(l) * B + b;
     const T s_l = s[i];
     const T ds_l = s_l < T(kMaskThresh) ? ds : T(0);
@@ -60,6 +118,40 @@ phase1_jvp_kernel(const T* __restrict__ y, const T* __restrict__ s, const T* __r
     acc = c.primal;
     dacc = c.tangent;
   }
+#pragma unroll 1
+  for (int span = 1; span < W; span *= 2) {
+    T* slot = handed + (w / (2 * span)) * kJvpLaneThreads + lane;
+    if (w % (2 * span) == span) {
+      store_elem(acc, slot, kSlotStride);
+      store_elem(dacc, slot + K * kSlotStride, kSlotStride);
+    }
+    __syncthreads();
+    if (w % (2 * span) == 0) {
+      const ElemJvp<T, D> c = combine_jvp(acc, dacc, load_elem<T, D>(slot, kSlotStride),
+                                          load_elem<T, D>(slot + K * kSlotStride, kSlotStride));
+      acc = c.primal;
+      dacc = c.tangent;
+    }
+    __syncthreads();
+  }
+#pragma unroll 1
+  for (int span = 1; span < kPhase1JvpCluster; span *= 2) {
+    T* slot = handed + lane;
+    if (w == 0 && z % (2 * span) == span) {
+      store_elem(acc, slot, kSlotStride);
+      store_elem(dacc, slot + K * kSlotStride, kSlotStride);
+    }
+    cluster.sync();
+    if (w == 0 && z % (2 * span) == 0) {
+      const T* remote = cluster.map_shared_rank(handed, z + span) + lane;
+      const ElemJvp<T, D> c = combine_jvp(acc, dacc, load_elem<T, D>(remote, kSlotStride),
+                                          load_elem<T, D>(remote + K * kSlotStride, kSlotStride));
+      acc = c.primal;
+      dacc = c.tangent;
+    }
+    cluster.sync();  // rank z + span's slot stays in place until it is read
+  }
+  if (w != 0 || z != 0 || b >= B) return;
   if (j == 0) store_elem(acc, out + b, B);
   store_elem(dacc, out + static_cast<long long>(1 + j) * K * B + b, B);
 }
@@ -162,18 +254,30 @@ phase3_jvp_lml_kernel(const T* __restrict__ y, const T* __restrict__ s,
 
 inline int jvp_lane_grid(int B) { return (B + kJvpLaneThreads - 1) / kJvpLaneThreads; }
 
+template <typename T, int D>
+int launch_phase1_jvp_d(const T* y, const T* s, const T* rows, T* out, int L, int B, int k,
+                        cudaStream_t stream) {
+  const int bytes = phase1_jvp_shared_bytes<T, D>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      phase1_jvp_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(jvp_lane_grid(B), k, kPhase1JvpCluster);
+  phase1_jvp_kernel<T, D><<<grid, kJvpLaneThreads * kPhase1JvpWarps, bytes, stream>>>(
+      y, s, rows, out, L, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch_phase1_jvp(const T* y, const T* s, const T* rows, T* out, int L, int B, int D, int k,
-                      cudaStream_t stream) {
-  if (L < 1 || B < 1 || k < 1 || k > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(jvp_lane_grid(B), k);
+                      int chunks, cudaStream_t stream) {
+  if (L < 1 || B < 1 || k < 1 || k > 65535 || chunks != kPhase1JvpChunks)
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (D) {
-    case 1: phase1_jvp_kernel<T, 1><<<grid, kJvpLaneThreads, 0, stream>>>(y, s, rows, out, L, B); break;
-    case 2: phase1_jvp_kernel<T, 2><<<grid, kJvpLaneThreads, 0, stream>>>(y, s, rows, out, L, B); break;
-    case 3: phase1_jvp_kernel<T, 3><<<grid, kJvpLaneThreads, 0, stream>>>(y, s, rows, out, L, B); break;
+    case 1: return launch_phase1_jvp_d<T, 1>(y, s, rows, out, L, B, k, stream);
+    case 2: return launch_phase1_jvp_d<T, 2>(y, s, rows, out, L, B, k, stream);
+    case 3: return launch_phase1_jvp_d<T, 3>(y, s, rows, out, L, B, k, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int D>
@@ -218,14 +322,14 @@ int launch_phase3_jvp(const T* y, const T* s, const T* rows, const T* starts, T*
 extern "C" {
 
 int tgps_phase1_jvp_f32(const float* y, const float* s, const float* rows, float* out, int L,
-                        int B, int D, int k, void* stream) {
-  return tgps::launch_phase1_jvp<float>(y, s, rows, out, L, B, D, k,
+                        int B, int D, int k, int chunks, void* stream) {
+  return tgps::launch_phase1_jvp<float>(y, s, rows, out, L, B, D, k, chunks,
                                         static_cast<cudaStream_t>(stream));
 }
 
 int tgps_phase1_jvp_f64(const double* y, const double* s, const double* rows, double* out, int L,
-                        int B, int D, int k, void* stream) {
-  return tgps::launch_phase1_jvp<double>(y, s, rows, out, L, B, D, k,
+                        int B, int D, int k, int chunks, void* stream) {
+  return tgps::launch_phase1_jvp<double>(y, s, rows, out, L, B, D, k, chunks,
                                          static_cast<cudaStream_t>(stream));
 }
 

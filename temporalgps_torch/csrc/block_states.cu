@@ -13,21 +13,42 @@
 // rows m, P. Each kernel launches on the caller's stream and allocates
 // nothing; each C entry returns cudaGetLastError() after its launch.
 //
-// K7, K8 and K10 run one thread per block, like K1 and K3: a thread reads and
+// K7 and K10 run one thread per block, like K1 and K3: a thread reads and
 // writes its block's rows at l*B + b, so a warp touches 32 neighbouring
 // addresses in every row. On paper they are bound by bytes (K7 writes SD
-// values a step, K8 reads KT, K10 reads KT and writes SD; each does a few
-// hundred flops a step at D = 3). With B = 2048 threads on 132 SMs they are
-// bound in practice by the latency of the serial per-block recursion, which
-// one warp per thread block spreads over as many schedulers as there are
-// warps. K9 is one thread block, as K2 (see below).
+// values a step, K10 reads KT and writes SD; each does a few hundred flops a
+// step at D = 3). With B = 2048 threads on 132 SMs they are bound in practice
+// by the latency of the serial per-block recursion, which one warp per thread
+// block spreads over as many schedulers as there are warps. K9 is one thread
+// block, as K2 (see below).
+//
+// K8 is bound by bytes: it reads KT values a step and does about 180 flops
+// with them. One thread per block would keep one step of 21 rows a thread in
+// flight, about 170 KB at B = 2048, where the memory needs about 3 MB (3.35
+// TB/s times about 1 us of latency), and wait one trip to device memory a
+// step. Composition is associative, so K8 splits each
+// block's L steps into kAffineChunks contiguous chunks, one per warp of a
+// thread block (lane i of every warp takes block 32 * blockIdx.x + i, so
+// every row read stays one coalesced 32-lane access), has each thread load
+// the next kAffinePrefetch steps before it composes the current one, and
+// combines the chunk aggregates in order in shared memory. At B = 2048 that
+// is 64 thread blocks of 16 warps, 32,768 threads, each with one step of 21
+// rows in flight: 2.75 MB in float, 5.5 MB in double.
 
 #include "lanes.cuh"
 
 namespace tgps {
 
-constexpr int kStateThreads = 32;        // K7, K8, K10: one warp per thread block
+constexpr int kStateThreads = 32;        // K7, K10: one warp per thread block; K8: lanes a warp
 constexpr int kAffineScanThreads = 128;  // K9: threads of the single thread block
+// K8: warps per thread block, each folding one chunk of every block's steps.
+// ops/kernels.py passes its AFFINE_PHASE1_CHUNKS at the launch; the two must agree.
+constexpr int kAffineChunks = 16;
+static_assert((kAffineChunks & (kAffineChunks - 1)) == 0, "the chunk tree takes 2^n chunks");
+// K8: steps a thread loads ahead of the one it composes. More than one is no
+// faster, and in double two spill out of the 128 registers a thread of a
+// 512-thread block may have (probes/torch_chunk_sweep.py times 1 to 3).
+constexpr int kAffinePrefetch = 1;
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kStateThreads)
@@ -48,17 +69,54 @@ phase3_states_kernel(const T* __restrict__ y, const T* __restrict__ s,
   }
 }
 
+// Warp w of a thread block folds steps [w*Lc, min((w+1)*Lc, L)), Lc =
+// ceil(L / C), of block b = 32 * blockIdx.x + lane, from the identity map (an
+// empty chunk stays that), with the loads of the next U steps issued before
+// each composition: a ring of U register sets, slot u holding step l0 + u.
+// The C chunk maps are then combined as K4 combines its chunks: a
+// log2(C)-level tree in shared memory, the earlier chunk always on the left.
 template <typename T, int D>
-__global__ void __launch_bounds__(kStateThreads)
+__global__ void __launch_bounds__(kStateThreads * kAffineChunks)
 affine_phase1_kernel(const T* __restrict__ params, T* __restrict__ out, int L, int B) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+  constexpr int C = kAffineChunks;
+  constexpr int U = kAffinePrefetch;
+  constexpr int kSlotStride = (C / 2) * kStateThreads;  // row stride of the hand-over slots
+  __shared__ T handed[Dims<D>::kAffine * kSlotStride];
+  const int lane = threadIdx.x % kStateThreads;
+  const int w = threadIdx.x / kStateThreads;
+  const int b = blockIdx.x * kStateThreads + lane;
   const long long LB = static_cast<long long>(L) * B;
+  const int Lc = (L + C - 1) / C;
+  const int lo = min(w * Lc, L);
+  const int hi = b < B ? min(lo + Lc, L) : lo;  // a lane past the last block folds nothing
+  const T* base = params + b;
   Affine<T, D> acc = identity_affine<T, D>();
-  for (int l = 0; l < L; ++l) {
-    acc = affine_combine(acc, load_affine<T, D>(params + static_cast<long long>(l) * B + b, LB));
+  Affine<T, D> ahead[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    ahead[u] = identity_affine<T, D>();
+    if (lo + u < hi) ahead[u] = load_affine<T, D>(base + static_cast<long long>(lo + u) * B, LB);
   }
-  store_affine(acc, out + b, B);
+  for (int l0 = lo; l0 < hi; l0 += U) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int l = l0 + u;
+      if (l < hi) {
+        const Affine<T, D> step = ahead[u];
+        if (l + U < hi) ahead[u] = load_affine<T, D>(base + static_cast<long long>(l + U) * B, LB);
+        acc = affine_combine(acc, step);
+      }
+    }
+  }
+#pragma unroll 1
+  for (int span = 1; span < C; span *= 2) {
+    T* slot = handed + (w / (2 * span)) * kStateThreads + lane;
+    if (w % (2 * span) == span) store_affine(acc, slot, kSlotStride);
+    __syncthreads();
+    if (w % (2 * span) == 0) acc = affine_combine(acc, load_affine<T, D>(slot, kSlotStride));
+    __syncthreads();
+  }
+  if (w == 0 && b < B) store_affine(acc, out + b, B);
 }
 
 // Exclusive prefix of the B aggregates seeded with x0, the element
@@ -144,12 +202,14 @@ int launch_phase3_states(const T* y, const T* s, const T* params, const T* start
 }
 
 template <typename T>
-int launch_affine_phase1(const T* params, T* out, int L, int B, int D, cudaStream_t stream) {
-  if (L < 1 || B < 1) return static_cast<int>(cudaErrorInvalidValue);
+int launch_affine_phase1(const T* params, T* out, int L, int B, int D, int chunks,
+                         cudaStream_t stream) {
+  if (L < 1 || B < 1 || chunks != kAffineChunks) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int threads = kStateThreads * kAffineChunks;
   switch (D) {
-    case 1: affine_phase1_kernel<T, 1><<<state_grid(B), kStateThreads, 0, stream>>>(params, out, L, B); break;
-    case 2: affine_phase1_kernel<T, 2><<<state_grid(B), kStateThreads, 0, stream>>>(params, out, L, B); break;
-    case 3: affine_phase1_kernel<T, 3><<<state_grid(B), kStateThreads, 0, stream>>>(params, out, L, B); break;
+    case 1: affine_phase1_kernel<T, 1><<<state_grid(B), threads, 0, stream>>>(params, out, L, B); break;
+    case 2: affine_phase1_kernel<T, 2><<<state_grid(B), threads, 0, stream>>>(params, out, L, B); break;
+    case 3: affine_phase1_kernel<T, 3><<<state_grid(B), threads, 0, stream>>>(params, out, L, B); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
@@ -197,12 +257,16 @@ int tgps_phase3_states_f64(const double* y, const double* s, const double* param
                                             static_cast<cudaStream_t>(stream));
 }
 
-int tgps_affine_phase1_f32(const float* params, float* out, int L, int B, int D, void* stream) {
-  return tgps::launch_affine_phase1<float>(params, out, L, B, D, static_cast<cudaStream_t>(stream));
+int tgps_affine_phase1_f32(const float* params, float* out, int L, int B, int D, int chunks,
+                           void* stream) {
+  return tgps::launch_affine_phase1<float>(params, out, L, B, D, chunks,
+                                           static_cast<cudaStream_t>(stream));
 }
 
-int tgps_affine_phase1_f64(const double* params, double* out, int L, int B, int D, void* stream) {
-  return tgps::launch_affine_phase1<double>(params, out, L, B, D, static_cast<cudaStream_t>(stream));
+int tgps_affine_phase1_f64(const double* params, double* out, int L, int B, int D, int chunks,
+                           void* stream) {
+  return tgps::launch_affine_phase1<double>(params, out, L, B, D, chunks,
+                                            static_cast<cudaStream_t>(stream));
 }
 
 int tgps_affine_phase2_starts_f32(const float* agg, const float* prior, float* starts, int B,

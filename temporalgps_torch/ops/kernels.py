@@ -54,6 +54,12 @@ NVCC_FLAGS = (
 )
 # Streamed noise at or above this marks a missing or padding step (LARGE_VAR / 10).
 _MASK_THRESH = 1e14
+# Chunks of each block's steps that K4 and K8 fold side by side (one warp
+# each) before combining them in order: the kernels' kPhase1JvpChunks and
+# kAffineChunks. Each launch passes its constant and the kernel refuses any
+# other, so the plain versions' chunks= and the card's schedule are the same.
+PHASE1_JVP_CHUNKS = 16
+AFFINE_PHASE1_CHUNKS = 16
 _DTYPE_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
@@ -152,11 +158,11 @@ _ENTRY_ARGS = {
     "phase1_aggregate": (4, 3),  # y, s, params, out; L, B, D
     "phase2_starts": (3, 2),     # comps, prior, starts; B, D
     "phase3_lml": (5, 3),        # y, s, params, starts, lml; L, B, D
-    "phase1_jvp": (4, 4),         # y, s, rows, out; L, B, D, k
+    "phase1_jvp": (4, 5),         # y, s, rows, out; L, B, D, k, chunks
     "phase2_jvp_starts": (3, 3),  # comps, priors, starts; B, D, k
     "phase3_jvp_lml": (5, 4),     # y, s, rows, starts, lml; L, B, D, k
     "phase3_states": (5, 3),         # y, s, params, starts, out; L, B, D
-    "affine_phase1": (2, 3),         # params, out; L, B, D
+    "affine_phase1": (2, 4),         # params, out; L, B, D, chunks
     "affine_phase2_starts": (3, 2),  # agg, prior, starts; B, D
     "affine_phase3_states": (3, 3),  # params, starts, out; L, B, D
 }
@@ -304,6 +310,61 @@ def _seed(x0_mean, x0_cov, D, zero):
     return (zmat, tuple(x0_mean.unbind(0)), tuple(tuple(row.unbind(0)) for row in x0_cov.unbind(0)))
 
 
+def _chunk_lanes(x, chunks, fill):
+    """(..., L, B) -> (..., Lc, chunks*B), Lc = ceil(L / chunks): chunk c of
+    every block (its steps c*Lc .. c*Lc + Lc - 1) in lanes c*B .. c*B + B - 1,
+    the steps past L filled with `fill`."""
+    *lead, L, B = x.shape
+    Lc = -(-L // chunks)
+    x = torch.cat([x, x.new_full((*lead, chunks * Lc - L, B), fill)], dim=-2)
+    return x.reshape(*lead, chunks, Lc, B).movedim(-3, -2).reshape(*lead, Lc, chunks * B)
+
+
+def _chunk_step_exists(l, L, B, chunks, like):
+    """None where step l of every chunk is one of the L steps, else the
+    (chunks*B,) lanes whose chunk has a step l."""
+    Lc = -(-L // chunks)
+    if (chunks - 1) * Lc + l < L:
+        return None
+    starts = Lc * torch.arange(chunks, device=like.device)
+    return (starts + l < L).repeat_interleave(B)
+
+
+def _tree_map(fn, *trees):
+    """fn over the leaves of nested tuples of tensors."""
+    if isinstance(trees[0], tuple):
+        return tuple(_tree_map(fn, *subtrees) for subtrees in zip(*trees))
+    return fn(*trees)
+
+
+def _fold_step(carry, new, exists):
+    """`new`, or on the lanes whose chunk has no such step, `carry`."""
+    if exists is None:
+        return new
+    return _tree_map(lambda n, c: torch.where(exists, n, c), new, carry)
+
+
+def _unchunk(tree, chunks):
+    """Components (..., chunks*B) -> one tree of (..., B) components a chunk."""
+    return [_tree_map(lambda t: t.reshape(*t.shape[:-1], chunks, -1)[..., c, :], tree)
+            for c in range(chunks)]
+
+
+def _chunk_tree(aggs, combine):
+    """The chunk aggregates combined in the kernels' order (K4, K8): at span
+    1, 2, 4, ..., aggregate w (w a multiple of 2 span) takes aggregate
+    w + span on its right, so the earlier chunk is always on the left."""
+    aggs = list(aggs)
+    if len(aggs) & (len(aggs) - 1):
+        raise ValueError(f"the chunk tree takes a power of two of chunks, got {len(aggs)}")
+    span = 1
+    while span < len(aggs):
+        for w in range(0, len(aggs), 2 * span):
+            aggs[w] = combine(aggs[w], aggs[w + span])
+        span *= 2
+    return aggs[0]
+
+
 def phase1_aggregate_plain(y_blocked, s_blocked, packed, D):
     """(L, B) streams -> (K, B) block aggregates: for each block, the left
     fold of its L step elements from the identity element."""
@@ -403,23 +464,38 @@ def _split_sets(stacked, R, k):
     return primal.unbind(0), tangent.unbind(0)
 
 
-def phase1_jvp_plain(y_blocked, s_blocked, packed_rows, D, k):
+def phase1_jvp_plain(y_blocked, s_blocked, packed_rows, D, k, chunks=None):
     """(L, B) streams and (1+k, PK2) rows -> ((1+k)*K, B): the primal block
     aggregates followed by their k tangents. The noise tangent of a step is
-    masked to zero where the streamed s marks it missing or padding."""
+    masked to zero where the streamed s marks it missing or padding.
+
+    chunks=None folds each block's L steps in one run. With `chunks` (a
+    power of two; K4's is PHASE1_JVP_CHUNKS) it takes K4's schedule: the steps
+    split into `chunks` runs of ceil(L / chunks), each folded from the
+    identity element (the runs side by side, as lanes), then the run
+    aggregates combined by `_chunk_tree`."""
     L, B = y_blocked.shape
+    C = chunks or 1
     primal, tangent, ds = _unpack_rows(packed_rows, D, k)
     slot = torch.zeros_like(ds)
-    carry = _identity_elem((k, B), D, y_blocked)
-    dcarry = _zero_elem((k, B), D, y_blocked)
-    for y_l, s_l in zip(y_blocked.unbind(0), s_blocked.unbind(0)):
+    carry = _identity_elem((k, C * B), D, y_blocked)
+    dcarry = _zero_elem((k, C * B), D, y_blocked)
+    steps = zip(_chunk_lanes(y_blocked, C, 0.0).unbind(0),
+                _chunk_lanes(s_blocked, C, 1.0).unbind(0))
+    for l, (y_l, s_l) in enumerate(steps):
         mask = (s_l < _MASK_THRESH).to(s_l.dtype)
+        exists = _chunk_step_exists(l, L, B, C, y_blocked)
 
         def fold(carry, A, a, Q, H, h, slot):
             step = lanes.step_element(A, a, Q, H, h, s_l + slot * mask, y_l, 1.0, 0.0)
-            return lanes.combine(carry, step)
+            return _fold_step(carry, lanes.combine(carry, step), exists)
 
         carry, dcarry = torch.func.jvp(fold, (carry, *primal, slot), (dcarry, *tangent, ds))
+
+    def combine_jvp(left, right):
+        return torch.func.jvp(lanes.combine, (left[0], right[0]), (left[1], right[1]))
+
+    carry, dcarry = _chunk_tree(zip(_unchunk(carry, C), _unchunk(dcarry, C)), combine_jvp)
     return _stack_sets(_elem_tuple_to_rows(carry), _elem_tuple_to_rows(dcarry))
 
 
@@ -487,14 +563,21 @@ def phase3_states_plain(y_blocked, s_blocked, packed, starts, D):
     return torch.stack(out, dim=1)
 
 
-def affine_phase1_plain(params, D):
+def affine_phase1_plain(params, D, chunks=None):
     """(KT, L, B) affine maps -> (KT, B) block aggregates: for each block,
     the left fold of its L maps from the identity map (each step's map
-    applied after the carry)."""
-    carry = _identity_elem(params.shape[2:], D, params)[:3]
-    for rows in params.unbind(1):
-        carry = lanes.affine_combine(carry, _affine_rows_to_tuple(rows.unbind(0), D))
-    A, b, C = carry
+    applied after the carry).
+
+    chunks=None folds each block's L maps in one run; with `chunks` (a power
+    of two; K8's is AFFINE_PHASE1_CHUNKS) it takes K8's schedule, as
+    `phase1_jvp_plain` takes K4's."""
+    _, L, B = params.shape
+    n = chunks or 1
+    carry = _identity_elem((n * B,), D, params)[:3]
+    for l, rows in enumerate(_chunk_lanes(params, n, 0.0).unbind(1)):
+        new = lanes.affine_combine(carry, _affine_rows_to_tuple(rows.unbind(0), D))
+        carry = _fold_step(carry, new, _chunk_step_exists(l, L, B, n, params))
+    A, b, C = _chunk_tree(_unchunk(carry, n), lanes.affine_combine)
     return torch.stack([*_flat(A), *_state_tuple_to_rows(b, C)])
 
 
@@ -613,13 +696,18 @@ def _check_jvp_rows(packed_rows, D, k):
 # K4. Replaces temporalgps_tpu/ops/pallas_kernels.py phase1_jvp
 # (_phase1_jvp_kernel). K1 carrying a tangent element beside the primal; the
 # reference linearises each step in-kernel, here the tangents of step_element
-# and combine are written out (csrc/lanes.cuh). Thread (b, j) of a
-# (ceil(B/32), k) grid folds block b's L steps for the primal and tangent j;
-# the primal is recomputed k times rather than held with k tangents in one
-# thread, which registers forbid and a runtime k cannot unroll. Bound by
-# operations (at D = 3, 738 flops a step for the primal and 1522 for each
-# tangent, against 2 values read), and in practice by the latency of the
-# serial recursion at k*B threads.
+# and combine are written out (csrc/lanes.cuh). Threads (b, j) of a
+# (ceil(B/32), k) grid carry block b's primal and tangent j; the primal is
+# recomputed k times rather than held with k tangents in one thread, which
+# registers forbid and a runtime k cannot unroll. Bound by operations (at
+# D = 3, 738 flops a step for the primal and 1522 for each tangent, against
+# 2 values read), and on this card by how many warps issue them: one warp a
+# (32 blocks, tangent) pair would be 192 warps for 528 schedulers. So a
+# (32 blocks, tangent) pair has PHASE1_JVP_CHUNKS warps, warp w folding the
+# w-th run of ceil(L / C) steps of the same 32 blocks, as a cluster of two
+# thread blocks of 8 warps (a thread needs 255 registers), and the run
+# aggregates are combined in order in shared memory, then across the
+# cluster (`phase1_jvp_plain(..., chunks=C)` is the same schedule).
 def phase1_jvp(y_blocked, s_blocked, packed_rows, D, k):
     """(L, B) streams and (1+k, PK2) parameter rows -> ((1+k)*K, B): the
     primal block aggregates followed by the k tangent sets."""
@@ -631,7 +719,8 @@ def phase1_jvp(y_blocked, s_blocked, packed_rows, D, k):
     L, B = y_blocked.shape
     out = torch.empty(((1 + k) * elem_rows(D), B), dtype=y_blocked.dtype,
                       device=y_blocked.device)
-    _launch("phase1_jvp", (y_blocked, s_blocked, packed_rows, out), (L, B, D, k))
+    _launch("phase1_jvp", (y_blocked, s_blocked, packed_rows, out),
+            (L, B, D, k, PHASE1_JVP_CHUNKS))
     phase1_jvp.launches += 1
     return out
 
@@ -724,10 +813,15 @@ phase3_states.launches = 0
 
 
 # K8. Replaces temporalgps_tpu/ops/pallas_kernels.py affine_phase1
-# (_affine_phase1_kernel). One thread per block folds its L time-varying
-# maps, reading KT rows a step (a warp reads 32 neighbouring addresses per
-# row); one warp per thread block, as K1. Bound by bytes on paper (KT values
-# a step against ~2 D^3 flops), in practice by the serial fold's latency.
+# (_affine_phase1_kernel). Folds each block's L time-varying maps, reading
+# KT rows a step (a warp reads 32 neighbouring addresses per row). Bound by
+# bytes (KT values a step against ~2 D^3 flops); one thread per block kept
+# one step of KT rows a thread in flight, about 170 KB at B = 2048 where the
+# memory needs megabytes to stay busy. So each thread block
+# is AFFINE_PHASE1_CHUNKS warps, warp w folding the w-th run of
+# ceil(L / C) steps of the same 32 blocks with the next steps' loads issued
+# before each composition, and the run aggregates are combined in order in
+# shared memory (`affine_phase1_plain(..., chunks=C)` is the same schedule).
 def affine_phase1(params, D):
     """(KT, L, B) affine maps -> (KT, B) block aggregates."""
     if _route(params) == "cpu":
@@ -736,7 +830,7 @@ def affine_phase1(params, D):
     _check_affine_params(params, D)
     _, L, B = params.shape
     out = torch.empty((affine_rows(D), B), dtype=params.dtype, device=params.device)
-    _launch("affine_phase1", (params, out), (L, B, D))
+    _launch("affine_phase1", (params, out), (L, B, D, AFFINE_PHASE1_CHUNKS))
     affine_phase1.launches += 1
     return out
 

@@ -57,21 +57,35 @@ def test_kernels_match_plain_versions_on_card(cuda_device, D, dtype, rtol):
         assert (got - p3).abs().max().item() <= rtol * scale
 
 
+# (L, B) of the chunked kernels' card tests: B = 300 is not a multiple of the
+# thread-block sizes; L = 37 is not a multiple of K4's or K8's chunk count
+# and L = 1 is fewer steps than chunks, so some chunks are ragged or empty.
+CHUNK_SHAPES = [(37, 300), (37, 96), (1, 96)]
+
+
+def _streams_with_gaps(rng, L, B):
+    """y and s (L, B): a missing step (the LARGE_VAR fill) and, at the end of
+    the last block, padding steps."""
+    y = rng.standard_normal((L, B))
+    s = np.full((L, B), 0.3)
+    s[min(5, L - 1), 7] = 1e15
+    s[max(L - 2, 0):, B - 1] = 1e15
+    return y, s
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("L, B", CHUNK_SHAPES)
 @pytest.mark.parametrize("k", [1, 3])
 @pytest.mark.parametrize("D", [1, 2, 3])
 @pytest.mark.parametrize("dtype, rtol", [(torch.float64, 1e-10), (torch.float32, 1e-4)])
-def test_jvp_kernels_match_plain_versions_on_card(cuda_device, D, k, dtype, rtol):
+def test_jvp_kernels_match_plain_versions_on_card(cuda_device, D, k, dtype, rtol, L, B):
     """K4-K6 against their plain versions (PyTorch's forward-mode autodiff of
-    the plain loops) on the same inputs, held on the (1+k, B) lml rows
-    downstream, each row scaled by its own largest entry. A missing step and
-    a live noise tangent exercise the mask; B = 300 the ragged edge of K5."""
+    the plain loops; K4's in its own chunk order) on the same inputs, held on
+    the (1+k, B) lml rows downstream, each row scaled by its own largest
+    entry. A missing step, padding steps and a live noise tangent exercise
+    the mask; B = 300 the ragged edge of K5."""
     rng = np.random.default_rng(10 * D + k)
-    L, B = 37, 300
-    y = rng.standard_normal((L, B))
-    s = np.full((L, B), 0.3)
-    s[5, 7] = 1e15
-    s[L - 1, B - 1] = 1e15
+    y, s = _streams_with_gaps(rng, L, B)
     to = lambda x: torch.as_tensor(x, dtype=dtype, device=cuda_device)
     sym = lambda X: 0.5 * (X + X.T)
     A = np.eye(D) * 0.9 + 0.01 * rng.standard_normal((D, D))
@@ -92,7 +106,7 @@ def test_jvp_kernels_match_plain_versions_on_card(cuda_device, D, k, dtype, rtol
           for _ in range(k)),
     ])
     y_t, s_t = to(y).contiguous(), to(s).contiguous()
-    p1 = tk.phase1_jvp_plain(y_t, s_t, rows, D, k)
+    p1 = tk.phase1_jvp_plain(y_t, s_t, rows, D, k, chunks=tk.PHASE1_JVP_CHUNKS)
     p2 = tk.phase2_jvp_starts_plain(p1, priors, D, k)
     p3 = tk.phase3_jvp_lml_plain(y_t, s_t, rows, p2, D, k)
     tk.reset_launch_counts()
@@ -245,21 +259,19 @@ def _rows_rel_err(got, want):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("L, B", CHUNK_SHAPES)
 @pytest.mark.parametrize("D", [1, 2, 3])
 @pytest.mark.parametrize("dtype, rtol", [(torch.float64, 1e-10), (torch.float32, 1e-4)])
-def test_state_kernels_match_plain_versions_on_card(cuda_device, D, dtype, rtol):
-    """K7-K10 against their plain versions on the same inputs, held on the
-    state rows (each scaled by its largest entry): K7's own, and for K8 and
-    K9 the states the plain phases compute downstream of them. Time-varying
-    affine maps, a missing step and B = 300 (not a multiple of the
-    thread-block sizes)."""
+def test_state_kernels_match_plain_versions_on_card(cuda_device, D, dtype, rtol, L, B):
+    """K7-K10 against their plain versions (K8's in its own chunk order) on
+    the same inputs, held on the state rows (each scaled by its largest
+    entry): K7's own, and for K8 and K9 the states the plain phases compute
+    downstream of them. Time-varying affine maps, a missing step, padding
+    steps, and the shapes of CHUNK_SHAPES."""
     rng = np.random.default_rng(20 + D)
-    L, B = 37, 300
     to = lambda x: torch.as_tensor(x, dtype=dtype, device=cuda_device).contiguous()
-    y = to(rng.standard_normal((L, B)))
-    s_np = np.full((L, B), 0.3)
-    s_np[5, 7] = 1e15
-    s = to(s_np)
+    y_np, s_np = _streams_with_gaps(rng, L, B)
+    y, s = to(y_np), to(s_np)
     A = np.eye(D) * 0.9 + 0.01 * rng.standard_normal((D, D))
     packed = tk.pack_params(to(A), to(np.zeros(D)), to(0.1 * np.eye(D)), to(np.ones(D)),
                             to(0.05), dtype)
@@ -272,7 +284,7 @@ def test_state_kernels_match_plain_versions_on_card(cuda_device, D, dtype, rtol)
                            C.reshape(L, B, D * D)], axis=-1)
     params = to(rows.transpose(2, 0, 1))
     p7 = tk.phase3_states_plain(y, s, packed, starts, D)
-    p8 = tk.affine_phase1_plain(params, D)
+    p8 = tk.affine_phase1_plain(params, D, chunks=tk.AFFINE_PHASE1_CHUNKS)
     p9 = tk.affine_phase2_starts_plain(p8, m0, P0, D)
     p10 = tk.affine_phase3_states_plain(params, p9, D)
     tk.reset_launch_counts()

@@ -7,7 +7,8 @@ Inputs are made with numpy from a seed and go through both packages. The
 reference side is jax.jvp of its plain block schedule
 (_phase1_aggregates_lanes, _phase2_prefix, _phase3_lml_lanes) or of its
 sequential engine; exactly one case runs its Pallas kernels in interpret
-mode. N = 18 in 4 blocks of 5 steps gives 2 padding steps; one observation
+mode. N = 18 in 4 blocks of 5 steps gives 2 padding steps (K4's chunked
+schedule also runs at 1 and 37 steps a block); one observation
 is NaN; all of the scale, stretch and noise sensitivities are live, so the
 noise tangent meets the mask at the missing and the padding steps.
 
@@ -59,9 +60,9 @@ def _t(x):
     return torch.from_numpy(np.array(x, dtype=np.float64, order="C"))
 
 
-def _y(seed):
-    y = np.random.default_rng(seed).standard_normal(N)
-    y[NAN_AT] = np.nan
+def _y(seed, n=N):
+    y = np.random.default_rng(seed).standard_normal(n)
+    y[min(NAN_AT, n // 2)] = np.nan
     return y
 
 
@@ -102,17 +103,17 @@ def _state_rows(mean, cov):
 
 
 @functools.lru_cache(maxsize=None)
-def _reference(D, k):
-    """Primal and k tangents of every stage of the reference's plain block
-    schedule, and the port's inputs built from the same numbers."""
+def _stages_jvp(D, n):
+    """(y, v) -> jax.jvp at P0 along v of every stage of the reference's plain
+    block schedule on observations y (n,) in B blocks; compiled once for
+    every k of a (D, n)."""
     name = KERNEL_OF_DIM[D]
-    y = _y(seed=10 * D + k)
 
-    def stages(p):
-        model = _jax_model(name, p)
-        model_f, y_f, _ = jmissings.transform_model_and_obs(model, jnp.asarray(y))
+    def stages(p, y):
+        model = _jax_model(name, p, n=n)
+        model_f, y_f, _ = jmissings.transform_model_and_obs(model, y)
         params_p, y_p, _s_p, n_pad, _ = jblock._pad_tail(model_f, y_f, B)
-        blocked = jblock._split_tree((params_p, y_p), B, (N + n_pad) // B)
+        blocked = jblock._split_tree((params_p, y_p), B, (n + n_pad) // B)
         agg = jblock._phase1_aggregates_lanes(blocked, B, D, jnp.float64)
         prior = jblock._prior_element(model.trans.x0, D, jnp.float64)
         pref = jblock._phase2_prefix(
@@ -122,15 +123,24 @@ def _reference(D, k):
         return {"leaves": _leaves(model), "agg": agg, "starts": starts, "total": total,
                 "streams": (y_f, model_f.emis.s)}
 
-    jvp = jax.jit(lambda v: jax.jvp(stages, (jnp.asarray(P0),), (v,)))
+    return jax.jit(lambda y, v: jax.jvp(lambda p: stages(p, y), (jnp.asarray(P0),), (v,)))
+
+
+@functools.lru_cache(maxsize=None)
+def _reference(D, k, n=N):
+    """Primal and k tangents of every stage of the reference's plain block
+    schedule on n observations in B blocks, and the port's inputs built from
+    the same numbers."""
+    y = _y(seed=10 * D + k, n=n)
+    jvp = functools.partial(_stages_jvp(D, n), jnp.asarray(y))
     primal, tangents = None, []
     for v in DIRECTIONS[k]:
         primal, tangent = jvp(jnp.asarray(v))
         tangents.append(tangent)
 
-    model = convert.lgssm_from_numpy(*primal["leaves"], N, dtype=torch.float64, device="cpu")
+    model = convert.lgssm_from_numpy(*primal["leaves"], n, dtype=torch.float64, device="cpu")
     model_tangents = convert.tangent_lgssms_from_numpy(
-        [t["leaves"] for t in tangents], N, dtype=torch.float64, device="cpu")
+        [t["leaves"] for t in tangents], n, dtype=torch.float64, device="cpu")
     rows, priors = tblock._tangent_rows(model, model_tangents)
     y_main, s_main, _ = tblock._blocked_streams(
         _t(primal["streams"][0]), _t(primal["streams"][1]), B)
@@ -172,6 +182,41 @@ def test_phase3_jvp_lml_plain_matches_reference(D, k):
     lml = tk.phase3_jvp_lml(ref["y_main"], ref["s_main"], ref["rows"], _t(ref["starts"]), D, k)
     assert lml.shape == (1 + k, B)
     _close(lml.sum(dim=1), ref["totals"])
+
+
+# K4's chunked schedule: L = 1 (fewer steps than chunks), 5 and 37 (neither
+# a multiple of the chunk count) steps a block, each with a missing
+# observation and a padded tail (n = 4L - 2, or 3 for L = 1).
+CHUNK_LENGTHS = {1: 3, 5: N, 37: 146}
+
+
+@pytest.mark.parametrize("chunks", [4, tk.PHASE1_JVP_CHUNKS])
+@pytest.mark.parametrize("L", sorted(CHUNK_LENGTHS))
+@pytest.mark.parametrize("D, k", [(D, k) for D in (1, 3) for k in (1, 3)])
+def test_phase1_jvp_plain_chunked_matches_serial_and_reference(D, k, L, chunks):
+    """The kernel's schedule (each block's steps in `chunks` runs, the run
+    aggregates combined in order) gives the serial fold's and the
+    reference's aggregates; the noise tangent stays exactly zero over the
+    padding steps, which fill some runs and leave others empty."""
+    n = CHUNK_LENGTHS[L]
+    ref = _reference(D, k, n)
+    y_main, s_main, rows = ref["y_main"], ref["s_main"], ref["rows"]
+    assert y_main.shape == (L, B)
+    chunked = tk.phase1_jvp_plain(y_main, s_main, rows, D, k, chunks=chunks)
+    serial = tk.phase1_jvp_plain(y_main, s_main, rows, D, k)
+    K = tk.elem_rows(D)
+    for j in range(1 + k):
+        sets = slice(j * K, (j + 1) * K)
+        _close(chunked[sets], serial[sets], rtol=1e-10)
+        _close(chunked[sets], ref["comps"][sets], rtol=1e-10)
+
+    noise_only = torch.zeros_like(rows)
+    noise_only[0] = rows[0]
+    noise_only[1:, -1] = 0.7
+    pad = B * L - n
+    tail = tk.phase1_jvp_plain(y_main[L - pad:], s_main[L - pad:], noise_only, D, k,
+                               chunks=chunks)
+    assert torch.equal(tail[K:, B - 1], torch.zeros(k * K, dtype=torch.float64))
 
 
 def test_noise_tangent_is_masked_at_missing_and_padding_steps():
@@ -250,17 +295,20 @@ def test_value_and_grad_fwd_lgssm_matches_reference(name):
 
 def test_value_and_grad_fwd_lgssm_matches_reference_pallas_interpret():
     """The reference's own fused path (its Pallas kernels in interpret mode),
-    at the smallest size that keeps every feature: Matern-3/2, N = 3 in 2
+    at the smallest size that keeps every feature: Matern-1/2, N = 3 in 2
     blocks of 2 steps (one padding step), one NaN, and a live noise tangent,
-    which meets the mask at the missing and the padding step."""
+    which meets the mask at the missing and the padding step. N and the
+    steps a block are as small as a padded tail allows; the time goes to
+    tracing the kernels' unrolled bodies, which grow with D, hence D = 1
+    (D = 2 and 3 are held to the reference's plain schedule above)."""
     n, n_blocks = 3, 2
     y = np.random.default_rng(77).standard_normal(n)
     y[1] = np.nan
     v_ref, g_ref = jlearning.value_and_grad_fwd_lgssm(
-        lambda p: _jax_model("Matern32", p, n=n), jnp.asarray(y), n_blocks=n_blocks)(
+        lambda p: _jax_model("Matern12", p, n=n), jnp.asarray(y), n_blocks=n_blocks)(
         jnp.asarray(P0))
     value, grad = tt.value_and_grad_fwd_lgssm(
-        _torch_model_fn("Matern32", n=n), y, n_blocks=n_blocks)(_t(P0))
+        _torch_model_fn("Matern12", n=n), y, n_blocks=n_blocks)(_t(P0))
     np.testing.assert_allclose(value.item(), float(v_ref), rtol=1e-9)
     np.testing.assert_allclose(grad.numpy(), np.asarray(g_ref), rtol=1e-9, atol=1e-10)
     assert abs(float(g_ref[2])) > 1e-3  # the noise sensitivity is live

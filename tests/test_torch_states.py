@@ -96,37 +96,39 @@ def test_phase3_states_plain_matches_reference_filter(D):
     _close(got.cov, want.cov)
 
 
-def _affine_inputs(D, seed):
+def _affine_inputs(D, seed, n=N):
     """Time-varying (F, c, Q) in iteration order and an initial state, from
     numpy: stable maps, positive semi-definite noise."""
     rng = np.random.default_rng(seed)
-    F = 0.9 * np.eye(D) + 0.05 * rng.standard_normal((N, D, D))
-    c = 0.1 * rng.standard_normal((N, D))
-    G = 0.2 * rng.standard_normal((N, D, D))
+    F = 0.9 * np.eye(D) + 0.05 * rng.standard_normal((n, D, D))
+    c = 0.1 * rng.standard_normal((n, D))
+    G = 0.2 * rng.standard_normal((n, D, D))
     Q = np.einsum("nij,nkj->nik", G, G)
     m0 = rng.standard_normal(D)
     P0 = np.eye(D) + 0.1 * np.ones((D, D))
     return F, c, Q, m0, P0
 
 
-@pytest.mark.parametrize("D", [1, 2, 3])
-def test_affine_phases_plain_match_reference_prefix(D):
-    """K8 -> K9 -> K10 (plain) give the states of the reference's blocked
-    affine prefix on time-varying maps; K8's aggregates and K9's starts are
-    checked on their own against folds of the same maps."""
-    F, c, Q, m0, P0 = _affine_inputs(D, seed=10 + D)
+def _affine_case(D, seed, n=N):
+    """(reference prefix states, initial state, the port's (KT, L, B) rows)
+    of time-varying maps on n steps in B blocks."""
+    F, c, Q, m0, P0 = _affine_inputs(D, seed, n)
     want = _prefix_ref(*(jnp.asarray(v) for v in (F, c, Q, m0, P0)), n_blocks=B)
     x0 = Gaussian(_t(m0), _t(P0))
-    dummy = Fill(torch.zeros((), dtype=torch.float64), N)
+    dummy = Fill(torch.zeros((), dtype=torch.float64), n)
     tmodel = LGSSM(GaussMarkov(As=_t(F), offs=_t(c), Qs=_t(Q), x0=x0),
-                   ScalarEmissions(H=Fill(torch.ones(D, dtype=torch.float64), N), h=dummy, s=dummy))
-    params = tblock._affine_comps_iteration(tmodel, B)
-    L = params.shape[1]
-    assert params.shape == (tk.affine_rows(D), L, B) and L * B > N
+                   ScalarEmissions(H=Fill(torch.ones(D, dtype=torch.float64), n), h=dummy, s=dummy))
+    return want, x0, tblock._affine_comps_iteration(tmodel, B)
 
-    agg = tk.affine_phase1_plain(params, D)
+
+def _check_affine_phases(want, x0, params, agg, D, n=N):
+    """K9 -> K10 (plain) from the aggregates `agg` give the reference's
+    states; K9's starts and the aggregates are checked on their own against
+    folds of the same maps."""
+    L = params.shape[1]
+    m0, P0 = x0.mean.numpy(), x0.cov.numpy()
     starts = tk.affine_phase2_starts_plain(agg, x0.mean, x0.cov, D)
-    states = tblock._unblock_states(tk.affine_phase3_states_plain(params, starts, D), N)
+    states = tblock._unblock_states(tk.affine_phase3_states_plain(params, starts, D), n)
     got = tblock._comps_to_gaussian(states, D)
     _close(got.mean, want.mean)
     _close(got.cov, want.cov)
@@ -145,6 +147,39 @@ def test_affine_phases_plain_match_reference_prefix(D):
     P_end = A_agg[full] @ P_start[full] @ A_agg[full].transpose(0, 2, 1) + C_agg[full]
     _close(m_end, np.asarray(want.mean)[L - 1::L][:B - 1])
     _close(P_end, np.asarray(want.cov)[L - 1::L][:B - 1])
+
+
+@pytest.mark.parametrize("D", [1, 2, 3])
+def test_affine_phases_plain_match_reference_prefix(D):
+    """K8 -> K9 -> K10 (plain) give the states of the reference's blocked
+    affine prefix on time-varying maps; K8's aggregates and K9's starts are
+    checked on their own against folds of the same maps."""
+    want, x0, params = _affine_case(D, seed=10 + D)
+    L = params.shape[1]
+    assert params.shape == (tk.affine_rows(D), L, B) and L * B > N
+    _check_affine_phases(want, x0, params, tk.affine_phase1_plain(params, D), D)
+
+
+# K8's chunked schedule: L = 1 (fewer steps than chunks), 5 and 37 (neither
+# a multiple of the chunk count) steps a block, each with a padded tail of
+# identity maps (n = 4L - 2, or 3 for L = 1).
+CHUNK_LENGTHS = {1: 3, 5: 18, 37: 146}
+
+
+@pytest.mark.parametrize("chunks", [4, tk.AFFINE_PHASE1_CHUNKS])
+@pytest.mark.parametrize("L", sorted(CHUNK_LENGTHS))
+@pytest.mark.parametrize("D", [1, 3])
+def test_affine_phase1_plain_chunked_matches_serial_and_reference_prefix(D, L, chunks):
+    """The kernel's schedule (each block's maps in `chunks` runs, the run
+    aggregates combined in order, empty runs the identity map) gives the
+    serial fold's aggregates, and through K9 and K10 the reference's
+    blocked affine prefix."""
+    n = CHUNK_LENGTHS[L]
+    want, x0, params = _affine_case(D, seed=40 + D, n=n)
+    assert params.shape == (tk.affine_rows(D), L, B) and L * B > n
+    chunked = tk.affine_phase1_plain(params, D, chunks=chunks)
+    _close(chunked, tk.affine_phase1_plain(params, D))
+    _check_affine_phases(want, x0, params, chunked, D, n)
 
 
 @pytest.mark.parametrize("D", [1, 2, 3])
