@@ -6,13 +6,15 @@ Phases; any failure exits non-zero without the final result line:
   1. torch / CUDA versions, and the card's name and power limit (nvidia-smi).
   2. Build the hand-written kernels (csrc/, one nvcc per source, side by
      side) and report the build time, ptxas register / shared-memory /
-     spill counts, and K4's and K8's chunk counts.
+     spill counts, and K1's, K4's, K7's and K8's chunk counts.
   3. Each value kernel (K1 phase1_aggregate, K2 phase2_starts, K3 phase3_lml)
      against its plain PyTorch version on the card, at the main path's shapes
      (Matern-5/2, D = 3, N = 1M: B = 2048 blocks of L = 489 steps), float64
      and float32. The gate is on the per-block lml partials downstream of the
      kernel: relative 1e-10 in float64, 1e-4 in float32 (the kernel and the
-     plain version round and contract to FMA differently).
+     plain version round and contract to FMA differently). K1's plain
+     version runs in K1's chunk order (kernels.PHASE1_AGGREGATE_CHUNKS), and
+     K1 is also held at phase 4's two ragged shapes.
   4. Each forward-mode kernel (K4 phase1_jvp, K5 phase2_jvp_starts, K6
      phase3_jvp_lml) against its plain version (PyTorch's forward-mode
      autodiff of the plain loops) at the training path's shapes (the same
@@ -32,7 +34,9 @@ Phases; any failure exits non-zero without the final result line:
      blocked schedule; the float64 kernel path within 1e-10 of it and, at
      N = 20k, within 1e-9 of the port's sequential engine (on the CPU); the
      gradient through the fused autograd.Function must match the plain
-     schedule's (1e-10) and the sequential engine's (1e-6).
+     schedule's (1e-10) and the sequential engine's (1e-6). Where the time
+     of one logpdf call at N = 1M goes: torch.profiler over 10 calls
+     (device busy by kernel, idle share), float32 and float64.
   6. The training path, through the public entry points:
        vg = value_and_grad_fwd_lgssm(model_fn, y); vg(p0)
      at N = 1M in float32 with k = 3 hyperparameters (log sigma^2, log
@@ -61,9 +65,11 @@ Phases; any failure exits non-zero without the final result line:
      iteration view). The gate is on the state rows (K7's and K10's own,
      and those the plain phases compute downstream of K8 and K9), each row
      scaled by its largest entry: 1e-10 in float64, 1e-4 in float32, for
-     the rounding and FMA reason of phase 3. K8's plain version runs in
-     K8's chunk order (kernels.AFFINE_PHASE1_CHUNKS), and K8 is also held at
-     phase 4's two ragged shapes on time-varying maps.
+     the rounding and FMA reason of phase 3. K7's and K8's plain versions
+     run in their kernels' chunk order (kernels.PHASE3_STATES_CHUNKS,
+     AFFINE_PHASE1_CHUNKS); K7 is also held at phase 4's two ragged shapes
+     (a missing step and padding steps), K8 at the same shapes on
+     time-varying maps.
  10. The posterior path, through the public entry points:
        marginals(posterior(fx, y)(x, 0.1))   (temporalgps_torch.gp.posterior)
      for the reference's bench config c1 (GP(Matern32()), float32,
@@ -142,8 +148,8 @@ N_C1 = 10_000
 N_TRAIN_NEW, N_PRED_NEW = 2_000, 500
 KERNEL_RTOL = {"float64": 1e-10, "float32": 1e-4}
 
-# Ragged (L, B) of K4 and K8 beside the main shapes: L not a multiple of the
-# chunk counts, and fewer steps than chunks.
+# Ragged (L, B) of the chunked kernels (K1, K4, K7, K8) beside the main
+# shapes: L not a multiple of the chunk counts, and fewer steps than chunks.
 RAGGED_SHAPES = ((37, 96), (1, 96))
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): device memory rate,
@@ -365,7 +371,9 @@ def main():
         path = kernels.build()
         kernels._library()
         print(f"  built {os.path.relpath(path, HERE)} in {time.perf_counter() - t0:.1f} s")
-        smoke.record["chunks"] = {"phase1_jvp": kernels.PHASE1_JVP_CHUNKS,
+        smoke.record["chunks"] = {"phase1_aggregate": kernels.PHASE1_AGGREGATE_CHUNKS,
+                                  "phase1_jvp": kernels.PHASE1_JVP_CHUNKS,
+                                  "phase3_states": kernels.PHASE3_STATES_CHUNKS,
                                   "affine_phase1": kernels.AFFINE_PHASE1_CHUNKS}
         print(f"  chunks a block: {smoke.record['chunks']}")
         log = path.with_suffix(".log")
@@ -417,7 +425,8 @@ def main():
             L, B = y_main.shape
             smoke.record["shapes"] = {"L": L, "B": B, "D": D, "k": k}
             print(f"  {name}: L={L} B={B} D={D}")
-            p1 = kernels.phase1_aggregate_plain(y_main, s_main, packed, D)
+            p1 = kernels.phase1_aggregate_plain(y_main, s_main, packed, D,
+                                                chunks=kernels.PHASE1_AGGREGATE_CHUNKS)
             p2 = kernels.phase2_starts_plain(p1, m0, P0, D)
             p3 = kernels.phase3_lml_plain(y_main, s_main, packed, p2, D)
             k1 = kernels.phase1_aggregate(y_main, s_main, packed, D)
@@ -430,6 +439,17 @@ def main():
             record_comparison("phase1_aggregate", name, k1, p1, via_k1, p3)
             record_comparison("phase2_starts", name, k2, p2, via_k2, p3)
             record_comparison("phase3_lml", name, k3, p3, k3, p3)
+            for shape in RAGGED_SHAPES:
+                y_r, s_r = ragged_streams(name, *shape)
+                p1 = kernels.phase1_aggregate_plain(y_r, s_r, packed, D,
+                                                    chunks=kernels.PHASE1_AGGREGATE_CHUNKS)
+                p3 = kernels.phase3_lml_plain(
+                    y_r, s_r, packed, kernels.phase2_starts_plain(p1, m0, P0, D), D)
+                k1 = kernels.phase1_aggregate(y_r, s_r, packed, D)
+                torch.cuda.synchronize()
+                via_k1 = kernels.phase3_lml_plain(
+                    y_r, s_r, packed, kernels.phase2_starts_plain(k1, m0, P0, D), D)
+                record_comparison("phase1_aggregate", name, k1, p1, via_k1, p3, shape=shape)
 
     # ---- 4. forward-mode kernels against their plain versions ------------
     def jvp_inputs(name):
@@ -519,6 +539,15 @@ def main():
         smoke.record["main_path"]["grad_rel_vs_sequential"] = r_gseq
         smoke.check(r_plain <= 1e-10, f"grad fused vs plain rel={r_plain:.3e} (tol 1e-10)")
         smoke.check(r_gseq <= 1e-6, f"grad fused vs sequential rel={r_gseq:.3e} (tol 1e-6)")
+
+        for name, dtype in dtypes.items():
+            fx_p, y_p = make_fx(dtype, N_MAIN, DEVICE), y_dev[name]
+            summary = call_profile(lambda: logpdf(fx_p, y_p), VALUE_KERNELS)
+            smoke.record.setdefault("profile_logpdf", {})[name] = summary
+            print(f"  logpdf profile {name}: {json.dumps(summary)}", flush=True)
+            smoke.check(summary["device_busy_us"] > 0
+                        and all(us > 0 for us in summary["kernel_us"].values()),
+                        f"{name}: the profiler saw K1-K3 on the device")
 
     def autograd_grad(device, **kw):
         """Reverse-mode gradient of the float64 lml at N = 20k."""
@@ -648,7 +677,8 @@ def main():
             calls = {
                 "phase1_aggregate": (
                     lambda: kernels.phase1_aggregate(y_main, s_main, packed, D),
-                    lambda: kernels.phase1_aggregate_plain(y_main, s_main, packed, D)),
+                    lambda: kernels.phase1_aggregate_plain(
+                        y_main, s_main, packed, D, chunks=kernels.PHASE1_AGGREGATE_CHUNKS)),
                 "phase2_starts": (
                     lambda: kernels.phase2_starts(comps, m0, P0, D),
                     lambda: kernels.phase2_starts_plain(comps, m0, P0, D)),
@@ -720,6 +750,19 @@ def main():
         pattern = re.compile(rf"(?<![A-Za-z_]){short}_kernel")
         return sum(us for key, us in device_us.items() if pattern.search(key))
 
+    def call_profile(call, shorts, calls=10):
+        """One call's ms (CUDA events, median of 3 batches of `calls`), and
+        under torch.profiler over `calls` calls: device busy us, idle share,
+        the us of the kernels `shorts` and of the rest, device ops a call."""
+        call_ms = events_ms(call, reps=calls, batches=3)[0]
+        device_us, n_device_ops = device_profile(call, calls)
+        busy_us = sum(device_us.values())
+        ours = {short: kernel_us(device_us, short) for short in shorts}
+        return {"call_ms": call_ms, "device_busy_us": busy_us,
+                "idle_share": 1.0 - busy_us / (1e3 * call_ms) if busy_us else None,
+                "kernel_us": ours, "other_device_us": busy_us - sum(ours.values()),
+                "device_ops_per_call": n_device_ops / calls}
+
     def stage_ms(fn, reps=20):
         """Median host-clock ms of fn() between two synchronises, and its output."""
         fn()
@@ -733,31 +776,22 @@ def main():
         return statistics.median(times), out
 
     def phase_profile():
-        calls = 10
         for name, dtype in dtypes.items():
             model_fn = make_model_fn(dtype, N_MAIN, DEVICE)
             vg = value_and_grad_fwd_lgssm(model_fn, y_dev[name])
-            call_ms = events_ms(lambda: vg(p0), reps=calls, batches=3)[0]
-            device_us, n_device_ops = device_profile(lambda: vg(p0), calls)
-            busy_us = sum(device_us.values())
-            ours = {short: kernel_us(device_us, short) for short in JVP_KERNELS}
+            summary = call_profile(lambda: vg(p0), JVP_KERNELS)
             build_ms, _ = stage_ms(lambda: model_fn(p0))
             tangents_ms, (model, tangents) = stage_ms(
                 lambda: learning._model_and_tangents(model_fn, p0))
             fwd_ms, _ = stage_ms(
                 lambda: block.logpdf_fwd_grad(model, y_dev[name], tangents))
             rows_ms, _ = stage_ms(lambda: block._tangent_rows(model, tangents))
-            summary = {
-                "call_ms": call_ms, "device_busy_us": busy_us,
-                "idle_share": 1.0 - busy_us / (1e3 * call_ms) if busy_us else None,
-                "kernel_us": ours, "other_device_us": busy_us - sum(ours.values()),
-                "device_ops_per_call": n_device_ops / calls,
-                "host_stage_ms": {"model_fn": build_ms, "jacfwd_model_and_tangents": tangents_ms,
-                                  "logpdf_fwd_grad": fwd_ms, "of_which_tangent_rows": rows_ms},
-            }
+            summary["host_stage_ms"] = {"model_fn": build_ms, "jacfwd_model_and_tangents": tangents_ms,
+                                        "logpdf_fwd_grad": fwd_ms, "of_which_tangent_rows": rows_ms}
             smoke.record.setdefault("profile", {})[name] = summary
             print(f"  {name}: {json.dumps(summary)}", flush=True)
-            smoke.check(busy_us > 0 and all(us > 0 for us in ours.values()),
+            smoke.check(summary["device_busy_us"] > 0
+                        and all(us > 0 for us in summary["kernel_us"].values()),
                         f"{name}: the profiler saw K4-K6 on the device")
 
 
@@ -813,7 +847,8 @@ def main():
             params, am0, aP0 = affine_inputs(name)
             L, B = y_main.shape
             print(f"  {name}: L={L} B={B} D={D}, affine rows {tuple(params.shape)}")
-            p7 = kernels.phase3_states_plain(y_main, s_main, packed, starts, D)
+            p7 = kernels.phase3_states_plain(y_main, s_main, packed, starts, D,
+                                             chunks=kernels.PHASE3_STATES_CHUNKS)
             p8 = kernels.affine_phase1_plain(params, D, chunks=kernels.AFFINE_PHASE1_CHUNKS)
             p9 = kernels.affine_phase2_starts_plain(p8, am0, aP0, D)
             p10 = kernels.affine_phase3_states_plain(params, p9, D)
@@ -832,6 +867,17 @@ def main():
             record_comparison("affine_phase3_states", name, k10, p10, rows(k10), rows(p10),
                               "states")
             for shape in RAGGED_SHAPES:
+                y_r, s_r = ragged_streams(name, *shape)
+                r_starts = kernels.phase2_starts_plain(
+                    kernels.phase1_aggregate_plain(y_r, s_r, packed, D,
+                                                   chunks=kernels.PHASE1_AGGREGATE_CHUNKS),
+                    m0, P0, D)
+                p7 = kernels.phase3_states_plain(y_r, s_r, packed, r_starts, D,
+                                                 chunks=kernels.PHASE3_STATES_CHUNKS)
+                k7 = kernels.phase3_states(y_r, s_r, packed, r_starts, D)
+                torch.cuda.synchronize()
+                record_comparison("phase3_states", name, k7, p7, rows(k7), rows(p7), "states",
+                                  shape=shape)
                 r_params, r_m0, r_P0 = ragged_affine(name, *shape)
                 p8 = kernels.affine_phase1_plain(r_params, D, chunks=kernels.AFFINE_PHASE1_CHUNKS)
                 p10 = kernels.affine_phase3_states_plain(
@@ -939,7 +985,8 @@ def main():
             calls = {
                 "phase3_states": (
                     lambda: kernels.phase3_states(y_main, s_main, packed, starts, D),
-                    lambda: kernels.phase3_states_plain(y_main, s_main, packed, starts, D)),
+                    lambda: kernels.phase3_states_plain(y_main, s_main, packed, starts, D,
+                                                        chunks=kernels.PHASE3_STATES_CHUNKS)),
                 "affine_phase1": (
                     lambda: kernels.affine_phase1(params, D),
                     lambda: kernels.affine_phase1_plain(params, D,
@@ -959,15 +1006,10 @@ def main():
 
     # ---- 12. where the time of one posterior-marginals call goes ---------
     def phase_profile_posterior():
-        calls = 10
         for name, dtype in dtypes.items():
             fx = make_fx(dtype, N_MAIN, DEVICE)
             y = y_dev[name]
-            call_ms = events_ms(lambda: posterior_marginals(fx, y), reps=calls, batches=3)[0]
-            device_us, n_device_ops = device_profile(lambda: posterior_marginals(fx, y), calls)
-            busy_us = sum(device_us.values())
-            ours = {short: kernel_us(device_us, short) for short in POSTERIOR_KERNELS}
-
+            summary = call_profile(lambda: posterior_marginals(fx, y), POSTERIOR_KERNELS)
             B = block._pallas_blocks(N_MAIN)
             build_ms, model = stage_ms(lambda: build_lgssm(fx))
             missing_ms, (model_f, y_f, _) = stage_ms(lambda: transform_model_and_obs(model, y))
@@ -977,21 +1019,17 @@ def main():
             rows_ms, params = stage_ms(lambda: block._affine_comps_iteration(post, B))
             affine_ms, comps = stage_ms(lambda: block._affine_states(post, params, None))
             project_ms, _ = stage_ms(lambda: block._project(post, comps))
-            summary = {
-                "call_ms": call_ms, "device_busy_us": busy_us,
-                "idle_share": 1.0 - busy_us / (1e3 * call_ms) if busy_us else None,
-                "kernel_us": ours, "other_device_us": busy_us - sum(ours.values()),
-                "device_ops_per_call": n_device_ops / calls,
-                "other_device_ops_per_call": n_device_ops / calls - len(POSTERIOR_KERNELS),
-                "host_stage_ms": {"build_lgssm": build_ms, "missing_data": missing_ms,
-                                  "K1_K2_K7_filter_states": filter_ms,
-                                  "reversal_of_dynamics": reversal_ms,
-                                  "affine_comps_iteration": rows_ms, "K8_K9_K10": affine_ms,
-                                  "projection": project_ms},
-            }
+            summary["other_device_ops_per_call"] = (summary["device_ops_per_call"]
+                                                    - len(POSTERIOR_KERNELS))
+            summary["host_stage_ms"] = {"build_lgssm": build_ms, "missing_data": missing_ms,
+                                        "K1_K2_K7_filter_states": filter_ms,
+                                        "reversal_of_dynamics": reversal_ms,
+                                        "affine_comps_iteration": rows_ms, "K8_K9_K10": affine_ms,
+                                        "projection": project_ms}
             smoke.record.setdefault("profile_posterior", {})[name] = summary
             print(f"  {name}: {json.dumps(summary)}", flush=True)
-            smoke.check(busy_us > 0 and all(us > 0 for us in ours.values()),
+            smoke.check(summary["device_busy_us"] > 0
+                        and all(us > 0 for us in summary["kernel_us"].values()),
                         f"{name}: the profiler saw K1, K2, K7-K10 on the device")
 
     smoke.phase("1. versions and card", phase_versions)

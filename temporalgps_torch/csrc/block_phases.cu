@@ -10,31 +10,104 @@
 // (rows, B). Each kernel launches on the caller's stream and allocates
 // nothing; each C entry returns cudaGetLastError() after its launch.
 //
-// K1 and K3 run one thread per block and are bound by the latency of their
-// serial per-block recursion: at B = 2048 blocks there are only 2048 threads.
-// A thread block of one warp spreads those warps over as many SMs as there
+// K1 is a fold (combine is associative), bound on paper by operations (at
+// D = 3 a step is 738 flops against two values read) and on this card by how
+// many warps issue them: one thread a block is 64 warps at B = 2048 for 528
+// schedulers, each walking a dependent chain of L steps. So K1 takes K4's
+// schedule (block_phases_jvp.cu) without the tangent: each block's L steps
+// split into kPhase1AggregateChunks = C contiguous chunks, one per warp (lane
+// i of every warp takes block 32 * blockIdx.x + i, so the stream reads stay
+// coalesced), each folded from the identity, and the chunk aggregates
+// combined in order in a log2(C)-level tree: C times the warps in flight and
+// a serial chain of ceil(L / C) steps instead of L. The C warps of 32 blocks
+// are a cluster of C / kPhase1AggregateWarps thread blocks, whose last tree
+// levels go through distributed shared memory.
+//
+// K3 runs one thread per block and is bound by the latency of its serial
+// per-block recursion: at B = 2048 blocks there are only 2048 threads. A
+// thread block of one warp spreads those warps over as many SMs as there
 // are warps, one scheduler each. K2 is one thread block (see below).
+
+#include <cooperative_groups.h>
 
 #include "lanes.cuh"
 
 namespace tgps {
 
-constexpr int kLaneThreads = 32;   // K1, K3: one warp per thread block
+constexpr int kLaneThreads = 32;   // K1: lanes a warp; K3: one warp per thread block
 constexpr int kScanThreads = 128;  // K2: threads of the single thread block
+// K1: chunks of every block's steps, one per warp, and warps per thread
+// block; a cluster of C / W thread blocks holds a block's C warps.
+// ops/kernels.py passes its PHASE1_AGGREGATE_CHUNKS at the launch; the two must agree.
+constexpr int kPhase1AggregateChunks = 16;
+constexpr int kPhase1AggregateWarps = 8;
+constexpr int kPhase1AggregateCluster = kPhase1AggregateChunks / kPhase1AggregateWarps;
+static_assert((kPhase1AggregateWarps & (kPhase1AggregateWarps - 1)) == 0 &&
+              (kPhase1AggregateCluster & (kPhase1AggregateCluster - 1)) == 0 &&
+              kPhase1AggregateCluster * kPhase1AggregateWarps == kPhase1AggregateChunks,
+              "the chunk tree takes 2^n chunks, W a thread block, 2^m thread blocks a cluster");
 
+// Shared memory of K1's chunk tree: at each level half of the remaining
+// warps hand their aggregates to the warp on their left, so W / 2 slots of
+// K rows of 32 lanes suffice (one slot for a thread block of one warp).
 template <typename T, int D>
-__global__ void __launch_bounds__(kLaneThreads)
+constexpr int phase1_aggregate_shared_bytes() {
+  constexpr int slots = kPhase1AggregateWarps > 1 ? kPhase1AggregateWarps / 2 : 1;
+  return Dims<D>::kElem * slots * kLaneThreads * static_cast<int>(sizeof(T));
+}
+
+// Warp w of the thread block of cluster rank z (blockIdx.z) in cluster x
+// takes chunk c = z W + w: steps [c Lc, min((c+1) Lc, L)), Lc = ceil(L / C),
+// of block b = 32x + lane, folded from the identity element (an empty chunk
+// stays that; a lane past the last block folds nothing but meets every
+// barrier). The C chunk aggregates are then combined in a log2(C)-level
+// tree, earlier chunk always on the left (combine is not commutative): at
+// span 1, 2, 4, ..., chunk c with c % 2span == span hands its aggregate to
+// chunk c - span, which combines it on the right of its own. The levels
+// inside a thread block go through its shared memory, those across thread
+// blocks through the cluster's (warp 0 of rank z reads rank z + span's
+// slot). Warp 0 of rank 0 ends with the block's aggregate.
+template <typename T, int D>
+__global__ void __cluster_dims__(1, 1, kPhase1AggregateCluster)
+__launch_bounds__(kLaneThreads * kPhase1AggregateWarps)
 phase1_aggregate_kernel(const T* __restrict__ y, const T* __restrict__ s,
                         const T* __restrict__ params, T* __restrict__ out, int L, int B) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+  constexpr int C = kPhase1AggregateChunks;
+  constexpr int W = kPhase1AggregateWarps;
+  constexpr int kSlotStride = (W > 1 ? W / 2 : 1) * kLaneThreads;  // row stride of the slots
+  extern __shared__ __align__(16) unsigned char shared_raw[];
+  T* handed = reinterpret_cast<T*>(shared_raw);
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  const int z = static_cast<int>(cluster.block_rank());
+  const int lane = threadIdx.x % kLaneThreads;
+  const int w = threadIdx.x / kLaneThreads;
+  const int b = blockIdx.x * kLaneThreads + lane;
   const Params<T, D> p = load_params<T, D>(params);
-  Elem<T, D> acc = identity_elem<T, D>();
-  for (int l = 0; l < L; ++l) {
-    const long long i = static_cast<long long>(l) * B + b;
-    acc = combine(acc, step_element(p, s[i], y[i]));
+  const int Lc = (L + C - 1) / C;
+  const int lo = min((z * W + w) * Lc, L);
+  const int hi = b < B ? min(lo + Lc, L) : lo;  // a lane past the last block folds nothing
+  const int col = min(b, B - 1);
+  Elem<T, D> acc = fold_steps(p, y + col, s + col, lo, hi, B);
+#pragma unroll 1
+  for (int span = 1; span < W; span *= 2) {
+    T* slot = handed + (w / (2 * span)) * kLaneThreads + lane;
+    if (w % (2 * span) == span) store_elem(acc, slot, kSlotStride);
+    __syncthreads();
+    if (w % (2 * span) == 0) acc = combine(acc, load_elem<T, D>(slot, kSlotStride));
+    __syncthreads();
   }
-  store_elem(acc, out + b, B);
+#pragma unroll 1
+  for (int span = 1; span < kPhase1AggregateCluster; span *= 2) {
+    T* slot = handed + lane;
+    if (w == 0 && z % (2 * span) == span) store_elem(acc, slot, kSlotStride);
+    cluster.sync();
+    if (w == 0 && z % (2 * span) == 0) {
+      const T* remote = cluster.map_shared_rank(handed, z + span) + lane;
+      acc = combine(acc, load_elem<T, D>(remote, kSlotStride));
+    }
+    cluster.sync();  // rank z + span's slot stays in place until it is read
+  }
+  if (w == 0 && z == 0 && b < B) store_elem(acc, out + b, B);
 }
 
 // Exclusive prefix of the B block aggregates, seeded with the prior element
@@ -106,17 +179,30 @@ phase3_lml_kernel(const T* __restrict__ y, const T* __restrict__ s,
 
 inline int lane_grid(int B) { return (B + kLaneThreads - 1) / kLaneThreads; }
 
+template <typename T, int D>
+int launch_phase1_d(const T* y, const T* s, const T* params, T* out, int L, int B,
+                    cudaStream_t stream) {
+  const int bytes = phase1_aggregate_shared_bytes<T, D>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      phase1_aggregate_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(lane_grid(B), 1, kPhase1AggregateCluster);
+  phase1_aggregate_kernel<T, D><<<grid, kLaneThreads * kPhase1AggregateWarps, bytes, stream>>>(
+      y, s, params, out, L, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch_phase1(const T* y, const T* s, const T* params, T* out, int L, int B, int D,
-                  cudaStream_t stream) {
-  if (L < 1 || B < 1) return static_cast<int>(cudaErrorInvalidValue);
+                  int chunks, cudaStream_t stream) {
+  if (L < 1 || B < 1 || chunks != kPhase1AggregateChunks)
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (D) {
-    case 1: phase1_aggregate_kernel<T, 1><<<lane_grid(B), kLaneThreads, 0, stream>>>(y, s, params, out, L, B); break;
-    case 2: phase1_aggregate_kernel<T, 2><<<lane_grid(B), kLaneThreads, 0, stream>>>(y, s, params, out, L, B); break;
-    case 3: phase1_aggregate_kernel<T, 3><<<lane_grid(B), kLaneThreads, 0, stream>>>(y, s, params, out, L, B); break;
+    case 1: return launch_phase1_d<T, 1>(y, s, params, out, L, B, stream);
+    case 2: return launch_phase1_d<T, 2>(y, s, params, out, L, B, stream);
+    case 3: return launch_phase1_d<T, 3>(y, s, params, out, L, B, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -149,13 +235,15 @@ int launch_phase3(const T* y, const T* s, const T* params, const T* starts, T* l
 extern "C" {
 
 int tgps_phase1_aggregate_f32(const float* y, const float* s, const float* params, float* out,
-                              int L, int B, int D, void* stream) {
-  return tgps::launch_phase1<float>(y, s, params, out, L, B, D, static_cast<cudaStream_t>(stream));
+                              int L, int B, int D, int chunks, void* stream) {
+  return tgps::launch_phase1<float>(y, s, params, out, L, B, D, chunks,
+                                    static_cast<cudaStream_t>(stream));
 }
 
 int tgps_phase1_aggregate_f64(const double* y, const double* s, const double* params,
-                              double* out, int L, int B, int D, void* stream) {
-  return tgps::launch_phase1<double>(y, s, params, out, L, B, D, static_cast<cudaStream_t>(stream));
+                              double* out, int L, int B, int D, int chunks, void* stream) {
+  return tgps::launch_phase1<double>(y, s, params, out, L, B, D, chunks,
+                                     static_cast<cudaStream_t>(stream));
 }
 
 int tgps_phase2_starts_f32(const float* comps, const float* prior, float* starts, int B, int D,

@@ -436,6 +436,20 @@ __device__ __forceinline__ T kalman_step(Vec<T, D>& m, Mat<T, D>& P, const Param
   return lml;
 }
 
+// Left fold of steps [lo, hi) of one block from the identity element; y and
+// s point at the block's column of the (L, B) streams (an empty run stays the
+// identity). K1 and K7 fold one chunk of a block's steps each with this.
+template <typename T, int D>
+__device__ __forceinline__ Elem<T, D> fold_steps(const Params<T, D>& p, const T* y, const T* s,
+                                                 int lo, int hi, int B) {
+  Elem<T, D> acc = identity_elem<T, D>();
+  for (int l = lo; l < hi; ++l) {
+    const long long i = static_cast<long long>(l) * B;
+    acc = combine(acc, step_element(p, s[i], y[i]));
+  }
+  return acc;
+}
+
 // ---------------------------------------------------------------------------
 // Tangents. Every *_jvp returns the primal (the same operations, in the same
 // order, as the function above it) and its directional derivative along one

@@ -54,11 +54,14 @@ NVCC_FLAGS = (
 )
 # Streamed noise at or above this marks a missing or padding step (LARGE_VAR / 10).
 _MASK_THRESH = 1e14
-# Chunks of each block's steps that K4 and K8 fold side by side (one warp
-# each) before combining them in order: the kernels' kPhase1JvpChunks and
-# kAffineChunks. Each launch passes its constant and the kernel refuses any
-# other, so the plain versions' chunks= and the card's schedule are the same.
+# Chunks of each block's steps that K1, K4, K7 and K8 run side by side (one
+# warp each): the kernels' kPhase1AggregateChunks, kPhase1JvpChunks,
+# kPhase3StatesChunks and kAffineChunks. Each launch passes its constant and
+# the kernel refuses any other, so the plain versions' chunks= and the card's
+# schedule are the same.
+PHASE1_AGGREGATE_CHUNKS = 16
 PHASE1_JVP_CHUNKS = 16
+PHASE3_STATES_CHUNKS = 16
 AFFINE_PHASE1_CHUNKS = 16
 _DTYPE_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -155,13 +158,13 @@ def build() -> Path:
 
 _ENTRY_ARGS = {
     # pointers, then ints, then the stream
-    "phase1_aggregate": (4, 3),  # y, s, params, out; L, B, D
+    "phase1_aggregate": (4, 4),  # y, s, params, out; L, B, D, chunks
     "phase2_starts": (3, 2),     # comps, prior, starts; B, D
     "phase3_lml": (5, 3),        # y, s, params, starts, lml; L, B, D
     "phase1_jvp": (4, 5),         # y, s, rows, out; L, B, D, k, chunks
     "phase2_jvp_starts": (3, 3),  # comps, priors, starts; B, D, k
     "phase3_jvp_lml": (5, 4),     # y, s, rows, starts, lml; L, B, D, k
-    "phase3_states": (5, 3),         # y, s, params, starts, out; L, B, D
+    "phase3_states": (5, 4),         # y, s, params, starts, out; L, B, D, chunks
     "affine_phase1": (2, 4),         # params, out; L, B, D, chunks
     "affine_phase2_starts": (3, 2),  # agg, prior, starts; B, D
     "affine_phase3_states": (3, 3),  # params, starts, out; L, B, D
@@ -351,7 +354,7 @@ def _unchunk(tree, chunks):
 
 
 def _chunk_tree(aggs, combine):
-    """The chunk aggregates combined in the kernels' order (K4, K8): at span
+    """The chunk aggregates combined in the kernels' order (K1, K4, K8): at span
     1, 2, 4, ..., aggregate w (w a multiple of 2 span) takes aggregate
     w + span on its right, so the earlier chunk is always on the left."""
     aggs = list(aggs)
@@ -365,15 +368,30 @@ def _chunk_tree(aggs, combine):
     return aggs[0]
 
 
-def phase1_aggregate_plain(y_blocked, s_blocked, packed, D):
-    """(L, B) streams -> (K, B) block aggregates: for each block, the left
-    fold of its L step elements from the identity element."""
+def _chunk_aggregates(y_blocked, s_blocked, packed, D, chunks):
+    """The kernels' chunk folds (K1, K7): each block's L steps in `chunks`
+    runs of ceil(L / chunks), each folded from the identity element (the runs
+    side by side, as lanes) -> one element tree of (B,) components a run."""
     L, B = y_blocked.shape
     A, a, Q, H, h = _unpack_params(packed, D)
-    carry = _identity_elem((B,), D, y_blocked)
-    for y_l, s_l in zip(y_blocked.unbind(0), s_blocked.unbind(0)):
-        carry = lanes.combine(carry, lanes.step_element(A, a, Q, H, h, s_l, y_l, 1.0, 0.0))
-    return torch.stack(_elem_tuple_to_rows(carry))
+    carry = _identity_elem((chunks * B,), D, y_blocked)
+    steps = zip(_chunk_lanes(y_blocked, chunks, 0.0).unbind(0),
+                _chunk_lanes(s_blocked, chunks, 1.0).unbind(0))
+    for l, (y_l, s_l) in enumerate(steps):
+        new = lanes.combine(carry, lanes.step_element(A, a, Q, H, h, s_l, y_l, 1.0, 0.0))
+        carry = _fold_step(carry, new, _chunk_step_exists(l, L, B, chunks, y_blocked))
+    return _unchunk(carry, chunks)
+
+
+def phase1_aggregate_plain(y_blocked, s_blocked, packed, D, chunks=None):
+    """(L, B) streams -> (K, B) block aggregates: for each block, the left
+    fold of its L step elements from the identity element.
+
+    chunks=None folds each block's L steps in one run. With `chunks` (a
+    power of two; K1's is PHASE1_AGGREGATE_CHUNKS) it takes K1's schedule:
+    `_chunk_aggregates`, then the run aggregates combined by `_chunk_tree`."""
+    aggs = _chunk_aggregates(y_blocked, s_blocked, packed, D, chunks or 1)
+    return torch.stack(_elem_tuple_to_rows(_chunk_tree(aggs, lanes.combine)))
 
 
 def _shift(e, k, diag=1.0):
@@ -550,17 +568,38 @@ def phase3_jvp_lml_plain(y_blocked, s_blocked, packed_rows, starts, D, k):
 # Plain state-emitting versions: smoothing and prediction
 # ---------------------------------------------------------------------------
 
-def phase3_states_plain(y_blocked, s_blocked, packed, starts, D):
+def phase3_states_plain(y_blocked, s_blocked, packed, starts, D, chunks=None):
     """(L, B) streams and (SD, B) start states -> (SD, L, B): the Kalman
     recursion of each block from its start state, keeping the filtering
-    state after every step."""
+    state after every step.
+
+    chunks=None runs each block's L steps in one run from its start. With
+    `chunks` (K7's is PHASE3_STATES_CHUNKS) it takes K7's schedule: the steps
+    split into `chunks` runs of ceil(L / chunks); the runs' aggregates by
+    `_chunk_aggregates`; run c's start the state part of
+    (0, m_b, P_b, 0, 0) ∘ agg_0 ∘ ... ∘ agg_{c-1}, combined left to right;
+    and every run replayed from its start, side by side as lanes."""
+    L, B = y_blocked.shape
+    n = chunks or 1
     A, a, Q, H, h = _unpack_params(packed, D)
     m, P = _state_rows_to_tuple(starts.unbind(0), D)
+    run_starts = [(m, P)]
+    if n > 1:
+        zero = starts.new_zeros(B)
+        zmat = tuple(tuple(zero for _ in range(D)) for _ in range(D))
+        state = (zmat, m, P, (zero,) * D, zmat)
+        for agg in _chunk_aggregates(y_blocked, s_blocked, packed, D, n)[:-1]:
+            state = lanes.combine(state, agg)
+            run_starts.append((state[1], state[2]))
+    m, P = _tree_map(lambda *runs: torch.cat(runs), *run_starts)
     out = []
-    for y_l, s_l in zip(y_blocked.unbind(0), s_blocked.unbind(0)):
+    for y_l, s_l in zip(_chunk_lanes(y_blocked, n, 0.0).unbind(0),
+                        _chunk_lanes(s_blocked, n, 1.0).unbind(0)):
         m, P, _ = lanes.kalman_step(m, P, A, a, Q, H, h, s_l, y_l)
         out.append(torch.stack(_state_tuple_to_rows(m, P)))
-    return torch.stack(out, dim=1)
+    Lc = len(out)
+    runs = torch.stack(out, dim=1).reshape(-1, Lc, n, B)  # (SD, Lc, run, B)
+    return runs.transpose(1, 2).reshape(-1, n * Lc, B)[:, :L]
 
 
 def affine_phase1_plain(params, D, chunks=None):
@@ -606,13 +645,15 @@ def affine_phase3_states_plain(params, starts, D):
 # ---------------------------------------------------------------------------
 
 # K1. Replaces temporalgps_tpu/ops/pallas_kernels.py phase1_aggregate
-# (_phase1_kernel). One thread per block: it folds its L steps serially,
-# reading y[l, b] and s[l, b] (a warp reads 32 neighbouring addresses) and
-# keeping the K-component element in registers. Bound by the latency of that
-# serial recursion: at B = 2048 only 2048 threads are in flight on 132 SMs,
-# and the 2 N values read are nothing next to the 738 dependent flops a
-# step (D = 3). The design spreads the threads one warp per block, so each warp gets
-# an SM scheduler of its own; more parallelism (larger B) is later work.
+# (_phase1_kernel). Folds each block's L step elements, reading y[l, b] and
+# s[l, b] (a warp reads 32 neighbouring addresses). Bound by operations (738
+# dependent flops a step at D = 3 against 2 values read), and on this card
+# by how many warps issue them: one thread a block was 64 warps at B = 2048
+# for 528 schedulers. So K1 takes K4's schedule without the tangent: each
+# group of 32 blocks has PHASE1_AGGREGATE_CHUNKS warps, warp w folding the
+# w-th run of ceil(L / C) steps, and the run aggregates are combined in order
+# in shared memory, then across the cluster of thread blocks that holds the
+# C warps (`phase1_aggregate_plain(..., chunks=C)` is the same schedule).
 def phase1_aggregate(y_blocked, s_blocked, packed, D):
     """(L, B) y and noise streams -> (K, B) block aggregate elements."""
     if _route(y_blocked, s_blocked, packed) == "cpu":
@@ -622,7 +663,8 @@ def phase1_aggregate(y_blocked, s_blocked, packed, D):
     _check_shape("packed params", packed, (param_len(D),))
     L, B = y_blocked.shape
     out = torch.empty((elem_rows(D), B), dtype=y_blocked.dtype, device=y_blocked.device)
-    _launch("phase1_aggregate", (y_blocked, s_blocked, packed, out), (L, B, D))
+    _launch("phase1_aggregate", (y_blocked, s_blocked, packed, out),
+            (L, B, D, PHASE1_AGGREGATE_CHUNKS))
     phase1_aggregate.launches += 1
     return out
 
@@ -787,12 +829,16 @@ def _check_affine_params(params, D):
 
 
 # K7. Replaces temporalgps_tpu/ops/pallas_kernels.py phase3_states
-# (_phase3_states_kernel). K3's design: one thread per block, one warp per
-# thread block, runs the predict + scalar-update recursion from its start
-# state, and writes the state after every step to out[r, l, b], so a warp
-# stores 32 neighbouring addresses per row. Bound by bytes on paper (SD
-# values written a step, 215 flops at D = 3), and in practice, like K3, by
-# the latency of the serial recursion at B threads.
+# (_phase3_states_kernel). Runs the predict + scalar-update recursion of each
+# block from its start state and writes the state after every step to
+# out[r, l, b], so a warp stores 32 neighbouring addresses per row. Bound by
+# bytes on paper (SD values written a step, 209 flops at D = 3); one thread
+# a block left it bound by the latency of the L-step recursion. So each
+# block's steps are split into PHASE3_STATES_CHUNKS runs, one warp each, and
+# in one launch every warp folds its run (as K1 does), forms its run's start
+# from the block start and the earlier runs' aggregates (shared through
+# shared memory across the cluster that holds the C warps), and replays its
+# run from there (`phase3_states_plain(..., chunks=C)` is the same schedule).
 def phase3_states(y_blocked, s_blocked, packed, starts, D):
     """(L, B) streams and (SD, B) start states -> (SD, L, B) filtering
     states after every step."""
@@ -804,7 +850,8 @@ def phase3_states(y_blocked, s_blocked, packed, starts, D):
     L, B = y_blocked.shape
     _check_shape("starts", starts, (state_rows(D), B))
     out = torch.empty((state_rows(D), L, B), dtype=y_blocked.dtype, device=y_blocked.device)
-    _launch("phase3_states", (y_blocked, s_blocked, packed, starts, out), (L, B, D))
+    _launch("phase3_states", (y_blocked, s_blocked, packed, starts, out),
+            (L, B, D, PHASE3_STATES_CHUNKS))
     phase3_states.launches += 1
     return out
 

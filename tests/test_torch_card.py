@@ -26,40 +26,10 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("D", [1, 2, 3])
-@pytest.mark.parametrize("dtype, rtol", [(torch.float64, 1e-10), (torch.float32, 1e-4)])
-def test_kernels_match_plain_versions_on_card(cuda_device, D, dtype, rtol):
-    """Each kernel against its plain version on the same inputs, held on the
-    per-block lml downstream of it (the kernels contract to FMA)."""
-    rng = np.random.default_rng(D)
-    L, B = 37, 300  # B not a multiple of the thread-block sizes
-    y = rng.standard_normal((L, B))
-    s = np.full((L, B), 0.3)
-    s[5, 7] = 1e15
-    A = np.eye(D) * 0.9 + 0.01 * rng.standard_normal((D, D))
-    to = lambda x: torch.as_tensor(x, dtype=dtype, device=cuda_device)
-    packed = tk.pack_params(to(A), to(np.zeros(D)), to(0.1 * np.eye(D)), to(np.ones(D)),
-                            to(0.05), dtype)
-    y_t, s_t = to(y).contiguous(), to(s).contiguous()
-    m0, P0 = to(np.zeros(D)), to(np.eye(D))
-    p1 = tk.phase1_aggregate_plain(y_t, s_t, packed, D)
-    p2 = tk.phase2_starts_plain(p1, m0, P0, D)
-    p3 = tk.phase3_lml_plain(y_t, s_t, packed, p2, D)
-    k1 = tk.phase1_aggregate(y_t, s_t, packed, D)
-    k2 = tk.phase2_starts(p1, m0, P0, D)
-    k3 = tk.phase3_lml(y_t, s_t, packed, p2, D)
-    torch.cuda.synchronize()
-    via_k1 = tk.phase3_lml_plain(y_t, s_t, packed, tk.phase2_starts_plain(k1, m0, P0, D), D)
-    via_k2 = tk.phase3_lml_plain(y_t, s_t, packed, k2, D)
-    scale = p3.abs().max().item()
-    for got in (via_k1, via_k2, k3):
-        assert (got - p3).abs().max().item() <= rtol * scale
-
-
 # (L, B) of the chunked kernels' card tests: B = 300 is not a multiple of the
-# thread-block sizes; L = 37 is not a multiple of K4's or K8's chunk count
-# and L = 1 is fewer steps than chunks, so some chunks are ragged or empty.
+# thread-block sizes; L = 37 is not a multiple of K1's, K4's, K7's or K8's
+# chunk count and L = 1 is fewer steps than chunks, so some chunks are
+# ragged or empty.
 CHUNK_SHAPES = [(37, 300), (37, 96), (1, 96)]
 
 
@@ -71,6 +41,71 @@ def _streams_with_gaps(rng, L, B):
     s[min(5, L - 1), 7] = 1e15
     s[max(L - 2, 0):, B - 1] = 1e15
     return y, s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L, B", CHUNK_SHAPES)
+@pytest.mark.parametrize("D", [1, 2, 3])
+@pytest.mark.parametrize("dtype, rtol", [(torch.float64, 1e-10), (torch.float32, 1e-4)])
+def test_kernels_match_plain_versions_on_card(cuda_device, D, dtype, rtol, L, B):
+    """Each kernel against its plain version (K1's in its own chunk order) on
+    the same inputs, held on the per-block lml downstream of it (the kernels
+    contract to FMA). A missing step, padding steps, and the shapes of
+    CHUNK_SHAPES."""
+    rng = np.random.default_rng(D)
+    y, s = _streams_with_gaps(rng, L, B)
+    A = np.eye(D) * 0.9 + 0.01 * rng.standard_normal((D, D))
+    to = lambda x: torch.as_tensor(x, dtype=dtype, device=cuda_device)
+    packed = tk.pack_params(to(A), to(np.zeros(D)), to(0.1 * np.eye(D)), to(np.ones(D)),
+                            to(0.05), dtype)
+    y_t, s_t = to(y).contiguous(), to(s).contiguous()
+    m0, P0 = to(np.zeros(D)), to(np.eye(D))
+    p1 = tk.phase1_aggregate_plain(y_t, s_t, packed, D, chunks=tk.PHASE1_AGGREGATE_CHUNKS)
+    p2 = tk.phase2_starts_plain(p1, m0, P0, D)
+    p3 = tk.phase3_lml_plain(y_t, s_t, packed, p2, D)
+    tk.reset_launch_counts()
+    k1 = tk.phase1_aggregate(y_t, s_t, packed, D)
+    k2 = tk.phase2_starts(p1, m0, P0, D)
+    k3 = tk.phase3_lml(y_t, s_t, packed, p2, D)
+    torch.cuda.synchronize()
+    counts = tk.launch_counts()
+    assert (counts["phase1_aggregate"], counts["phase2_starts"], counts["phase3_lml"]) == (1, 1, 1)
+    assert k1.shape == p1.shape
+    via_k1 = tk.phase3_lml_plain(y_t, s_t, packed, tk.phase2_starts_plain(k1, m0, P0, D), D)
+    via_k2 = tk.phase3_lml_plain(y_t, s_t, packed, k2, D)
+    scale = p3.abs().max().item()
+    for got in (via_k1, via_k2, k3):
+        assert bool(torch.isfinite(got).all())
+        assert (got - p3).abs().max().item() <= rtol * scale
+
+
+# The chunked kernels' C entries: the shapes of their pointer arguments and
+# the ints before the chunk count, at D = 2 on 5 steps of 4 blocks (k = 1).
+_CHUNKED_LAUNCHES = {
+    "phase1_aggregate": ([(5, 4), (5, 4), (tk.param_len(2),), (tk.elem_rows(2), 4)],
+                         (5, 4, 2), tk.PHASE1_AGGREGATE_CHUNKS),
+    "phase1_jvp": ([(5, 4), (5, 4), (2, tk.param_s_len(2)), (2 * tk.elem_rows(2), 4)],
+                   (5, 4, 2, 1), tk.PHASE1_JVP_CHUNKS),
+    "phase3_states": ([(5, 4), (5, 4), (tk.param_len(2),), (tk.state_rows(2), 4),
+                       (tk.state_rows(2), 5, 4)], (5, 4, 2), tk.PHASE3_STATES_CHUNKS),
+    "affine_phase1": ([(tk.affine_rows(2), 5, 4), (tk.affine_rows(2), 4)], (5, 4, 2),
+                      tk.AFFINE_PHASE1_CHUNKS),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(_CHUNKED_LAUNCHES))
+def test_chunked_kernels_refuse_another_chunk_count(cuda_device, name):
+    """Each chunked kernel refuses at the launch any chunk count but its own,
+    which the wrapper passes (so the plain versions' chunks= is the card's
+    schedule), and launches with its own."""
+    shapes, ints, chunks = _CHUNKED_LAUNCHES[name]
+    tensors = [torch.zeros(shape, dtype=torch.float64, device=cuda_device) for shape in shapes]
+    for wrong in (chunks // 2, 2 * chunks):
+        with pytest.raises(RuntimeError, match=f"{name} kernel launch failed"):
+            tk._launch(name, tensors, (*ints, wrong))
+    tk._launch(name, tensors, (*ints, chunks))
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
@@ -263,7 +298,7 @@ def _rows_rel_err(got, want):
 @pytest.mark.parametrize("D", [1, 2, 3])
 @pytest.mark.parametrize("dtype, rtol", [(torch.float64, 1e-10), (torch.float32, 1e-4)])
 def test_state_kernels_match_plain_versions_on_card(cuda_device, D, dtype, rtol, L, B):
-    """K7-K10 against their plain versions (K8's in its own chunk order) on
+    """K7-K10 against their plain versions (K7's and K8's in their own chunk order) on
     the same inputs, held on the state rows (each scaled by its largest
     entry): K7's own, and for K8 and K9 the states the plain phases compute
     downstream of them. Time-varying affine maps, a missing step, padding
@@ -283,7 +318,7 @@ def test_state_kernels_match_plain_versions_on_card(cuda_device, D, dtype, rtol,
     rows = np.concatenate([F.reshape(L, B, D * D), 0.1 * rng.standard_normal((L, B, D)),
                            C.reshape(L, B, D * D)], axis=-1)
     params = to(rows.transpose(2, 0, 1))
-    p7 = tk.phase3_states_plain(y, s, packed, starts, D)
+    p7 = tk.phase3_states_plain(y, s, packed, starts, D, chunks=tk.PHASE3_STATES_CHUNKS)
     p8 = tk.affine_phase1_plain(params, D, chunks=tk.AFFINE_PHASE1_CHUNKS)
     p9 = tk.affine_phase2_starts_plain(p8, m0, P0, D)
     p10 = tk.affine_phase3_states_plain(params, p9, D)

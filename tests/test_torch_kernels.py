@@ -48,17 +48,17 @@ def _t(x):
     return torch.from_numpy(np.array(x, dtype=np.float64))
 
 
-def _reference_setup(D, seed):
-    """The reference model after the missing-data transform, padded and cut
-    into B blocks; plus the port's streams and packed parameters built from
-    the same numpy values."""
-    y = np.random.default_rng(seed).standard_normal(N)
-    y[NAN_AT] = np.nan
+def _reference_setup(D, seed, n=N):
+    """The reference model on n steps after the missing-data transform,
+    padded and cut into B blocks; plus the port's streams and packed
+    parameters built from the same numpy values."""
+    y = np.random.default_rng(seed).standard_normal(n)
+    y[min(NAN_AT, n // 2)] = np.nan
     kern = getattr(jgp, KERNEL_OF_DIM[D])
-    fx = jgp.to_sde(jgp.GP((1.3 * kern()).stretch(0.7)))(JRegularSpacing(0.0, 0.3, N), 0.2)
+    fx = jgp.to_sde(jgp.GP((1.3 * kern()).stretch(0.7)))(JRegularSpacing(0.0, 0.3, n), 0.2)
     model, y_f, _ = jmissings.transform_model_and_obs(japi.build_lgssm(fx), jnp.asarray(y))
     params_p, y_p, s_p, n_pad, _ = jblock._pad_tail(model, y_f, B)
-    L = (N + n_pad) // B
+    L = (n + n_pad) // B
     blocked = jblock._split_tree((params_p, y_p), B, L)
 
     t = model.trans
@@ -100,6 +100,40 @@ def test_phase1_plain_matches_reference(D):
     assert comps.shape == (tk.elem_rows(D), B)
     for got, want in zip(_elem_from_rows(comps, D), agg_ref):
         _close(got, want)
+
+
+# K1's chunked schedule: L = 1 (fewer steps than chunks), 5 and 37 (neither
+# a multiple of the chunk count) steps a block, each with a missing
+# observation and a padded tail (n = 4L - 2, or 3 for L = 1).
+CHUNK_LENGTHS = {1: 3, 5: N, 37: 146}
+
+
+@pytest.mark.parametrize("chunks", [4, tk.PHASE1_AGGREGATE_CHUNKS])
+@pytest.mark.parametrize("L", sorted(CHUNK_LENGTHS))
+@pytest.mark.parametrize("D", [1, 3])
+def test_phase1_plain_chunked_matches_serial_and_reference(D, L, chunks):
+    """The kernel's schedule (each block's steps in `chunks` runs, the run
+    aggregates combined in order, empty runs the identity) gives the serial
+    fold's aggregates and the reference's, and downstream the reference's
+    block starts (K2) and lml (K3)."""
+    n = CHUNK_LENGTHS[L]
+    model, blocked, _y_p, _s_p, y_main, s_main, packed = _reference_setup(D, seed=50 + L, n=n)
+    assert y_main.shape == (L, B) and L * B > n
+    chunked = tk.phase1_aggregate_plain(y_main, s_main, packed, D, chunks=chunks)
+    _close(chunked, tk.phase1_aggregate_plain(y_main, s_main, packed, D))
+    agg_ref = _phase1_ref(blocked, B, D, jnp.float64)
+    for got, want in zip(_elem_from_rows(chunked, D), agg_ref):
+        _close(got, want)
+
+    x0 = model.trans.x0
+    prior = jblock._prior_element(x0, D, jnp.float64)
+    pref = _phase2_ref(tuple(jnp.concatenate([p, a]) for p, a in zip(prior, agg_ref)))
+    P0 = _t(x0.cov)
+    starts = tk.phase2_starts_plain(chunked, _t(x0.mean), 0.5 * (P0 + P0.T), D)
+    _close(starts[:D].T, pref[1][:-1])
+    _close(starts[D:].T.reshape(B, D, D), pref[2][:-1])
+    lml = tk.phase3_lml_plain(y_main, s_main, packed, starts, D).sum()
+    _close(lml, _phase3_ref(blocked, JGaussian(pref[1][:-1], pref[2][:-1]), B, D, jnp.float64))
 
 
 @pytest.mark.parametrize("D", [1, 2, 3])

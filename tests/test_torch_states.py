@@ -33,7 +33,7 @@ from temporalgps_torch.models.gauss_markov import GaussMarkov
 from temporalgps_torch.models.lgssm import LGSSM
 from temporalgps_torch.ops import block as tblock
 from temporalgps_torch.ops import kernels as tk
-from temporalgps_torch.utils.fill import Fill
+from temporalgps_torch.utils.fill import Fill, tmaterialize
 from temporalgps_torch.utils.gaussian import Gaussian
 
 torch.set_num_threads(1)
@@ -60,27 +60,28 @@ def _t(x):
 
 
 @functools.cache
-def _prior_model(D):
+def _prior_model(D, n=N):
     kern = getattr(jgp, KERNEL_OF_DIM[D])
-    fx = jgp.to_sde(jgp.GP((1.3 * kern()).stretch(0.7)))(JRegularSpacing(0.0, 0.3, N), 0.2)
+    fx = jgp.to_sde(jgp.GP((1.3 * kern()).stretch(0.7)))(JRegularSpacing(0.0, 0.3, n), 0.2)
     return jax.jit(lambda: japi.build_lgssm(fx))()
 
 
-def _reference_model(D, seed):
-    """The reference model after the missing-data transform, its filled y,
-    and the port's model carried across from the same values."""
-    y = np.random.default_rng(seed).standard_normal(N)
-    y[NAN_AT] = np.nan
-    model, y_f, _ = _transform_ref(_prior_model(D), jnp.asarray(y))
-    return model, y_f, _carry(model, forward=True)
+def _reference_model(D, seed, n=N, missing=(NAN_AT,)):
+    """The reference model on n steps after the missing-data transform (y
+    missing at `missing`), its filled y, and the port's model carried across
+    from the same values."""
+    y = np.random.default_rng(seed).standard_normal(n)
+    y[list(missing)] = np.nan
+    model, y_f, _ = _transform_ref(_prior_model(D, n), jnp.asarray(y))
+    return model, y_f, _carry(model, forward=True, n=n)
 
 
-def _carry(model, forward):
+def _carry(model, forward, n=N):
     t, e = model.trans, model.emis
     val = lambda leaf: getattr(leaf, "value", leaf)
     return convert.lgssm_from_numpy(
         *(np.asarray(val(leaf)) for leaf in (t.As, t.offs, t.Qs, e.H, e.h, e.s)),
-        np.asarray(t.x0.mean), np.asarray(t.x0.cov), N,
+        np.asarray(t.x0.mean), np.asarray(t.x0.cov), n,
         dtype=torch.float64, device="cpu", forward=forward)
 
 
@@ -92,6 +93,43 @@ def test_phase3_states_plain_matches_reference_filter(D):
     comps = tblock._filter_state_comps(tmodel, _t(y_f), B, fused=False)
     assert comps.shape == (tk.state_rows(D), N)
     got = tblock._comps_to_gaussian(comps, D)
+    _close(got.mean, want.mean)
+    _close(got.cov, want.cov)
+
+
+# K7's chunked schedule: L = 1 (fewer steps than chunks), 5 and 37 (neither
+# a multiple of the chunk count) steps a block, with a padded tail (n = 4L -
+# 2, or 3 for L = 1), and missing steps on both sides of a chunk boundary of
+# both chunk counts in block 1: its step BOUNDARY[L] starts a run of 4 and
+# of 16 runs, so the run before it ends missing and the run from it starts
+# missing.
+STATE_CHUNK_LENGTHS = {1: 3, 5: 18, 37: 146}
+BOUNDARY = {1: 0, 5: 2, 37: 30}
+
+
+@pytest.mark.parametrize("chunks", [4, tk.PHASE3_STATES_CHUNKS])
+@pytest.mark.parametrize("L", sorted(STATE_CHUNK_LENGTHS))
+@pytest.mark.parametrize("D", [1, 3])
+def test_phase3_states_plain_chunked_matches_serial_and_reference_filter(D, L, chunks):
+    """K7's schedule (each run folded, its start formed from the block start
+    and the earlier runs' aggregates, then replayed) gives the serial
+    replay's states, and after K1 -> K2 the reference block filter's."""
+    n = STATE_CHUNK_LENGTHS[L]
+    at = L + BOUNDARY[L]
+    model, y_f, tmodel = _reference_model(D, seed=60 + L, n=n, missing=(at - 1, at))
+    want = _filter_ref(model, y_f, n_blocks=B)
+    t, e = tmodel.trans, tmodel.emis
+    y_main, s_main, _ = tblock._blocked_streams(_t(y_f), tmaterialize(e.s), B)
+    assert y_main.shape == (L, B) and L * B > n
+    Lc = -(-L // chunks)
+    assert (L == 1 or BOUNDARY[L] % Lc == 0) and bool((s_main[BOUNDARY[L], 1] > 1e14))
+    packed = tk.pack_params(t.As.value, t.offs.value, t.Qs.value, e.H.value, e.h.value,
+                            torch.float64)
+    aggs = tk.phase1_aggregate_plain(y_main, s_main, packed, D)
+    starts = tk.phase2_starts_plain(aggs, t.x0.mean, 0.5 * (t.x0.cov + t.x0.cov.T), D)
+    chunked = tk.phase3_states_plain(y_main, s_main, packed, starts, D, chunks=chunks)
+    _close(chunked, tk.phase3_states_plain(y_main, s_main, packed, starts, D))
+    got = tblock._comps_to_gaussian(tblock._unblock_states(chunked, n), D)
     _close(got.mean, want.mean)
     _close(got.cov, want.cov)
 
