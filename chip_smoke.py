@@ -6,7 +6,8 @@ Phases; any failure exits non-zero without the final result line:
   1. torch / CUDA versions, and the card's name and power limit (nvidia-smi).
   2. Build the hand-written kernels (csrc/, one nvcc per source, side by
      side) and report the build time, ptxas register / shared-memory /
-     spill counts, and K1's, K4's, K7's and K8's chunk counts.
+     spill counts, and the chunk counts of K1, K4, K6 (K4's), K7, K8 and
+     K10 (K8's).
   3. Each value kernel (K1 phase1_aggregate, K2 phase2_starts, K3 phase3_lml)
      against its plain PyTorch version on the card, at the main path's shapes
      (Matern-5/2, D = 3, N = 1M: B = 2048 blocks of L = 489 steps), float64
@@ -21,11 +22,14 @@ Phases; any failure exits non-zero without the final result line:
      streams, k = 3 tangents). The gate is on the (1+k, B) lml rows
      downstream, each row scaled by its own largest entry, with the same two
      tolerances for the same reason: the kernels' tangents are written out by
-     hand and contract to FMA, the plain ones come from autodiff. K4's
-     plain version runs in K4's chunk order (kernels.PHASE1_JVP_CHUNKS).
-     K4 is also held, with the same gate, at two ragged shapes of B = 96
-     blocks: L = 37 (not a multiple of the chunk count) and L = 1 (fewer
-     steps than chunks), with a missing step and padding steps.
+     hand and contract to FMA, the plain ones come from autodiff. K4's and
+     K6's plain versions run in their kernels' chunk order
+     (kernels.PHASE1_JVP_CHUNKS). K6 and its plain version are both fed
+     K4's run aggregates; K4's block aggregates and its run aggregates are
+     each held on the rows the plain phases compute downstream of them.
+     K4-K6 are also held, with the same gate, at two ragged shapes of
+     B = 96 blocks: L = 37 (not a multiple of the chunk count) and L = 1
+     (fewer steps than chunks), with a missing step and padding steps.
   5. The lml path, through the public entry points:
        to_sde(GP((s2*Matern52()).stretch(sc)), ArrayStorage(float32))(
            RegularSpacing(0, 1e-3, 1_000_000), 0.1) -> logpdf
@@ -65,11 +69,12 @@ Phases; any failure exits non-zero without the final result line:
      iteration view). The gate is on the state rows (K7's and K10's own,
      and those the plain phases compute downstream of K8 and K9), each row
      scaled by its largest entry: 1e-10 in float64, 1e-4 in float32, for
-     the rounding and FMA reason of phase 3. K7's and K8's plain versions
-     run in their kernels' chunk order (kernels.PHASE3_STATES_CHUNKS,
-     AFFINE_PHASE1_CHUNKS); K7 is also held at phase 4's two ragged shapes
-     (a missing step and padding steps), K8 at the same shapes on
-     time-varying maps.
+     the rounding and FMA reason of phase 3. K7's, K8's and K10's plain
+     versions run in their kernels' chunk order (kernels.PHASE3_STATES_CHUNKS,
+     AFFINE_PHASE1_CHUNKS); K10 and its plain version are both fed K8's run
+     aggregates, and K8's run aggregates are held on the states downstream
+     of them. K7 is also held at phase 4's two ragged shapes (a missing step
+     and padding steps), K8-K10 at the same shapes on time-varying maps.
  10. The posterior path, through the public entry points:
        marginals(posterior(fx, y)(x, 0.1))   (temporalgps_torch.gp.posterior)
      for the reference's bench config c1 (GP(Matern32()), float32,
@@ -148,8 +153,9 @@ N_C1 = 10_000
 N_TRAIN_NEW, N_PRED_NEW = 2_000, 500
 KERNEL_RTOL = {"float64": 1e-10, "float32": 1e-4}
 
-# Ragged (L, B) of the chunked kernels (K1, K4, K7, K8) beside the main
-# shapes: L not a multiple of the chunk counts, and fewer steps than chunks.
+# Ragged (L, B) of the chunked kernels (K1, K4, K6, K7, K8, K10) beside the
+# main shapes: L not a multiple of the chunk counts, and fewer steps than
+# chunks.
 RAGGED_SHAPES = ((37, 96), (1, 96))
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): device memory rate,
@@ -373,8 +379,10 @@ def main():
         print(f"  built {os.path.relpath(path, HERE)} in {time.perf_counter() - t0:.1f} s")
         smoke.record["chunks"] = {"phase1_aggregate": kernels.PHASE1_AGGREGATE_CHUNKS,
                                   "phase1_jvp": kernels.PHASE1_JVP_CHUNKS,
+                                  "phase3_jvp_lml": kernels.PHASE1_JVP_CHUNKS,
                                   "phase3_states": kernels.PHASE3_STATES_CHUNKS,
-                                  "affine_phase1": kernels.AFFINE_PHASE1_CHUNKS}
+                                  "affine_phase1": kernels.AFFINE_PHASE1_CHUNKS,
+                                  "affine_phase3_states": kernels.AFFINE_PHASE1_CHUNKS}
         print(f"  chunks a block: {smoke.record['chunks']}")
         log = path.with_suffix(".log")
         if log.exists():
@@ -394,15 +402,17 @@ def main():
         return y_main, s_main, packed, m0, symmetrize(P0)
 
     def record_comparison(kname, name, k_out, p_out, partials, want, label="lml-partials",
-                          shape=None):
+                          shape=None, part=None):
         """`partials` (downstream of the kernel) against `want`, row by row
         relative to each row's largest entry; recorded under the dtype's
-        name, or beside it for a ragged (L, B) `shape`."""
+        name, or beside it for a ragged (L, B) `shape` or for a `part` of
+        the kernel's output other than its main one."""
         finite = bool(torch.isfinite(k_out).all())
         max_abs = (k_out - p_out).abs().max().item()
         scale = want.abs().amax(dim=-1, keepdim=True)
         r = ((partials - want).abs() / scale).max().item()
         key = name if shape is None else f"{name}_L{shape[0]}_B{shape[1]}"
+        key = key if part is None else f"{key}_{part}"
         smoke.record.setdefault(kname, {})[key] = {"max_abs_err": max_abs,
                                                    f"{label.replace('-', '_')}_rel": r}
         smoke.check(finite and r <= KERNEL_RTOL[name],
@@ -463,36 +473,37 @@ def main():
         rows, priors = block._tangent_rows(model, tangents)
         return y_main, s_main, rows, priors
 
+    def compare_jvp(name, y_main, s_main, rows, priors, shape=None):
+        """K4-K6 against their plain versions (K4's and K6's in their chunk
+        order) on the same inputs, each held on the lml rows downstream: K4's
+        block aggregates and run aggregates, K5's starts, and K6 fed K4's run
+        aggregates."""
+        C = kernels.PHASE1_JVP_CHUNKS
+        p1, p_runs = kernels.phase1_jvp_plain(y_main, s_main, rows, D, k, chunks=C)
+        p2 = kernels.phase2_jvp_starts_plain(p1, priors, D, k)
+        p3 = kernels.phase3_jvp_lml_plain(y_main, s_main, rows, p2, D, k, p_runs)
+        k1, k_runs = kernels.phase1_jvp(y_main, s_main, rows, D, k)
+        k2 = kernels.phase2_jvp_starts(p1, priors, D, k)
+        k3 = kernels.phase3_jvp_lml(y_main, s_main, rows, p2, D, k, k_runs)
+        torch.cuda.synchronize()
+        via_k1 = kernels.phase3_jvp_lml_plain(
+            y_main, s_main, rows, kernels.phase2_jvp_starts_plain(k1, priors, D, k), D, k, p_runs)
+        via_k_runs = kernels.phase3_jvp_lml_plain(y_main, s_main, rows, p2, D, k, k_runs)
+        via_k2 = kernels.phase3_jvp_lml_plain(y_main, s_main, rows, k2, D, k, p_runs)
+        record_comparison("phase1_jvp", name, k1, p1, via_k1, p3, shape=shape)
+        record_comparison("phase1_jvp", name, k_runs, p_runs, via_k_runs, p3, shape=shape,
+                          part="runs")
+        record_comparison("phase2_jvp_starts", name, k2, p2, via_k2, p3, shape=shape)
+        record_comparison("phase3_jvp_lml", name, k3, via_k_runs, k3, via_k_runs, shape=shape)
+
     def phase_compare_jvp():
         for name in dtypes:
             y_main, s_main, rows, priors = jvp_inputs(name)
             L, B = y_main.shape
             print(f"  {name}: L={L} B={B} D={D} k={k}")
-            p1 = kernels.phase1_jvp_plain(y_main, s_main, rows, D, k,
-                                          chunks=kernels.PHASE1_JVP_CHUNKS)
-            p2 = kernels.phase2_jvp_starts_plain(p1, priors, D, k)
-            p3 = kernels.phase3_jvp_lml_plain(y_main, s_main, rows, p2, D, k)
-            k1 = kernels.phase1_jvp(y_main, s_main, rows, D, k)
-            k2 = kernels.phase2_jvp_starts(p1, priors, D, k)
-            k3 = kernels.phase3_jvp_lml(y_main, s_main, rows, p2, D, k)
-            torch.cuda.synchronize()
-            via_k1 = kernels.phase3_jvp_lml_plain(
-                y_main, s_main, rows, kernels.phase2_jvp_starts_plain(k1, priors, D, k), D, k)
-            via_k2 = kernels.phase3_jvp_lml_plain(y_main, s_main, rows, k2, D, k)
-            record_comparison("phase1_jvp", name, k1, p1, via_k1, p3)
-            record_comparison("phase2_jvp_starts", name, k2, p2, via_k2, p3)
-            record_comparison("phase3_jvp_lml", name, k3, p3, k3, p3)
+            compare_jvp(name, y_main, s_main, rows, priors)
             for shape in RAGGED_SHAPES:
-                y_r, s_r = ragged_streams(name, *shape)
-                p1 = kernels.phase1_jvp_plain(y_r, s_r, rows, D, k,
-                                              chunks=kernels.PHASE1_JVP_CHUNKS)
-                p3 = kernels.phase3_jvp_lml_plain(
-                    y_r, s_r, rows, kernels.phase2_jvp_starts_plain(p1, priors, D, k), D, k)
-                k1 = kernels.phase1_jvp(y_r, s_r, rows, D, k)
-                torch.cuda.synchronize()
-                via_k1 = kernels.phase3_jvp_lml_plain(
-                    y_r, s_r, rows, kernels.phase2_jvp_starts_plain(k1, priors, D, k), D, k)
-                record_comparison("phase1_jvp", name, k1, p1, via_k1, p3, shape=shape)
+                compare_jvp(name, *ragged_streams(name, *shape), rows, priors, shape=shape)
 
     # ---- 5. lml path -----------------------------------------------------
     def phase_main_path():
@@ -670,7 +681,7 @@ def main():
             L, B = y_main.shape
             comps = kernels.phase1_aggregate(y_main, s_main, packed, D)
             starts = kernels.phase2_starts(comps, m0, P0, D)
-            jcomps = kernels.phase1_jvp(y_main, s_main, rows, D, k)
+            jcomps, jruns = kernels.phase1_jvp(y_main, s_main, rows, D, k)
             jstarts = kernels.phase2_jvp_starts(jcomps, priors, D, k)
             fx = make_fx(dtype, N_MAIN, DEVICE)
             vg = value_and_grad_fwd_lgssm(make_model_fn(dtype, N_MAIN, DEVICE), y_dev[name])
@@ -693,8 +704,9 @@ def main():
                     lambda: kernels.phase2_jvp_starts(jcomps, priors, D, k),
                     lambda: kernels.phase2_jvp_starts_plain(jcomps, priors, D, k)),
                 "phase3_jvp_lml": (
-                    lambda: kernels.phase3_jvp_lml(y_main, s_main, rows, jstarts, D, k),
-                    lambda: kernels.phase3_jvp_lml_plain(y_main, s_main, rows, jstarts, D, k)),
+                    lambda: kernels.phase3_jvp_lml(y_main, s_main, rows, jstarts, D, k, jruns),
+                    lambda: kernels.phase3_jvp_lml_plain(y_main, s_main, rows, jstarts, D, k,
+                                                         jruns)),
                 "end_to_end_logpdf": (
                     lambda: logpdf(fx, y_dev[name]),
                     lambda: logpdf(fx, y_dev[name], engine="block", fused=False)),
@@ -837,9 +849,34 @@ def main():
         return to(rows.transpose(2, 0, 1)), to(0.1 * rng.standard_normal(D)), to(np.eye(D))
 
     # ---- 9. state-emitting kernels against their plain versions ---------
+    def compare_affine(name, params, m0, P0, shape=None):
+        """K8-K10 against their plain versions (K8's and K10's in their chunk
+        order) on the same inputs, each held on the state rows downstream:
+        K8's block aggregates and run aggregates, K9's starts, and K10 fed
+        K8's run aggregates."""
+        rows = lambda t: t.reshape(D + D * D, -1)
+        p8, p_runs = kernels.affine_phase1_plain(params, D, chunks=kernels.AFFINE_PHASE1_CHUNKS)
+        p9 = kernels.affine_phase2_starts_plain(p8, m0, P0, D)
+        p10 = kernels.affine_phase3_states_plain(params, p9, D, p_runs)
+        k8, k_runs = kernels.affine_phase1(params, D)
+        k9 = kernels.affine_phase2_starts(p8, m0, P0, D)
+        k10 = kernels.affine_phase3_states(params, p9, D, k_runs)
+        torch.cuda.synchronize()
+        via_k8 = kernels.affine_phase3_states_plain(
+            params, kernels.affine_phase2_starts_plain(k8, m0, P0, D), D, p_runs)
+        via_k_runs = kernels.affine_phase3_states_plain(params, p9, D, k_runs)
+        via_k9 = kernels.affine_phase3_states_plain(params, k9, D, p_runs)
+        record_comparison("affine_phase1", name, k8, p8, rows(via_k8), rows(p10), "states",
+                          shape=shape)
+        record_comparison("affine_phase1", name, k_runs, p_runs, rows(via_k_runs), rows(p10),
+                          "states", shape=shape, part="runs")
+        record_comparison("affine_phase2_starts", name, k9, p9, rows(via_k9), rows(p10),
+                          "states", shape=shape)
+        record_comparison("affine_phase3_states", name, k10, via_k_runs, rows(k10),
+                          rows(via_k_runs), "states", shape=shape)
+
     def phase_compare_states():
-        SD = D + D * D
-        rows = lambda t: t.reshape(SD, -1)
+        rows = lambda t: t.reshape(D + D * D, -1)
         for name in dtypes:
             y_main, s_main, packed, m0, P0 = main_inputs(name)
             starts = kernels.phase2_starts(
@@ -849,23 +886,10 @@ def main():
             print(f"  {name}: L={L} B={B} D={D}, affine rows {tuple(params.shape)}")
             p7 = kernels.phase3_states_plain(y_main, s_main, packed, starts, D,
                                              chunks=kernels.PHASE3_STATES_CHUNKS)
-            p8 = kernels.affine_phase1_plain(params, D, chunks=kernels.AFFINE_PHASE1_CHUNKS)
-            p9 = kernels.affine_phase2_starts_plain(p8, am0, aP0, D)
-            p10 = kernels.affine_phase3_states_plain(params, p9, D)
             k7 = kernels.phase3_states(y_main, s_main, packed, starts, D)
-            k8 = kernels.affine_phase1(params, D)
-            k9 = kernels.affine_phase2_starts(p8, am0, aP0, D)
-            k10 = kernels.affine_phase3_states(params, p9, D)
             torch.cuda.synchronize()
-            via_k8 = kernels.affine_phase3_states_plain(
-                params, kernels.affine_phase2_starts_plain(k8, am0, aP0, D), D)
-            via_k9 = kernels.affine_phase3_states_plain(params, k9, D)
             record_comparison("phase3_states", name, k7, p7, rows(k7), rows(p7), "states")
-            record_comparison("affine_phase1", name, k8, p8, rows(via_k8), rows(p10), "states")
-            record_comparison("affine_phase2_starts", name, k9, p9, rows(via_k9), rows(p10),
-                              "states")
-            record_comparison("affine_phase3_states", name, k10, p10, rows(k10), rows(p10),
-                              "states")
+            compare_affine(name, params, am0, aP0)
             for shape in RAGGED_SHAPES:
                 y_r, s_r = ragged_streams(name, *shape)
                 r_starts = kernels.phase2_starts_plain(
@@ -878,16 +902,7 @@ def main():
                 torch.cuda.synchronize()
                 record_comparison("phase3_states", name, k7, p7, rows(k7), rows(p7), "states",
                                   shape=shape)
-                r_params, r_m0, r_P0 = ragged_affine(name, *shape)
-                p8 = kernels.affine_phase1_plain(r_params, D, chunks=kernels.AFFINE_PHASE1_CHUNKS)
-                p10 = kernels.affine_phase3_states_plain(
-                    r_params, kernels.affine_phase2_starts_plain(p8, r_m0, r_P0, D), D)
-                k8 = kernels.affine_phase1(r_params, D)
-                torch.cuda.synchronize()
-                via_k8 = kernels.affine_phase3_states_plain(
-                    r_params, kernels.affine_phase2_starts_plain(k8, r_m0, r_P0, D), D)
-                record_comparison("affine_phase1", name, k8, p8, rows(via_k8), rows(p10),
-                                  "states", shape=shape)
+                compare_affine(name, *ragged_affine(name, *shape), shape=shape)
 
     # ---- 10. posterior path ----------------------------------------------
     def phase_posterior():
@@ -979,7 +994,7 @@ def main():
             starts = kernels.phase2_starts(
                 kernels.phase1_aggregate(y_main, s_main, packed, D), m0, P0, D)
             params, am0, aP0 = affine_inputs(name)
-            agg = kernels.affine_phase1(params, D)
+            agg, aruns = kernels.affine_phase1(params, D)
             astarts = kernels.affine_phase2_starts(agg, am0, aP0, D)
             fx, fx_c1 = make_fx(dtype, N_MAIN, DEVICE), make_c1(dtype, DEVICE)
             calls = {
@@ -995,8 +1010,8 @@ def main():
                     lambda: kernels.affine_phase2_starts(agg, am0, aP0, D),
                     lambda: kernels.affine_phase2_starts_plain(agg, am0, aP0, D)),
                 "affine_phase3_states": (
-                    lambda: kernels.affine_phase3_states(params, astarts, D),
-                    lambda: kernels.affine_phase3_states_plain(params, astarts, D)),
+                    lambda: kernels.affine_phase3_states(params, astarts, D, aruns),
+                    lambda: kernels.affine_phase3_states_plain(params, astarts, D, aruns)),
                 "end_to_end_posterior_marginals": (
                     lambda: posterior_marginals(fx, y_dev[name]), None),
                 "end_to_end_posterior_marginals_c1": (

@@ -1,28 +1,40 @@
-"""Chunk counts of the port's chunked kernels on one CUDA card: K1
-(phase1_aggregate), K4 (phase1_jvp), K7 (phase3_states) and K8
-(affine_phase1).
+"""Chunk counts and thread-block shapes of the port's chunked kernels on one
+CUDA card: K1 (phase1_aggregate), K4 (phase1_jvp), K6 (phase3_jvp_lml), K7
+(phase3_states), K8 (affine_phase1) and K10 (affine_phase3_states).
 
     python3 probes/torch_chunk_sweep.py [--parent DIR] [--only NAME ...]
+    python3 probes/torch_chunk_sweep.py --sass [--only NAME ...]
 
 Builds each variant from a copy of temporalgps_torch/csrc/ with the
 kernel's constants rewritten (K1: kPhase1AggregateChunks and
-kPhase1AggregateWarps; K4: kPhase1JvpChunks and kPhase1JvpWarps; K7:
+kPhase1AggregateWarps; K4 and K6: kPhase1JvpChunks and kPhase1JvpWarps; K7:
 kPhase3StatesChunks and kPhase3StatesWarps; K8: kAffineChunks and
-kAffinePrefetch), one nvcc per variant, all started together; checks that
-every variant gives the default build's output (each row relative to its
-largest entry: 1e-10 in float64; in float32 only 1e-2, since the order of
-the combines, which the chunk count sets, moves rows of these synthetic
-aggregates by about 1e-3); and times each at the main path's shapes (D = 3,
-k = 3, B = 2048, L = 489: N = 1M), float32 and float64, on synthetic inputs:
-CUDA events, median of 5 batches of 10 calls, the variants in turn, twice
-over; then each kernel's device time per call under torch.profiler over 10
-calls (which leaves out the host's time between back-to-back launches).
-With --parent, DIR/temporalgps_torch/csrc/ (a checkout of an earlier commit)
-is built too and timed first and last in each round; its entries take a
-chunk count where DIR's temporalgps_torch/ops/kernels.py has the kernel's
-constant. --only limits the sweep to the named kernels. Prints the
+kAffinePrefetch; K10: kAffinePhase3Warps and kAffinePrefetch), one nvcc per
+variant, all started together; checks that every variant gives the default
+build's output (each row relative to its largest entry: 1e-10 in float64;
+in float32 only 1e-2, since the order of the combines, which the chunk
+count sets, moves rows of these synthetic aggregates by about 1e-3); and
+times each at the main path's shapes (D = 3, k = 3, B = 2048, L = 489:
+N = 1M), float32 and float64, on synthetic inputs: CUDA events, median of 5
+batches of 10 calls, the variants in turn, twice over; then each kernel's
+device time per call under torch.profiler over 10 calls (which leaves out
+the host's time between back-to-back launches). K6 and K10 are fed run
+aggregates and starts from the plain versions (K4's and K8's runs at their
+chunk count). With --parent, DIR/temporalgps_torch/csrc/ (a checkout of an
+earlier commit) is built too and timed first and last in each round; each
+build's entries take the pointers and ints that its own
+temporalgps_torch/ops/kernels.py lists (K4 and K8 with or without a
+run-aggregate output, K6 and K10 with or without the run aggregates and a
+chunk count). --only limits the sweep to the named kernels. Prints the
 card's name and power limit, each variant's ptxas registers, spills and
 shared memory at D = 3, and one JSON line of the times.
+
+--sass times nothing and needs no card: it builds the default kernels,
+disassembles them with cuobjdump, and for each named kernel's float and
+double instances at D = 3 lists every loop (a backward branch and its
+target) with the count of instructions between them, the loop body as laid
+out. A kernel bound by instruction issue takes at least (loop instructions
+x warp-iterations) / (schedulers x clock).
 """
 
 import argparse
@@ -42,12 +54,15 @@ sys.path.insert(0, str(HERE))
 L_MAIN, B_MAIN, D, K_TANGENTS = 489, 2048, 3, 3
 
 # Each kernel: its source, the Python constant of its chunk count, the
-# kernel's two constants, and its variants (label, {constant: value}); the
-# first variant is the default build, the reference of the agreement check.
-# K1, K4, K7: chunk count C and warps a thread block W (a cluster holds C / W
-# thread blocks; W = 16 caps a thread at 128 registers). K8: C (warps a
-# thread block) and the steps loaded ahead (U); C = 32 does not fit, K8's
-# hand-over slots being static shared memory (48 KB at most).
+# kernel's two constants (the first the chunk count), and its variants
+# (label, {constant: value}); the first variant is the default build, the
+# reference of the agreement check. K1, K4, K7: chunk count C and warps a
+# thread block W (a cluster holds C / W thread blocks; W = 16 caps a thread
+# at 128 registers). K8: C (warps a thread block) and the steps loaded
+# ahead (U); C = 32 does not fit, K8's hand-over slots being static shared
+# memory (48 KB at most). K6 and K10 replay K4's and K8's runs, so their C
+# is those kernels' (16 here): K6 varies W as K4, K10 its warps a thread
+# block (the warps share nothing) and U.
 SWEEP = {
     "phase1_aggregate": ("block_phases.cu", "PHASE1_AGGREGATE_CHUNKS",
                          ("kPhase1AggregateChunks", "kPhase1AggregateWarps"),
@@ -74,6 +89,13 @@ SWEEP = {
                        ("C16_U3", {"kAffinePrefetch": 3}),
                        ("C8_U1", {"kAffineChunks": 8}),
                        ("C8_U2", {"kAffineChunks": 8, "kAffinePrefetch": 2})]),
+    "phase3_jvp_lml": ("block_phases_jvp.cu", "PHASE1_JVP_CHUNKS",
+                       ("kPhase1JvpChunks", "kPhase1JvpWarps"),
+                       [("C16_W8", {}), ("C16_W16", {"kPhase1JvpWarps": 16})]),
+    "affine_phase3_states": ("block_states.cu", "AFFINE_PHASE1_CHUNKS",
+                             ("kAffineChunks", "kAffinePhase3Warps"),
+                             [("C16_W8_U1", {}), ("C16_W16_U1", {"kAffinePhase3Warps": 16}),
+                              ("C16_W8_U2", {"kAffinePrefetch": 2})]),
 }
 
 
@@ -89,6 +111,46 @@ def source_constant(text, name):
     """The value of `constexpr int name = value;` in a source, or None."""
     found = re.search(rf"constexpr int {name} = (\d+);", text)
     return int(found.group(1)) if found else None
+
+
+def entry_args(kernels_py, kname):
+    """(pointers, ints) of the C entry `kname` as a kernels.py lists them."""
+    found = re.search(rf'"{kname}": \((\d+), (\d+)\)', kernels_py)
+    return int(found.group(1)), int(found.group(2))
+
+
+def sass_loops(kernels, names):
+    """{"<name> <dtype>": [(first address, branch address, instructions)]}
+    of each backward branch in the D = 3 instances of the named kernels."""
+    lib = kernels.build()
+    cuobjdump = shutil.which("cuobjdump") or str(Path(kernels._nvcc()).parent / "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    listing, name = {}, None  # mangled name -> [(address, instruction)]
+    for line in sass.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        ins = re.match(r"^\s+/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if found:
+            name = found.group(1)
+            listing[name] = []
+        elif name and ins:
+            listing[name].append((int(ins.group(1), 16), ins.group(2)))
+    out = {}
+    for kname in names:
+        for suffix, dtype in (("f", "float32"), ("d", "float64")):
+            pattern = re.compile(rf"(?<![A-Za-z_]){kname}_kernelI{suffix}Li3E")
+            for mangled, body in listing.items():
+                if not pattern.search(mangled):
+                    continue
+                loops = []
+                for address, text in body:
+                    branch = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", text)
+                    if branch and int(branch.group(1), 16) < address:
+                        start = int(branch.group(1), 16)
+                        loops.append((start, address,
+                                      sum(1 for a, _ in body if start <= a <= address)))
+                out[f"{kname} {dtype}"] = sorted(loops)
+    return out
 
 
 def build_all(jobs, kernels):
@@ -138,8 +200,19 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--parent", type=Path, help="checkout of an earlier commit to time beside")
     parser.add_argument("--only", nargs="+", choices=sorted(SWEEP), default=sorted(SWEEP),
-                        help="the kernels to sweep (default: all four)")
+                        help="the kernels to sweep (default: all six)")
+    parser.add_argument("--sass", action="store_true",
+                        help="count the instructions in each kernel's loops instead")
     args = parser.parse_args()
+
+    if args.sass:
+        from temporalgps_torch.ops import kernels
+
+        counts = sass_loops(kernels, args.only)
+        for label, loops in counts.items():
+            print(f"{label}: loops " + ", ".join(f"{hex(a)}..{hex(b)} {n}" for a, b, n in loops))
+        print(json.dumps({"D": D, "loops": counts}))
+        return 0
 
     import numpy as np
     import torch
@@ -155,7 +228,8 @@ def main():
     print(card)
 
     csrc = kernels.CSRC_DIR
-    jobs, chunk_arg = [], {}
+    own_py = (csrc.parent / "ops" / "kernels.py").read_text()
+    jobs, chunk_arg, signature = [], {}, {}
     for kname in args.only:
         source, py_const, (c_const, _), variants = SWEEP[kname]
         if args.parent:
@@ -163,11 +237,11 @@ def main():
             parent_csrc = args.parent / "temporalgps_torch" / "csrc"
             jobs.append((label, parent_csrc, source, {}))
             parent_py = (args.parent / "temporalgps_torch" / "ops" / "kernels.py").read_text()
-            takes_chunks = re.search(rf"^{py_const} = \d+", parent_py, re.M) is not None
-            chunk_arg[label] = (source_constant((parent_csrc / source).read_text(), c_const)
-                                if takes_chunks else None)
+            signature[label] = entry_args(parent_py, kname)
+            chunk_arg[label] = source_constant((parent_csrc / source).read_text(), c_const)
         for label, consts in variants:
             jobs.append((f"{kname} {label}", csrc, source, consts))
+            signature[f"{kname} {label}"] = entry_args(own_py, kname)
             chunk_arg[f"{kname} {label}"] = consts.get(c_const, getattr(kernels, py_const))
     kernels.BUILD_DIR.mkdir(exist_ok=True)
     out_dir, built = build_all(jobs, kernels)
@@ -209,20 +283,40 @@ def main():
         starts = kernels.phase2_starts_plain(
             kernels.phase1_aggregate_plain(y, s, packed, D, chunks=kernels.PHASE1_AGGREGATE_CHUNKS),
             to(np.zeros(D)), to(np.eye(D)), D)
+        priors = torch.stack([torch.cat([to(np.zeros(D)), to(np.eye(D)).reshape(-1)]),
+                              *(torch.cat([to(0.1 * rng.standard_normal(D)),
+                                           to(0.01 * sym(rng.standard_normal((D, D)))).reshape(-1)])
+                                for _ in range(k))])
+        jagg, jruns = kernels.phase1_jvp_plain(y, s, rows, D, k, chunks=kernels.PHASE1_JVP_CHUNKS)
+        jstarts = kernels.phase2_jvp_starts_plain(jagg, priors, D, k)
         F = np.eye(D) * 0.999 + 0.001 * rng.standard_normal((L, B, D, D))
         G = 0.01 * rng.standard_normal((L, B, D, D))
         Cn = np.einsum("lbij,lbkj->lbik", G, G)
         params = to(np.concatenate([F.reshape(L, B, D * D), 0.01 * rng.standard_normal((L, B, D)),
                                     Cn.reshape(L, B, D * D)], axis=-1).transpose(2, 0, 1))
+        aagg, aruns = kernels.affine_phase1_plain(params, D, chunks=kernels.AFFINE_PHASE1_CHUNKS)
+        astarts = kernels.affine_phase2_starts_plain(aagg, to(np.zeros(D)), to(np.eye(D)), D)
         empty = lambda *shape: torch.empty(shape, dtype=dtype, device=dev)
-        # kernel: (pointers with the output last, ints before the chunk count)
+        KJ, KT = (1 + k) * kernels.elem_rows(D), kernels.affine_rows(D)
+        # kernel: (n_ptr, C) -> (pointers, ints before the chunk count, the
+        # output compared); n_ptr tells a build's entry with run aggregates
+        # (C of them) from one without.
         calls_of = {
-            "phase1_aggregate": lambda: ([y, s, packed, empty(kernels.elem_rows(D), B)], [L, B, D]),
-            "phase1_jvp": lambda: ([y, s, rows, empty((1 + k) * kernels.elem_rows(D), B)],
-                                   [L, B, D, k]),
-            "phase3_states": lambda: ([y, s, packed, starts, empty(kernels.state_rows(D), L, B)],
-                                      [L, B, D]),
-            "affine_phase1": lambda: ([params, empty(kernels.affine_rows(D), B)], [L, B, D]),
+            "phase1_aggregate": lambda n, C: (
+                [y, s, packed, out := empty(kernels.elem_rows(D), B)], [L, B, D], out),
+            "phase1_jvp": lambda n, C: (
+                [y, s, rows, out := empty(KJ, B)] + [empty(C, KJ, B)] * (n == 5),
+                [L, B, D, k], out),
+            "phase3_jvp_lml": lambda n, C: (
+                [y, s, rows, jstarts] + [jruns] * (n == 6) + [out := empty(1 + k, B)],
+                [L, B, D, k], out),
+            "phase3_states": lambda n, C: (
+                [y, s, packed, starts, out := empty(kernels.state_rows(D), L, B)], [L, B, D], out),
+            "affine_phase1": lambda n, C: (
+                [params, out := empty(KT, B)] + [empty(C, KT, B)] * (n == 3), [L, B, D], out),
+            "affine_phase3_states": lambda n, C: (
+                [params, astarts] + [aruns] * (n == 4) + [out := empty(kernels.state_rows(D), L, B)],
+                [L, B, D], out),
         }
         stream = lambda: ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
@@ -231,8 +325,9 @@ def main():
             kname = label.split()[0]
             lib = ctypes.CDLL(str(lib_path))
             fn = getattr(lib, f"tgps_{kname}_{suffix}")
-            ptrs, ints = calls_of[kname]()
-            if chunk_arg[label] is not None:
+            n_ptr, n_int = signature[label]
+            ptrs, ints, out = calls_of[kname](n_ptr, chunk_arg[label])
+            if n_int > len(ints):
                 ints = ints + [chunk_arg[label]]
             fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * len(ints) + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
@@ -244,7 +339,6 @@ def main():
 
             call()
             torch.cuda.synchronize()
-            out = ptrs[-1]
             calls[label], outs[label] = call, out.reshape(out.shape[0], -1).clone()
 
         tol = 1e-10 if dtype == torch.float64 else 1e-2

@@ -9,7 +9,8 @@
 // Layout as in block_phases.cu: y and s are (L, B) streams; elements and
 // states are component-major (rows, B), here stacked as the primal set
 // followed by k tangent sets: ((1+k)*K, B) aggregates, ((1+k)*SD, B) starts,
-// (1+k, B) lml rows. `rows` is (1+k, PK2) row-major: row 0 the packed primal
+// (1+k, B) lml rows; K4's chunk aggregates are (C, (1+k)*K, B), chunk c's
+// sets at c*(1+k)*K*B. `rows` is (1+k, PK2) row-major: row 0 the packed primal
 // parameters (its last slot unused: the noise is streamed), row 1+j tangent j
 // of the parameters with the time-invariant noise tangent in the last slot.
 // `priors` is (1+k, SD): (m0, P0) and its k tangents.
@@ -40,8 +41,25 @@
 // tangent) pair are a cluster of C / kPhase1JvpWarps = 2 thread blocks of 8
 // warps, which combine their two halves through distributed shared memory:
 // 384 thread blocks of 31 steps spread over 132 SMs more evenly than 192 of
-// 62 steps (one block of C = 8 warps) would. K5 and K6 are bound, like
-// K1-K3, by the latency of a serial recursion.
+// 62 steps (one block of C = 8 warps) would. K4 also writes each chunk's
+// aggregate, before the tree, for K6.
+//
+// K6 is bound by operations on paper (at D = 3, 215 flops a step for the
+// primal and 406 for the tangent), and one thread per (block, tangent) left it
+// bound by the latency of an L-step serial recursion on 192 warps. The
+// recursion is not associative, but a chunk of it can start on its own once
+// its start state is known, and K4's chunk aggregates give that: K6 takes
+// K4's grid and cluster, thread (b, j, c) pushing the primal and tangent-j
+// start of block b through the aggregates of chunks 0 .. c-1 (at most C - 1
+// state-only combines, apply_elem_jvp), then running the Kalman recursion
+// and its tangent over chunk c's ceil(L / C) steps; the C partial sums are
+// added in chunk order through shared memory and the cluster's. A re-fold of
+// the chunks, as K7 does, would repeat K4's whole work. K6 is then bound by
+// instruction issue: a replay step is some 480 instructions and a chain step
+// some 800, and an SM holds one 8-warp thread block at K6's register count,
+// so each scheduler has two dependent chains to issue from; a cluster lasts
+// as long as its last chunk, the one with the longest start chain. K5 is
+// bound, like K2, by the latency of a serial scan.
 
 #include <cooperative_groups.h>
 
@@ -52,9 +70,10 @@ namespace tgps {
 constexpr int kJvpLaneThreads = 32;   // K4, K6: a warp's lanes take 32 neighbouring blocks
 constexpr int kJvpScanThreads = 128;  // K5: threads of each tangent's thread block
 constexpr double kMaskThresh = 1e14;  // LARGE_VAR / 10
-// K4: chunks of every block's steps, one per warp, and warps per thread
-// block; a cluster of C / W thread blocks holds a block's C warps.
-// ops/kernels.py passes its PHASE1_JVP_CHUNKS at the launch; the two must agree.
+// K4 and K6 (which replays K4's chunks): chunks of every block's steps, one
+// per warp, and warps per thread block; a cluster of C / W thread blocks
+// holds a block's C warps. ops/kernels.py passes its PHASE1_JVP_CHUNKS at
+// both launches; the two must agree.
 constexpr int kPhase1JvpChunks = 16;
 constexpr int kPhase1JvpWarps = 8;
 constexpr int kPhase1JvpCluster = kPhase1JvpChunks / kPhase1JvpWarps;
@@ -81,12 +100,13 @@ constexpr int phase1_jvp_shared_bytes() {
 // which combines it on the right of its own. The levels inside a thread
 // block go through its shared memory, the levels across thread blocks
 // through the cluster's (warp 0 of rank z reads rank z + span's slot). Warp
-// 0 of rank 0 ends with the block's total.
+// 0 of rank 0 ends with the block's total. Before the tree each thread
+// stores its chunk aggregate to chunk_out (the primal from j = 0 only).
 template <typename T, int D>
 __global__ void __cluster_dims__(1, 1, kPhase1JvpCluster)
 __launch_bounds__(kJvpLaneThreads * kPhase1JvpWarps)
 phase1_jvp_kernel(const T* __restrict__ y, const T* __restrict__ s, const T* __restrict__ rows,
-                  T* __restrict__ out, int L, int B) {
+                  T* __restrict__ out, T* __restrict__ chunk_out, int L, int B) {
   constexpr int K = Dims<D>::kElem;
   constexpr int PK2 = Dims<D>::kParamsS;
   constexpr int C = kPhase1JvpChunks;
@@ -117,6 +137,12 @@ phase1_jvp_kernel(const T* __restrict__ y, const T* __restrict__ s, const T* __r
     const ElemJvp<T, D> c = combine_jvp(acc, dacc, e.primal, e.tangent);
     acc = c.primal;
     dacc = c.tangent;
+  }
+  if (b < B) {
+    const long long sets = static_cast<long long>(1 + gridDim.y) * K * B;
+    T* chunk = chunk_out + (z * W + w) * sets + b;
+    if (j == 0) store_elem(acc, chunk, B);
+    store_elem(dacc, chunk + static_cast<long long>(1 + j) * K * B, B);
   }
 #pragma unroll 1
   for (int span = 1; span < W; span *= 2) {
@@ -221,61 +247,115 @@ phase2_jvp_starts_kernel(const T* __restrict__ comps, const T* __restrict__ prio
   }
 }
 
+// Warp w of the thread block of cluster rank z in cluster (x, j) takes chunk
+// c = z W + w: steps [c Lc, min((c+1) Lc, L)), Lc = ceil(L / C), of block
+// b = 32x + lane, primal and tangent j. (1) It loads the block's start and
+// its tangent and pushes them through K4's aggregates of chunks 0 .. c-1,
+// left to right (apply_elem_jvp: the state part of (0, m, P, 0, 0) combined
+// with each); the parameters are loaded after this, so they are not live
+// across it. (2) It runs kalman_step_jvp over its chunk, summing the lml and
+// its tangent from zero, with the noise tangent masked at missing and
+// padding steps, and y and s loaded one step ahead. (3) Warp 0 of rank 0 adds the C partial sums in chunk
+// order, 0 .. C-1, from its own shared memory and rank 1's, and writes the
+// block's lml row (the primal from j = 0 only). An empty chunk and a lane
+// past the last block add zero but meet both cluster barriers.
 template <typename T, int D>
-__global__ void __launch_bounds__(kJvpLaneThreads)
+__global__ void __cluster_dims__(1, 1, kPhase1JvpCluster)
+__launch_bounds__(kJvpLaneThreads * kPhase1JvpWarps)
 phase3_jvp_lml_kernel(const T* __restrict__ y, const T* __restrict__ s,
                       const T* __restrict__ rows, const T* __restrict__ starts,
-                      T* __restrict__ lml, int L, int B) {
+                      const T* __restrict__ chunk_aggs, T* __restrict__ lml, int L, int B) {
+  constexpr int K = Dims<D>::kElem;
   constexpr int SD = Dims<D>::kState;
   constexpr int PK2 = Dims<D>::kParamsS;
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  constexpr int C = kPhase1JvpChunks;
+  constexpr int W = kPhase1JvpWarps;
+  constexpr int kSlots = W * kJvpLaneThreads;  // one partial sum a thread
+  __shared__ T partials[2 * kSlots];
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  const int z = static_cast<int>(cluster.block_rank());
+  const int lane = threadIdx.x % kJvpLaneThreads;
+  const int w = threadIdx.x / kJvpLaneThreads;
+  const int c = z * W + w;
+  const int b = blockIdx.x * kJvpLaneThreads + lane;
   const int j = blockIdx.y;
-  if (b >= B) return;
-  const Params<T, D> p = load_params<T, D>(rows);
-  const T* drow = rows + static_cast<long long>(1 + j) * PK2;
-  const Params<T, D> dp = load_params<T, D>(drow);
-  const T ds = drow[PK2 - 1];
-  Vec<T, D> m, dm;
-  Mat<T, D> P, dP;
-  load_state(starts + b, B, m, P);
-  load_state(starts + static_cast<long long>(1 + j) * SD * B + b, B, dm, dP);
+  const int Lc = (L + C - 1) / C;
+  const int lo = min(c * Lc, L);
+  const int hi = b < B ? min(lo + Lc, L) : lo;  // a lane past the last block runs nothing
   T acc = T(0), dacc = T(0);
-  for (int l = 0; l < L; ++l) {
-    const long long i = static_cast<long long>(l) * B + b;
-    const T s_l = s[i];
-    const T ds_l = s_l < T(kMaskThresh) ? ds : T(0);
-    const LmlJvp<T> step = kalman_step_jvp(m, dm, P, dP, p, dp, s_l, ds_l, y[i]);
-    acc += step.primal;
-    dacc += step.tangent;
+  if (lo < hi) {
+    // The stream values of each step are loaded one step ahead, the first
+    // step's before the start chain, so no step waits a trip to memory.
+    T s_next = s[static_cast<long long>(lo) * B + b];
+    T y_next = y[static_cast<long long>(lo) * B + b];
+    Vec<T, D> m, dm;
+    Mat<T, D> P, dP;
+    load_state(starts + b, B, m, P);
+    load_state(starts + static_cast<long long>(1 + j) * SD * B + b, B, dm, dP);
+    const long long sets = static_cast<long long>(1 + gridDim.y) * K * B;
+    const long long tangent_at = static_cast<long long>(1 + j) * K * B;
+#pragma unroll 1
+    for (int i = 0; i < c; ++i) {
+      const T* agg = chunk_aggs + i * sets + b;
+      apply_elem_jvp(m, dm, P, dP, load_elem<T, D>(agg, B), load_elem<T, D>(agg + tangent_at, B));
+    }
+    const Params<T, D> p = load_params<T, D>(rows);
+    const T* drow = rows + static_cast<long long>(1 + j) * PK2;
+    const Params<T, D> dp = load_params<T, D>(drow);
+    const T ds = drow[PK2 - 1];
+    for (int l = lo; l < hi; ++l) {
+      const T s_l = s_next, y_l = y_next;
+      if (l + 1 < hi) {
+        s_next = s[static_cast<long long>(l + 1) * B + b];
+        y_next = y[static_cast<long long>(l + 1) * B + b];
+      }
+      const T ds_l = s_l < T(kMaskThresh) ? ds : T(0);
+      const LmlJvp<T> step = kalman_step_jvp(m, dm, P, dP, p, dp, s_l, ds_l, y_l);
+      acc += step.primal;
+      dacc += step.tangent;
+    }
   }
-  if (j == 0) lml[b] = acc;
-  lml[static_cast<long long>(1 + j) * B + b] = dacc;
+  partials[w * kJvpLaneThreads + lane] = acc;
+  partials[kSlots + w * kJvpLaneThreads + lane] = dacc;
+  cluster.sync();
+  if (z == 0 && w == 0 && b < B) {
+    T total = T(0), dtotal = T(0);
+#pragma unroll 1
+    for (int i = 0; i < C; ++i) {
+      const T* slot = cluster.map_shared_rank(partials, i / W) + (i % W) * kJvpLaneThreads + lane;
+      total += slot[0];
+      dtotal += slot[kSlots];
+    }
+    if (j == 0) lml[b] = total;
+    lml[static_cast<long long>(1 + j) * B + b] = dtotal;
+  }
+  cluster.sync();  // rank 1's partial sums stay in place until they are read
 }
 
 inline int jvp_lane_grid(int B) { return (B + kJvpLaneThreads - 1) / kJvpLaneThreads; }
 
 template <typename T, int D>
-int launch_phase1_jvp_d(const T* y, const T* s, const T* rows, T* out, int L, int B, int k,
-                        cudaStream_t stream) {
+int launch_phase1_jvp_d(const T* y, const T* s, const T* rows, T* out, T* chunk_out, int L,
+                        int B, int k, cudaStream_t stream) {
   const int bytes = phase1_jvp_shared_bytes<T, D>();
   const cudaError_t err = cudaFuncSetAttribute(
       phase1_jvp_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(jvp_lane_grid(B), k, kPhase1JvpCluster);
   phase1_jvp_kernel<T, D><<<grid, kJvpLaneThreads * kPhase1JvpWarps, bytes, stream>>>(
-      y, s, rows, out, L, B);
+      y, s, rows, out, chunk_out, L, B);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch_phase1_jvp(const T* y, const T* s, const T* rows, T* out, int L, int B, int D, int k,
-                      int chunks, cudaStream_t stream) {
+int launch_phase1_jvp(const T* y, const T* s, const T* rows, T* out, T* chunk_out, int L, int B,
+                      int D, int k, int chunks, cudaStream_t stream) {
   if (L < 1 || B < 1 || k < 1 || k > 65535 || chunks != kPhase1JvpChunks)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (D) {
-    case 1: return launch_phase1_jvp_d<T, 1>(y, s, rows, out, L, B, k, stream);
-    case 2: return launch_phase1_jvp_d<T, 2>(y, s, rows, out, L, B, k, stream);
-    case 3: return launch_phase1_jvp_d<T, 3>(y, s, rows, out, L, B, k, stream);
+    case 1: return launch_phase1_jvp_d<T, 1>(y, s, rows, out, chunk_out, L, B, k, stream);
+    case 2: return launch_phase1_jvp_d<T, 2>(y, s, rows, out, chunk_out, L, B, k, stream);
+    case 3: return launch_phase1_jvp_d<T, 3>(y, s, rows, out, chunk_out, L, B, k, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -304,14 +384,16 @@ int launch_phase2_jvp(const T* comps, const T* priors, T* starts, int B, int D, 
 }
 
 template <typename T>
-int launch_phase3_jvp(const T* y, const T* s, const T* rows, const T* starts, T* lml, int L,
-                      int B, int D, int k, cudaStream_t stream) {
-  if (L < 1 || B < 1 || k < 1 || k > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(jvp_lane_grid(B), k);
+int launch_phase3_jvp(const T* y, const T* s, const T* rows, const T* starts, const T* chunk_aggs,
+                      T* lml, int L, int B, int D, int k, int chunks, cudaStream_t stream) {
+  if (L < 1 || B < 1 || k < 1 || k > 65535 || chunks != kPhase1JvpChunks)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(jvp_lane_grid(B), k, kPhase1JvpCluster);
+  constexpr int threads = kJvpLaneThreads * kPhase1JvpWarps;
   switch (D) {
-    case 1: phase3_jvp_lml_kernel<T, 1><<<grid, kJvpLaneThreads, 0, stream>>>(y, s, rows, starts, lml, L, B); break;
-    case 2: phase3_jvp_lml_kernel<T, 2><<<grid, kJvpLaneThreads, 0, stream>>>(y, s, rows, starts, lml, L, B); break;
-    case 3: phase3_jvp_lml_kernel<T, 3><<<grid, kJvpLaneThreads, 0, stream>>>(y, s, rows, starts, lml, L, B); break;
+    case 1: phase3_jvp_lml_kernel<T, 1><<<grid, threads, 0, stream>>>(y, s, rows, starts, chunk_aggs, lml, L, B); break;
+    case 2: phase3_jvp_lml_kernel<T, 2><<<grid, threads, 0, stream>>>(y, s, rows, starts, chunk_aggs, lml, L, B); break;
+    case 3: phase3_jvp_lml_kernel<T, 3><<<grid, threads, 0, stream>>>(y, s, rows, starts, chunk_aggs, lml, L, B); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
@@ -321,15 +403,15 @@ int launch_phase3_jvp(const T* y, const T* s, const T* rows, const T* starts, T*
 
 extern "C" {
 
-int tgps_phase1_jvp_f32(const float* y, const float* s, const float* rows, float* out, int L,
-                        int B, int D, int k, int chunks, void* stream) {
-  return tgps::launch_phase1_jvp<float>(y, s, rows, out, L, B, D, k, chunks,
+int tgps_phase1_jvp_f32(const float* y, const float* s, const float* rows, float* out,
+                        float* chunk_out, int L, int B, int D, int k, int chunks, void* stream) {
+  return tgps::launch_phase1_jvp<float>(y, s, rows, out, chunk_out, L, B, D, k, chunks,
                                         static_cast<cudaStream_t>(stream));
 }
 
-int tgps_phase1_jvp_f64(const double* y, const double* s, const double* rows, double* out, int L,
-                        int B, int D, int k, int chunks, void* stream) {
-  return tgps::launch_phase1_jvp<double>(y, s, rows, out, L, B, D, k, chunks,
+int tgps_phase1_jvp_f64(const double* y, const double* s, const double* rows, double* out,
+                        double* chunk_out, int L, int B, int D, int k, int chunks, void* stream) {
+  return tgps::launch_phase1_jvp<double>(y, s, rows, out, chunk_out, L, B, D, k, chunks,
                                          static_cast<cudaStream_t>(stream));
 }
 
@@ -346,16 +428,16 @@ int tgps_phase2_jvp_starts_f64(const double* comps, const double* priors, double
 }
 
 int tgps_phase3_jvp_lml_f32(const float* y, const float* s, const float* rows,
-                            const float* starts, float* lml, int L, int B, int D, int k,
-                            void* stream) {
-  return tgps::launch_phase3_jvp<float>(y, s, rows, starts, lml, L, B, D, k,
+                            const float* starts, const float* chunk_aggs, float* lml, int L,
+                            int B, int D, int k, int chunks, void* stream) {
+  return tgps::launch_phase3_jvp<float>(y, s, rows, starts, chunk_aggs, lml, L, B, D, k, chunks,
                                         static_cast<cudaStream_t>(stream));
 }
 
 int tgps_phase3_jvp_lml_f64(const double* y, const double* s, const double* rows,
-                            const double* starts, double* lml, int L, int B, int D, int k,
-                            void* stream) {
-  return tgps::launch_phase3_jvp<double>(y, s, rows, starts, lml, L, B, D, k,
+                            const double* starts, const double* chunk_aggs, double* lml, int L,
+                            int B, int D, int k, int chunks, void* stream) {
+  return tgps::launch_phase3_jvp<double>(y, s, rows, starts, chunk_aggs, lml, L, B, D, k, chunks,
                                          static_cast<cudaStream_t>(stream));
 }
 

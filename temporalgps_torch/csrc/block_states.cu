@@ -8,10 +8,11 @@
 //
 // Layout: y and s are (L, B) row-major streams, element l*B + b is step l of
 // block b. Affine maps are (KT, L, B), KT = 2D^2 + D rows A, b, C: row k of
-// step l of block b at k*L*B + l*B + b. Aggregates are (KT, B), starts
-// (SD, B), and the states written after every step (SD, L, B), SD = D + D^2
-// rows m, P. Each kernel launches on the caller's stream and allocates
-// nothing; each C entry returns cudaGetLastError() after its launch.
+// step l of block b at k*L*B + l*B + b. Aggregates are (KT, B), K8's chunk
+// aggregates (C, KT, B) (chunk c of block b, row k at (c*KT + k)*B + b),
+// starts (SD, B), and the states written after every step (SD, L, B),
+// SD = D + D^2 rows m, P. Each kernel launches on the caller's stream and
+// allocates nothing; each C entry returns cudaGetLastError() after its launch.
 //
 // K7 is bound on paper by bytes (it writes SD values a step and does about
 // 209 flops a step at D = 3), and one thread a block left it bound by the
@@ -28,13 +29,16 @@
 // start, storing the state after every step. The serial chain becomes
 // ceil(L / C) fold steps, at most C - 1 combines and ceil(L / C) replay steps.
 //
-// K10 runs one thread per block, like K3: a thread reads and writes its
-// block's rows at l*B + b, so a warp touches 32 neighbouring addresses in
-// every row. On paper it is bound by bytes (it reads KT and writes SD values
-// a step, a few hundred flops at D = 3); with B = 2048 threads on 132 SMs it
-// is bound in practice by the latency of the serial per-block recursion,
-// which one warp per thread block spreads over as many schedulers as there
-// are warps. K9 is one thread block, as K2 (see below).
+// K10 is bound by bytes: it reads KT and writes SD values a step and does
+// about 135 flops with them at D = 3. One thread a block ran an L-step serial
+// replay with one step of 21 rows in flight a thread, waiting one trip to
+// device memory a step. It takes K7's scheme without K7's fold: K8 already
+// holds each chunk's aggregate before its tree and writes them out, so warp c
+// of a block group starts from the block start pushed through the maps of
+// chunks 0 .. c-1 (at most C - 1 affine steps, read from L2) and replays its
+// chunk of ceil(L / C) steps with the next step's rows loaded ahead, as K8
+// does: C times the threads, and each with a step in flight. K10's chunk
+// count is K8's (kAffineChunks). K9 is one thread block, as K2 (see below).
 //
 // K8 is bound by bytes: it reads KT values a step and does about 180 flops
 // with them. One thread per block would keep one step of 21 rows a thread in
@@ -55,7 +59,7 @@
 
 namespace tgps {
 
-constexpr int kStateThreads = 32;        // K7, K8: lanes a warp; K10: one warp per thread block
+constexpr int kStateThreads = 32;        // K7, K8, K10: lanes a warp
 constexpr int kAffineScanThreads = 128;  // K9: threads of the single thread block
 // K7: chunks of every block's steps, one per warp, and warps per thread
 // block; a cluster of C / W thread blocks holds a block's C warps.
@@ -69,10 +73,17 @@ static_assert(kPhase3StatesCluster * kPhase3StatesWarps == kPhase3StatesChunks,
 // ops/kernels.py passes its AFFINE_PHASE1_CHUNKS at the launch; the two must agree.
 constexpr int kAffineChunks = 16;
 static_assert((kAffineChunks & (kAffineChunks - 1)) == 0, "the chunk tree takes 2^n chunks");
-// K8: steps a thread loads ahead of the one it composes. More than one is no
-// faster, and in double two spill out of the 128 registers a thread of a
-// 512-thread block may have (probes/torch_chunk_sweep.py times 1 to 3).
+// K8, K10: steps a thread loads ahead of the one it composes. More than one
+// is no faster in K8, and in double two spill out of the 128 registers a
+// thread of a 512-thread block may have (probes/torch_chunk_sweep.py times 1
+// to 3).
 constexpr int kAffinePrefetch = 1;
+// K10: warps a thread block, each replaying one of the kAffineChunks chunks
+// of the same 32 blocks; a grid of (ceil(B / 32), C / W) thread blocks. The
+// warps share nothing, so W is free (probes/torch_chunk_sweep.py times 8 and
+// 16).
+constexpr int kAffinePhase3Warps = 8;
+static_assert(kAffineChunks % kAffinePhase3Warps == 0, "W divides the chunk count");
 
 // Shared memory of K7: every warp's chunk aggregate, K rows of 32 lanes a
 // warp, read by the warps of later chunks.
@@ -144,11 +155,13 @@ phase3_states_kernel(const T* __restrict__ y, const T* __restrict__ s,
 // ceil(L / C), of block b = 32 * blockIdx.x + lane, from the identity map (an
 // empty chunk stays that), with the loads of the next U steps issued before
 // each composition: a ring of U register sets, slot u holding step l0 + u.
-// The C chunk maps are then combined as K4 combines its chunks: a
+// Each chunk map is stored to chunk_out (K10 starts its chunks from them),
+// and the C chunk maps are then combined as K4 combines its chunks: a
 // log2(C)-level tree in shared memory, the earlier chunk always on the left.
 template <typename T, int D>
 __global__ void __launch_bounds__(kStateThreads * kAffineChunks)
-affine_phase1_kernel(const T* __restrict__ params, T* __restrict__ out, int L, int B) {
+affine_phase1_kernel(const T* __restrict__ params, T* __restrict__ out,
+                     T* __restrict__ chunk_out, int L, int B) {
   constexpr int C = kAffineChunks;
   constexpr int U = kAffinePrefetch;
   constexpr int kSlotStride = (C / 2) * kStateThreads;  // row stride of the hand-over slots
@@ -179,6 +192,8 @@ affine_phase1_kernel(const T* __restrict__ params, T* __restrict__ out, int L, i
       }
     }
   }
+  if (b < B)
+    store_affine(acc, chunk_out + static_cast<long long>(w) * Dims<D>::kAffine * B + b, B);
 #pragma unroll 1
   for (int span = 1; span < C; span *= 2) {
     T* slot = handed + (w / (2 * span)) * kStateThreads + lane;
@@ -240,20 +255,59 @@ affine_phase2_starts_kernel(const T* __restrict__ agg, const T* __restrict__ pri
   }
 }
 
+// Warp w of thread block (x, y) takes chunk c = y W + w: steps [c Lc,
+// min((c+1) Lc, L)), Lc = ceil(L / C), of block b = 32x + lane. It pushes the
+// block's start (m, P) through the maps of chunks 0 .. c-1 in order, each an
+// affine_step (the state part of (0, m, P) composed with the chunk's map),
+// then replays its chunk, storing the state after every step; the next map
+// of either loop is loaded before the current one is applied. The warps
+// share nothing: an empty chunk and a lane past the last block return at
+// once.
 template <typename T, int D>
-__global__ void __launch_bounds__(kStateThreads)
+__global__ void __launch_bounds__(kStateThreads * kAffinePhase3Warps)
 affine_phase3_states_kernel(const T* __restrict__ params, const T* __restrict__ starts,
-                            T* __restrict__ out, int L, int B) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+                            const T* __restrict__ chunk_aggs, T* __restrict__ out, int L,
+                            int B) {
+  constexpr int C = kAffineChunks;
+  constexpr int U = kAffinePrefetch;
+  const int lane = threadIdx.x % kStateThreads;
+  const int c = blockIdx.y * kAffinePhase3Warps + threadIdx.x / kStateThreads;
+  const int b = blockIdx.x * kStateThreads + lane;
+  const int Lc = (L + C - 1) / C;
+  const int lo = min(c * Lc, L);
+  const int hi = min(lo + Lc, L);
+  if (b >= B || lo >= hi) return;
   const long long LB = static_cast<long long>(L) * B;
+  const T* base = params + b;
+  Affine<T, D> ahead[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    ahead[u] = identity_affine<T, D>();
+    if (lo + u < hi) ahead[u] = load_affine<T, D>(base + static_cast<long long>(lo + u) * B, LB);
+  }
   Vec<T, D> m;
   Mat<T, D> P;
   load_state(starts + b, B, m, P);
-  for (int l = 0; l < L; ++l) {
-    const long long i = static_cast<long long>(l) * B + b;
-    affine_step(m, P, load_affine<T, D>(params + i, LB));
-    store_state(m, P, out + i, LB);
+  const long long chunk_stride = static_cast<long long>(Dims<D>::kAffine) * B;
+  Affine<T, D> agg_next = identity_affine<T, D>();
+  if (c > 0) agg_next = load_affine<T, D>(chunk_aggs + b, B);
+#pragma unroll 1
+  for (int j = 0; j < c; ++j) {
+    const Affine<T, D> agg = agg_next;
+    if (j + 1 < c) agg_next = load_affine<T, D>(chunk_aggs + (j + 1) * chunk_stride + b, B);
+    affine_step(m, P, agg);
+  }
+  for (int l0 = lo; l0 < hi; l0 += U) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int l = l0 + u;
+      if (l < hi) {
+        const Affine<T, D> step = ahead[u];
+        if (l + U < hi) ahead[u] = load_affine<T, D>(base + static_cast<long long>(l + U) * B, LB);
+        affine_step(m, P, step);
+        store_state(m, P, out + static_cast<long long>(l) * B + b, LB);
+      }
+    }
   }
 }
 
@@ -286,14 +340,14 @@ int launch_phase3_states(const T* y, const T* s, const T* params, const T* start
 }
 
 template <typename T>
-int launch_affine_phase1(const T* params, T* out, int L, int B, int D, int chunks,
+int launch_affine_phase1(const T* params, T* out, T* chunk_out, int L, int B, int D, int chunks,
                          cudaStream_t stream) {
   if (L < 1 || B < 1 || chunks != kAffineChunks) return static_cast<int>(cudaErrorInvalidValue);
   constexpr int threads = kStateThreads * kAffineChunks;
   switch (D) {
-    case 1: affine_phase1_kernel<T, 1><<<state_grid(B), threads, 0, stream>>>(params, out, L, B); break;
-    case 2: affine_phase1_kernel<T, 2><<<state_grid(B), threads, 0, stream>>>(params, out, L, B); break;
-    case 3: affine_phase1_kernel<T, 3><<<state_grid(B), threads, 0, stream>>>(params, out, L, B); break;
+    case 1: affine_phase1_kernel<T, 1><<<state_grid(B), threads, 0, stream>>>(params, out, chunk_out, L, B); break;
+    case 2: affine_phase1_kernel<T, 2><<<state_grid(B), threads, 0, stream>>>(params, out, chunk_out, L, B); break;
+    case 3: affine_phase1_kernel<T, 3><<<state_grid(B), threads, 0, stream>>>(params, out, chunk_out, L, B); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
@@ -313,13 +367,15 @@ int launch_affine_phase2(const T* agg, const T* prior, T* starts, int B, int D,
 }
 
 template <typename T>
-int launch_affine_phase3(const T* params, const T* starts, T* out, int L, int B, int D,
-                         cudaStream_t stream) {
-  if (L < 1 || B < 1) return static_cast<int>(cudaErrorInvalidValue);
+int launch_affine_phase3(const T* params, const T* starts, const T* chunk_aggs, T* out, int L,
+                         int B, int D, int chunks, cudaStream_t stream) {
+  if (L < 1 || B < 1 || chunks != kAffineChunks) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(state_grid(B), kAffineChunks / kAffinePhase3Warps);
+  constexpr int threads = kStateThreads * kAffinePhase3Warps;
   switch (D) {
-    case 1: affine_phase3_states_kernel<T, 1><<<state_grid(B), kStateThreads, 0, stream>>>(params, starts, out, L, B); break;
-    case 2: affine_phase3_states_kernel<T, 2><<<state_grid(B), kStateThreads, 0, stream>>>(params, starts, out, L, B); break;
-    case 3: affine_phase3_states_kernel<T, 3><<<state_grid(B), kStateThreads, 0, stream>>>(params, starts, out, L, B); break;
+    case 1: affine_phase3_states_kernel<T, 1><<<grid, threads, 0, stream>>>(params, starts, chunk_aggs, out, L, B); break;
+    case 2: affine_phase3_states_kernel<T, 2><<<grid, threads, 0, stream>>>(params, starts, chunk_aggs, out, L, B); break;
+    case 3: affine_phase3_states_kernel<T, 3><<<grid, threads, 0, stream>>>(params, starts, chunk_aggs, out, L, B); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
@@ -343,15 +399,15 @@ int tgps_phase3_states_f64(const double* y, const double* s, const double* param
                                             static_cast<cudaStream_t>(stream));
 }
 
-int tgps_affine_phase1_f32(const float* params, float* out, int L, int B, int D, int chunks,
-                           void* stream) {
-  return tgps::launch_affine_phase1<float>(params, out, L, B, D, chunks,
+int tgps_affine_phase1_f32(const float* params, float* out, float* chunk_out, int L, int B,
+                           int D, int chunks, void* stream) {
+  return tgps::launch_affine_phase1<float>(params, out, chunk_out, L, B, D, chunks,
                                            static_cast<cudaStream_t>(stream));
 }
 
-int tgps_affine_phase1_f64(const double* params, double* out, int L, int B, int D, int chunks,
-                           void* stream) {
-  return tgps::launch_affine_phase1<double>(params, out, L, B, D, chunks,
+int tgps_affine_phase1_f64(const double* params, double* out, double* chunk_out, int L, int B,
+                           int D, int chunks, void* stream) {
+  return tgps::launch_affine_phase1<double>(params, out, chunk_out, L, B, D, chunks,
                                             static_cast<cudaStream_t>(stream));
 }
 
@@ -367,15 +423,17 @@ int tgps_affine_phase2_starts_f64(const double* agg, const double* prior, double
                                             static_cast<cudaStream_t>(stream));
 }
 
-int tgps_affine_phase3_states_f32(const float* params, const float* starts, float* out, int L,
-                                  int B, int D, void* stream) {
-  return tgps::launch_affine_phase3<float>(params, starts, out, L, B, D,
+int tgps_affine_phase3_states_f32(const float* params, const float* starts,
+                                  const float* chunk_aggs, float* out, int L, int B, int D,
+                                  int chunks, void* stream) {
+  return tgps::launch_affine_phase3<float>(params, starts, chunk_aggs, out, L, B, D, chunks,
                                            static_cast<cudaStream_t>(stream));
 }
 
-int tgps_affine_phase3_states_f64(const double* params, const double* starts, double* out, int L,
-                                  int B, int D, void* stream) {
-  return tgps::launch_affine_phase3<double>(params, starts, out, L, B, D,
+int tgps_affine_phase3_states_f64(const double* params, const double* starts,
+                                  const double* chunk_aggs, double* out, int L, int B, int D,
+                                  int chunks, void* stream) {
+  return tgps::launch_affine_phase3<double>(params, starts, chunk_aggs, out, L, B, D, chunks,
                                             static_cast<cudaStream_t>(stream));
 }
 

@@ -553,6 +553,31 @@ __device__ __forceinline__ ElemJvp<T, D> combine_jvp(const Elem<T, D>& ei, const
   return out;
 }
 
+// combine_jvp with a state on the left: the element (0, m, P, 0, 0) with
+// tangent (0, dm, dP, 0, 0), then (ej, dej), in place on (m, P) and
+// (dm, dP). With A_i = 0, eta_i = 0 and J_i = 0 on the left the result has
+// A = 0, eta = 0 and J = 0 again, with zero tangents there, so only b and C
+// and their tangents are formed, by combine_jvp's operations in its order.
+template <typename T, int D>
+__device__ __forceinline__ void apply_elem_jvp(Vec<T, D>& m, Vec<T, D>& dm, Mat<T, D>& P,
+                                               Mat<T, D>& dP, const Elem<T, D>& ej,
+                                               const Elem<T, D>& dej) {
+  const Mat<T, D> CiJj = mm(P, ej.J);
+  const Mat<T, D> dCiJj = madd(mm(dP, ej.J), mm(P, dej.J));
+  const Mat<T, D> M = inv(madd(CiJj, eye<T, D>()));
+  const Mat<T, D> dM = msub(zeros_mat<T, D>(), mm(M, mm(dCiJj, M)));
+  const Mat<T, D> AjM = mm(ej.A, M);
+  const Mat<T, D> dAjM = madd(mm(dej.A, M), mm(ej.A, dM));
+  const Vec<T, D> u = vadd(m, mv(P, ej.eta));
+  const Vec<T, D> du = vadd(dm, vadd(mv(dP, ej.eta), mv(P, dej.eta)));
+  const Mat<T, D> X = mm(AjM, P);
+  const Mat<T, D> dX = madd(mm(dAjM, P), mm(AjM, dP));
+  m = vadd(mv(AjM, u), ej.b);
+  dm = vadd(vadd(mv(dAjM, u), mv(AjM, du)), dej.b);
+  P = sym(madd(mmT(X, ej.A), ej.C));
+  dP = sym(madd(madd(mmT(dX, ej.A), mmT(X, dej.A)), dej.C));
+}
+
 // The step's log marginal likelihood and its tangent.
 template <typename T>
 struct LmlJvp {

@@ -286,9 +286,9 @@ def logpdf_fwd_grad(model, y, model_tangents, *, n_blocks=None):
     comp = comp + volume_compensation(n_missing, dtype)
 
     rows, priors = _tangent_rows(model, model_tangents)
-    comps = kernels.phase1_jvp(y_main, s_main, rows, D, k)
+    comps, chunk_comps = kernels.phase1_jvp(y_main, s_main, rows, D, k)
     starts = kernels.phase2_jvp_starts(comps, priors, D, k)
-    totals = kernels.phase3_jvp_lml(y_main, s_main, rows, starts, D, k).sum(dim=1)
+    totals = kernels.phase3_jvp_lml(y_main, s_main, rows, starts, D, k, chunk_comps).sum(dim=1)
     return totals[0] + comp, totals[1:]
 
 
@@ -419,9 +419,10 @@ def _affine_states(model, params, fused):
     rows, on K8 -> K9 -> K10."""
     phases = KERNEL_AFFINE_PHASES if _use_kernels(model, fused) else PLAIN_AFFINE_PHASES
     D, x0 = model.latent_dim, model.trans.x0
-    agg = phases.affine_phase1(params, D)
+    agg, chunk_aggs = phases.affine_phase1(params, D)
     starts = phases.affine_phase2_starts(agg, x0.mean, symmetrize(x0.cov), D)
-    comps = _unblock_states(phases.affine_phase3_states(params, starts, D), len(model))
+    comps = _unblock_states(phases.affine_phase3_states(params, starts, D, chunk_aggs),
+                            len(model))
     return comps if model.trans.forward else comps.flip(1)
 
 

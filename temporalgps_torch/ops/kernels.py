@@ -23,6 +23,10 @@ holding the time-invariant noise tangent (unused in row 0: the noise is
 streamed). Their elements, states and lml rows are the primal set followed
 by the k tangent sets: ((1+k)*K, B), ((1+k)*SD, B), (1+k, B).
 
+K4 (phase1_jvp) and K8 (affine_phase1) also return the aggregates of the
+runs of steps their warps fold, (C, rows, B), run c first: K6
+(phase3_jvp_lml) and K10 (affine_phase3_states) start their runs from them.
+
 Each wrapper runs the plain version when its tensors are on the CPU, and
 launches its kernel when they are on a CUDA device; there is no other route.
 It counts its kernel launches in `<wrapper>.launches`.
@@ -36,6 +40,7 @@ loaded with ctypes.
 import ctypes
 import functools
 import hashlib
+import operator
 import os
 import shutil
 import subprocess
@@ -56,9 +61,10 @@ NVCC_FLAGS = (
 _MASK_THRESH = 1e14
 # Chunks of each block's steps that K1, K4, K7 and K8 run side by side (one
 # warp each): the kernels' kPhase1AggregateChunks, kPhase1JvpChunks,
-# kPhase3StatesChunks and kAffineChunks. Each launch passes its constant and
-# the kernel refuses any other, so the plain versions' chunks= and the card's
-# schedule are the same.
+# kPhase3StatesChunks and kAffineChunks. K6 replays K4's chunks and K10 K8's,
+# from their chunk aggregates, so each shares that count. Each launch passes
+# its constant and the kernel refuses any other, so the plain versions'
+# chunks= and the card's schedule are the same.
 PHASE1_AGGREGATE_CHUNKS = 16
 PHASE1_JVP_CHUNKS = 16
 PHASE3_STATES_CHUNKS = 16
@@ -161,13 +167,13 @@ _ENTRY_ARGS = {
     "phase1_aggregate": (4, 4),  # y, s, params, out; L, B, D, chunks
     "phase2_starts": (3, 2),     # comps, prior, starts; B, D
     "phase3_lml": (5, 3),        # y, s, params, starts, lml; L, B, D
-    "phase1_jvp": (4, 5),         # y, s, rows, out; L, B, D, k, chunks
+    "phase1_jvp": (5, 5),         # y, s, rows, out, chunk_out; L, B, D, k, chunks
     "phase2_jvp_starts": (3, 3),  # comps, priors, starts; B, D, k
-    "phase3_jvp_lml": (5, 4),     # y, s, rows, starts, lml; L, B, D, k
+    "phase3_jvp_lml": (6, 5),     # y, s, rows, starts, chunk_aggs, lml; L, B, D, k, chunks
     "phase3_states": (5, 4),         # y, s, params, starts, out; L, B, D, chunks
-    "affine_phase1": (2, 4),         # params, out; L, B, D, chunks
+    "affine_phase1": (3, 4),         # params, out, chunk_out; L, B, D, chunks
     "affine_phase2_starts": (3, 2),  # agg, prior, starts; B, D
-    "affine_phase3_states": (3, 3),  # params, starts, out; L, B, D
+    "affine_phase3_states": (4, 4),  # params, starts, chunk_aggs, out; L, B, D, chunks
 }
 
 
@@ -353,6 +359,14 @@ def _unchunk(tree, chunks):
             for c in range(chunks)]
 
 
+def _runs_to_steps(out, runs, L):
+    """The states after each step of `runs` runs replayed side by side, a
+    list of Lc (SD, runs*B) tensors -> (SD, L, B) in step order."""
+    Lc = len(out)
+    states = torch.stack(out, dim=1).reshape(out[0].shape[0], Lc, runs, -1)  # (SD, Lc, run, B)
+    return states.transpose(1, 2).reshape(states.shape[0], runs * Lc, -1)[:, :L]
+
+
 def _chunk_tree(aggs, combine):
     """The chunk aggregates combined in the kernels' order (K1, K4, K8): at span
     1, 2, 4, ..., aggregate w (w a multiple of 2 span) takes aggregate
@@ -483,9 +497,10 @@ def _split_sets(stacked, R, k):
 
 
 def phase1_jvp_plain(y_blocked, s_blocked, packed_rows, D, k, chunks=None):
-    """(L, B) streams and (1+k, PK2) rows -> ((1+k)*K, B): the primal block
-    aggregates followed by their k tangents. The noise tangent of a step is
-    masked to zero where the streamed s marks it missing or padding.
+    """(L, B) streams and (1+k, PK2) rows -> (((1+k)*K, B), (runs, (1+k)*K,
+    B)): the primal block aggregates followed by their k tangents, and the
+    same sets of each run's aggregate. The noise tangent of a step is masked
+    to zero where the streamed s marks it missing or padding.
 
     chunks=None folds each block's L steps in one run. With `chunks` (a
     power of two; K4's is PHASE1_JVP_CHUNKS) it takes K4's schedule: the steps
@@ -513,8 +528,11 @@ def phase1_jvp_plain(y_blocked, s_blocked, packed_rows, D, k, chunks=None):
     def combine_jvp(left, right):
         return torch.func.jvp(lanes.combine, (left[0], right[0]), (left[1], right[1]))
 
-    carry, dcarry = _chunk_tree(zip(_unchunk(carry, C), _unchunk(dcarry, C)), combine_jvp)
-    return _stack_sets(_elem_tuple_to_rows(carry), _elem_tuple_to_rows(dcarry))
+    def rows(pair):
+        return _stack_sets(_elem_tuple_to_rows(pair[0]), _elem_tuple_to_rows(pair[1]))
+
+    runs = list(zip(_unchunk(carry, C), _unchunk(dcarry, C)))
+    return rows(_chunk_tree(runs, combine_jvp)), torch.stack([rows(run) for run in runs])
 
 
 def phase2_jvp_starts_plain(comps, priors, D, k):
@@ -543,16 +561,38 @@ def phase2_jvp_starts_plain(comps, priors, D, k):
     return _stack_sets(_state_tuple_to_rows(b, C), _state_tuple_to_rows(db, dC))
 
 
-def phase3_jvp_lml_plain(y_blocked, s_blocked, packed_rows, starts, D, k):
+def phase3_jvp_lml_plain(y_blocked, s_blocked, packed_rows, starts, D, k, chunk_aggs=None):
     """-> (1+k, B): the per-block lml and its k tangents, the recursion of
-    `phase3_lml_plain` under jvp from the primal and tangent start states."""
+    `phase3_lml_plain` under jvp from the primal and tangent start states.
+
+    chunk_aggs=None runs each block's L steps in one run from its start.
+    With `chunk_aggs`, the (runs, (1+k)*K, B) run aggregates that
+    `phase1_jvp_plain(..., chunks=runs)` gives, it takes K6's schedule: the
+    steps split into runs of ceil(L / runs); run c's start the state part of
+    (0, m_b, P_b, 0, 0) ∘ agg_0 ∘ ... ∘ agg_{c-1} under jvp, combined left to
+    right; every run replayed from its start, side by side as lanes; and the
+    runs' sums added in run order."""
     L, B = y_blocked.shape
+    n = 1 if chunk_aggs is None else chunk_aggs.shape[0]
     primal, tangent, ds = _unpack_rows(packed_rows, D, k)
     slot = torch.zeros_like(ds)
     rows, drows = _split_sets(starts, state_rows(D), k)
     (m, P), (dm, dP) = _state_rows_to_tuple(rows, D), _state_rows_to_tuple(drows, D)
-    acc, dacc = y_blocked.new_zeros((k, B)), y_blocked.new_zeros((k, B))
-    for y_l, s_l in zip(y_blocked.unbind(0), s_blocked.unbind(0)):
+    run_starts = [(m, P, dm, dP)]
+    if n > 1:
+        zero = starts.new_zeros((k, B))
+        zmat = tuple(tuple(zero for _ in range(D)) for _ in range(D))
+        state, dstate = (zmat, m, P, (zero,) * D, zmat), (zmat, dm, dP, (zero,) * D, zmat)
+        for agg in chunk_aggs[:-1]:
+            arows, darows = _split_sets(agg, elem_rows(D), k)
+            state, dstate = torch.func.jvp(
+                lanes.combine, (state, _elem_rows_to_tuple(arows, D)),
+                (dstate, _elem_rows_to_tuple(darows, D)))
+            run_starts.append((state[1], state[2], dstate[1], dstate[2]))
+    m, P, dm, dP = _tree_map(lambda *runs: torch.cat(runs, dim=-1), *run_starts)
+    acc, dacc = y_blocked.new_zeros((k, n * B)), y_blocked.new_zeros((k, n * B))
+    for l, (y_l, s_l) in enumerate(zip(_chunk_lanes(y_blocked, n, 0.0).unbind(0),
+                                       _chunk_lanes(s_blocked, n, 1.0).unbind(0))):
         mask = (s_l < _MASK_THRESH).to(s_l.dtype)
 
         def step(m, P, A, a, Q, H, h, slot):
@@ -560,7 +600,11 @@ def phase3_jvp_lml_plain(y_blocked, s_blocked, packed_rows, starts, D, k):
 
         (m, P, lml), (dm, dP, dlml) = torch.func.jvp(
             step, (m, P, *primal, slot), (dm, dP, *tangent, ds))
+        exists = _chunk_step_exists(l, L, B, n, y_blocked)
+        if exists is not None:  # a run past its last step adds nothing
+            lml, dlml = torch.where(exists, lml, 0.0), torch.where(exists, dlml, 0.0)
         acc, dacc = acc + lml, dacc + dlml
+    acc, dacc = (functools.reduce(operator.add, x.reshape(k, n, B).unbind(1)) for x in (acc, dacc))
     return torch.cat([acc[:1], dacc])
 
 
@@ -597,15 +641,14 @@ def phase3_states_plain(y_blocked, s_blocked, packed, starts, D, chunks=None):
                         _chunk_lanes(s_blocked, n, 1.0).unbind(0)):
         m, P, _ = lanes.kalman_step(m, P, A, a, Q, H, h, s_l, y_l)
         out.append(torch.stack(_state_tuple_to_rows(m, P)))
-    Lc = len(out)
-    runs = torch.stack(out, dim=1).reshape(-1, Lc, n, B)  # (SD, Lc, run, B)
-    return runs.transpose(1, 2).reshape(-1, n * Lc, B)[:, :L]
+    return _runs_to_steps(out, n, L)
 
 
 def affine_phase1_plain(params, D, chunks=None):
-    """(KT, L, B) affine maps -> (KT, B) block aggregates: for each block,
-    the left fold of its L maps from the identity map (each step's map
-    applied after the carry).
+    """(KT, L, B) affine maps -> ((KT, B) block aggregates, (runs, KT, B) run
+    aggregates): for each block, the left fold of its L maps from the
+    identity map (each step's map applied after the carry), and the folds of
+    its runs.
 
     chunks=None folds each block's L maps in one run; with `chunks` (a power
     of two; K8's is AFFINE_PHASE1_CHUNKS) it takes K8's schedule, as
@@ -616,8 +659,13 @@ def affine_phase1_plain(params, D, chunks=None):
     for l, rows in enumerate(_chunk_lanes(params, n, 0.0).unbind(1)):
         new = lanes.affine_combine(carry, _affine_rows_to_tuple(rows.unbind(0), D))
         carry = _fold_step(carry, new, _chunk_step_exists(l, L, B, n, params))
-    A, b, C = _chunk_tree(_unchunk(carry, n), lanes.affine_combine)
-    return torch.stack([*_flat(A), *_state_tuple_to_rows(b, C)])
+
+    def rows(e):
+        A, b, C = e
+        return torch.stack([*_flat(A), *_state_tuple_to_rows(b, C)])
+
+    runs = _unchunk(carry, n)
+    return rows(_chunk_tree(runs, lanes.affine_combine)), torch.stack([rows(run) for run in runs])
 
 
 def affine_phase2_starts_plain(agg, x0_mean, x0_cov, D):
@@ -628,16 +676,29 @@ def affine_phase2_starts_plain(agg, x0_mean, x0_cov, D):
                           _seed(x0_mean, x0_cov, D, agg.new_zeros(())))
 
 
-def affine_phase3_states_plain(params, starts, D):
+def affine_phase3_states_plain(params, starts, D, chunk_aggs=None):
     """(KT, L, B) affine maps and (SD, B) start states -> (SD, L, B): the
     affine recursion of each block from its start, keeping the state after
-    every step."""
+    every step.
+
+    chunk_aggs=None runs each block's L steps in one run from its start.
+    With `chunk_aggs`, the (runs, KT, B) run aggregates that
+    `affine_phase1_plain(..., chunks=runs)` gives, it takes K10's schedule:
+    run c starts from the block start pushed through the maps of runs 0 ..
+    c-1 in order, and the runs are replayed side by side as lanes."""
+    L = params.shape[1]
+    n = 1 if chunk_aggs is None else chunk_aggs.shape[0]
     m, P = _state_rows_to_tuple(starts.unbind(0), D)
+    run_starts = [(m, P)]
+    for agg in () if chunk_aggs is None else chunk_aggs[:-1]:
+        m, P = lanes.affine_step(m, P, *_affine_rows_to_tuple(agg.unbind(0), D))
+        run_starts.append((m, P))
+    m, P = _tree_map(lambda *runs: torch.cat(runs), *run_starts)
     out = []
-    for rows in params.unbind(1):
+    for rows in _chunk_lanes(params, n, 0.0).unbind(1):
         m, P = lanes.affine_step(m, P, *_affine_rows_to_tuple(rows.unbind(0), D))
         out.append(torch.stack(_state_tuple_to_rows(m, P)))
-    return torch.stack(out, dim=1)
+    return _runs_to_steps(out, n, L)
 
 
 # ---------------------------------------------------------------------------
@@ -749,10 +810,13 @@ def _check_jvp_rows(packed_rows, D, k):
 # w-th run of ceil(L / C) steps of the same 32 blocks, as a cluster of two
 # thread blocks of 8 warps (a thread needs 255 registers), and the run
 # aggregates are combined in order in shared memory, then across the
-# cluster (`phase1_jvp_plain(..., chunks=C)` is the same schedule).
+# cluster (`phase1_jvp_plain(..., chunks=C)` is the same schedule). Before
+# the tree each warp stores its run aggregate, which K6 reads.
 def phase1_jvp(y_blocked, s_blocked, packed_rows, D, k):
-    """(L, B) streams and (1+k, PK2) parameter rows -> ((1+k)*K, B): the
-    primal block aggregates followed by the k tangent sets."""
+    """(L, B) streams and (1+k, PK2) parameter rows -> (((1+k)*K, B),
+    (PHASE1_JVP_CHUNKS, (1+k)*K, B)): the primal block aggregates followed by
+    the k tangent sets, and the same sets of each run's aggregate (one run
+    on the CPU, where the serial plain version runs)."""
     _check_kernel_args(D, y_blocked, s_blocked, packed_rows)
     _check_streams(y_blocked, s_blocked)
     _check_jvp_rows(packed_rows, D, k)
@@ -761,10 +825,11 @@ def phase1_jvp(y_blocked, s_blocked, packed_rows, D, k):
     L, B = y_blocked.shape
     out = torch.empty(((1 + k) * elem_rows(D), B), dtype=y_blocked.dtype,
                       device=y_blocked.device)
-    _launch("phase1_jvp", (y_blocked, s_blocked, packed_rows, out),
+    chunk_out = out.new_empty((PHASE1_JVP_CHUNKS, *out.shape))
+    _launch("phase1_jvp", (y_blocked, s_blocked, packed_rows, out, chunk_out),
             (L, B, D, k, PHASE1_JVP_CHUNKS))
     phase1_jvp.launches += 1
-    return out
+    return out, chunk_out
 
 
 phase1_jvp.launches = 0
@@ -802,20 +867,30 @@ phase2_jvp_starts.launches = 0
 # K6. Replaces temporalgps_tpu/ops/pallas_kernels.py phase3_jvp_lml
 # (_phase3_jvp_kernel). K3 carrying a tangent state and a tangent lml sum;
 # thread (b, j) as in K4. Bound by operations (at D = 3, 215 flops a step
-# for the primal and 406 for each tangent), and in practice by the latency
-# of the serial recursion.
-def phase3_jvp_lml(y_blocked, s_blocked, packed_rows, starts, D, k):
-    """(L, B) streams, (1+k, PK2) rows and ((1+k)*SD, B) starts -> (1+k, B):
-    the per-block lml followed by its k tangents."""
-    _check_kernel_args(D, y_blocked, s_blocked, packed_rows, starts)
+# for the primal and 406 for each tangent); one thread a (block, tangent)
+# left it bound by the latency of the L-step recursion. So it takes K4's
+# grid and cluster: warp c of a (32 blocks, tangent) pair starts run c from
+# the block start pushed through K4's run aggregates 0 .. c-1 (the state
+# part of each combine only), replays the run's ceil(L / C) steps, and the
+# C run sums are added in run order across the cluster
+# (`phase3_jvp_lml_plain(..., chunk_aggs=...)` is the same schedule). It is
+# then bound by instruction issue: a replay step is some 480 instructions,
+# and an SM holds one 8-warp thread block at its register count.
+def phase3_jvp_lml(y_blocked, s_blocked, packed_rows, starts, D, k, chunk_aggs):
+    """(L, B) streams, (1+k, PK2) rows, ((1+k)*SD, B) starts and the run
+    aggregates of `phase1_jvp` -> (1+k, B): the per-block lml followed by its
+    k tangents."""
+    _check_kernel_args(D, y_blocked, s_blocked, packed_rows, starts, chunk_aggs)
     _check_streams(y_blocked, s_blocked)
     _check_jvp_rows(packed_rows, D, k)
     L, B = y_blocked.shape
     _check_shape("starts", starts, ((1 + k) * state_rows(D), B))
-    if _route(y_blocked, s_blocked, packed_rows, starts) == "cpu":
-        return phase3_jvp_lml_plain(y_blocked, s_blocked, packed_rows, starts, D, k)
+    if _route(y_blocked, s_blocked, packed_rows, starts, chunk_aggs) == "cpu":
+        return phase3_jvp_lml_plain(y_blocked, s_blocked, packed_rows, starts, D, k, chunk_aggs)
+    _check_shape("chunk_aggs", chunk_aggs, (PHASE1_JVP_CHUNKS, (1 + k) * elem_rows(D), B))
     out = torch.empty((1 + k, B), dtype=y_blocked.dtype, device=y_blocked.device)
-    _launch("phase3_jvp_lml", (y_blocked, s_blocked, packed_rows, starts, out), (L, B, D, k))
+    _launch("phase3_jvp_lml", (y_blocked, s_blocked, packed_rows, starts, chunk_aggs, out),
+            (L, B, D, k, PHASE1_JVP_CHUNKS))
     phase3_jvp_lml.launches += 1
     return out
 
@@ -869,17 +944,21 @@ phase3_states.launches = 0
 # ceil(L / C) steps of the same 32 blocks with the next steps' loads issued
 # before each composition, and the run aggregates are combined in order in
 # shared memory (`affine_phase1_plain(..., chunks=C)` is the same schedule).
+# Before the tree each warp stores its run aggregate, which K10 reads.
 def affine_phase1(params, D):
-    """(KT, L, B) affine maps -> (KT, B) block aggregates."""
+    """(KT, L, B) affine maps -> ((KT, B) block aggregates,
+    (AFFINE_PHASE1_CHUNKS, KT, B) run aggregates; one run on the CPU, where
+    the serial plain version runs)."""
     if _route(params) == "cpu":
         return affine_phase1_plain(params, D)
     _check_kernel_args(D, params)
     _check_affine_params(params, D)
     _, L, B = params.shape
     out = torch.empty((affine_rows(D), B), dtype=params.dtype, device=params.device)
-    _launch("affine_phase1", (params, out), (L, B, D, AFFINE_PHASE1_CHUNKS))
+    chunk_out = out.new_empty((AFFINE_PHASE1_CHUNKS, *out.shape))
+    _launch("affine_phase1", (params, out, chunk_out), (L, B, D, AFFINE_PHASE1_CHUNKS))
     affine_phase1.launches += 1
-    return out
+    return out, chunk_out
 
 
 affine_phase1.launches = 0
@@ -914,22 +993,27 @@ affine_phase2_starts.launches = 0
 
 
 # K10. Replaces temporalgps_tpu/ops/pallas_kernels.py affine_phase3_states
-# (_affine_phase3_kernel). One thread per block replays m <- A m + b,
-# P <- sym(A P A^T) + C from its start, reading KT rows and writing SD rows
-# a step, each row a coalesced warp access; one warp per thread block.
-# Bound by bytes on paper ((KT + SD) values a step), in practice by the
-# serial replay's latency at B threads.
-def affine_phase3_states(params, starts, D):
-    """(KT, L, B) affine maps and (SD, B) start states -> (SD, L, B) states
-    after every step."""
-    if _route(params, starts) == "cpu":
-        return affine_phase3_states_plain(params, starts, D)
-    _check_kernel_args(D, params, starts)
+# (_affine_phase3_kernel). Replays m <- A m + b, P <- sym(A P A^T) + C over
+# each block's steps, reading KT rows and writing SD rows a step, each row a
+# coalesced warp access. Bound by bytes ((KT + SD) values a step); one
+# thread a block waited one trip to memory a step. So each block's steps
+# are K8's AFFINE_PHASE1_CHUNKS runs, one warp each: warp c starts from the
+# block start pushed through K8's run aggregates 0 .. c-1 and replays its
+# run with the next step's rows loaded ahead
+# (`affine_phase3_states_plain(..., chunk_aggs=...)` is the same schedule).
+def affine_phase3_states(params, starts, D, chunk_aggs):
+    """(KT, L, B) affine maps, (SD, B) start states and the run aggregates of
+    `affine_phase1` -> (SD, L, B) states after every step."""
+    if _route(params, starts, chunk_aggs) == "cpu":
+        return affine_phase3_states_plain(params, starts, D, chunk_aggs)
+    _check_kernel_args(D, params, starts, chunk_aggs)
     _check_affine_params(params, D)
     _, L, B = params.shape
     _check_shape("starts", starts, (state_rows(D), B))
+    _check_shape("chunk_aggs", chunk_aggs, (AFFINE_PHASE1_CHUNKS, affine_rows(D), B))
     out = torch.empty((state_rows(D), L, B), dtype=params.dtype, device=params.device)
-    _launch("affine_phase3_states", (params, starts, out), (L, B, D))
+    _launch("affine_phase3_states", (params, starts, chunk_aggs, out),
+            (L, B, D, AFFINE_PHASE1_CHUNKS))
     affine_phase3_states.launches += 1
     return out
 

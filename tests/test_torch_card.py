@@ -27,9 +27,9 @@ def cuda_device():
 
 
 # (L, B) of the chunked kernels' card tests: B = 300 is not a multiple of the
-# thread-block sizes; L = 37 is not a multiple of K1's, K4's, K7's or K8's
-# chunk count and L = 1 is fewer steps than chunks, so some chunks are
-# ragged or empty.
+# thread-block sizes; L = 37 is not a multiple of K1's, K4's, K6's, K7's, K8's
+# or K10's chunk count and L = 1 is fewer steps than chunks, so some chunks
+# are ragged or empty.
 CHUNK_SHAPES = [(37, 300), (37, 96), (1, 96)]
 
 
@@ -81,15 +81,21 @@ def test_kernels_match_plain_versions_on_card(cuda_device, D, dtype, rtol, L, B)
 
 # The chunked kernels' C entries: the shapes of their pointer arguments and
 # the ints before the chunk count, at D = 2 on 5 steps of 4 blocks (k = 1).
+_JVP_RUNS = (tk.PHASE1_JVP_CHUNKS, 2 * tk.elem_rows(2), 4)
+_AFFINE_RUNS = (tk.AFFINE_PHASE1_CHUNKS, tk.affine_rows(2), 4)
 _CHUNKED_LAUNCHES = {
     "phase1_aggregate": ([(5, 4), (5, 4), (tk.param_len(2),), (tk.elem_rows(2), 4)],
                          (5, 4, 2), tk.PHASE1_AGGREGATE_CHUNKS),
-    "phase1_jvp": ([(5, 4), (5, 4), (2, tk.param_s_len(2)), (2 * tk.elem_rows(2), 4)],
+    "phase1_jvp": ([(5, 4), (5, 4), (2, tk.param_s_len(2)), (2 * tk.elem_rows(2), 4), _JVP_RUNS],
                    (5, 4, 2, 1), tk.PHASE1_JVP_CHUNKS),
+    "phase3_jvp_lml": ([(5, 4), (5, 4), (2, tk.param_s_len(2)), (2 * tk.state_rows(2), 4),
+                        _JVP_RUNS, (2, 4)], (5, 4, 2, 1), tk.PHASE1_JVP_CHUNKS),
     "phase3_states": ([(5, 4), (5, 4), (tk.param_len(2),), (tk.state_rows(2), 4),
                        (tk.state_rows(2), 5, 4)], (5, 4, 2), tk.PHASE3_STATES_CHUNKS),
-    "affine_phase1": ([(tk.affine_rows(2), 5, 4), (tk.affine_rows(2), 4)], (5, 4, 2),
-                      tk.AFFINE_PHASE1_CHUNKS),
+    "affine_phase1": ([(tk.affine_rows(2), 5, 4), (tk.affine_rows(2), 4), _AFFINE_RUNS],
+                      (5, 4, 2), tk.AFFINE_PHASE1_CHUNKS),
+    "affine_phase3_states": ([(tk.affine_rows(2), 5, 4), (tk.state_rows(2), 4), _AFFINE_RUNS,
+                              (tk.state_rows(2), 5, 4)], (5, 4, 2), tk.AFFINE_PHASE1_CHUNKS),
 }
 
 
@@ -115,10 +121,11 @@ def test_chunked_kernels_refuse_another_chunk_count(cuda_device, name):
 @pytest.mark.parametrize("dtype, rtol", [(torch.float64, 1e-10), (torch.float32, 1e-4)])
 def test_jvp_kernels_match_plain_versions_on_card(cuda_device, D, k, dtype, rtol, L, B):
     """K4-K6 against their plain versions (PyTorch's forward-mode autodiff of
-    the plain loops; K4's in its own chunk order) on the same inputs, held on
-    the (1+k, B) lml rows downstream, each row scaled by its own largest
-    entry. A missing step, padding steps and a live noise tangent exercise
-    the mask; B = 300 the ragged edge of K5."""
+    the plain loops; K4's and K6's in their own chunk order) on the same
+    inputs, held on the (1+k, B) lml rows downstream, each row scaled by its
+    own largest entry: K4's block and run aggregates, K5's starts, and K6 fed
+    K4's run aggregates. A missing step, padding steps and a live noise
+    tangent exercise the mask; B = 300 the ragged edge of K5."""
     rng = np.random.default_rng(10 * D + k)
     y, s = _streams_with_gaps(rng, L, B)
     to = lambda x: torch.as_tensor(x, dtype=dtype, device=cuda_device)
@@ -141,23 +148,25 @@ def test_jvp_kernels_match_plain_versions_on_card(cuda_device, D, k, dtype, rtol
           for _ in range(k)),
     ])
     y_t, s_t = to(y).contiguous(), to(s).contiguous()
-    p1 = tk.phase1_jvp_plain(y_t, s_t, rows, D, k, chunks=tk.PHASE1_JVP_CHUNKS)
+    p1, p_runs = tk.phase1_jvp_plain(y_t, s_t, rows, D, k, chunks=tk.PHASE1_JVP_CHUNKS)
     p2 = tk.phase2_jvp_starts_plain(p1, priors, D, k)
-    p3 = tk.phase3_jvp_lml_plain(y_t, s_t, rows, p2, D, k)
+    p3 = tk.phase3_jvp_lml_plain(y_t, s_t, rows, p2, D, k, p_runs)
     tk.reset_launch_counts()
-    k1 = tk.phase1_jvp(y_t, s_t, rows, D, k)
+    k1, k_runs = tk.phase1_jvp(y_t, s_t, rows, D, k)
     k2 = tk.phase2_jvp_starts(p1, priors, D, k)
-    k3 = tk.phase3_jvp_lml(y_t, s_t, rows, p2, D, k)
+    k3 = tk.phase3_jvp_lml(y_t, s_t, rows, p2, D, k, k_runs)
     torch.cuda.synchronize()
     counts = tk.launch_counts()
     assert (counts["phase1_jvp"], counts["phase2_jvp_starts"], counts["phase3_jvp_lml"]) == (1, 1, 1)
-    assert k1.shape == p1.shape and k2.shape == p2.shape and k3.shape == p3.shape
-    via_k1 = tk.phase3_jvp_lml_plain(y_t, s_t, rows, tk.phase2_jvp_starts_plain(k1, priors, D, k), D, k)
-    via_k2 = tk.phase3_jvp_lml_plain(y_t, s_t, rows, k2, D, k)
-    scale = p3.abs().amax(dim=1, keepdim=True)
-    for got in (via_k1, via_k2, k3):
+    assert k1.shape == p1.shape and k_runs.shape == p_runs.shape
+    assert k2.shape == p2.shape and k3.shape == p3.shape
+    via_k1 = tk.phase3_jvp_lml_plain(y_t, s_t, rows, tk.phase2_jvp_starts_plain(k1, priors, D, k),
+                                     D, k, p_runs)
+    via_k_runs = tk.phase3_jvp_lml_plain(y_t, s_t, rows, p2, D, k, k_runs)
+    via_k2 = tk.phase3_jvp_lml_plain(y_t, s_t, rows, k2, D, k, p_runs)
+    for got, want in ((via_k1, p3), (via_k_runs, p3), (via_k2, p3), (k3, via_k_runs)):
         assert bool(torch.isfinite(got).all())
-        assert ((got - p3).abs() / scale).max().item() <= rtol
+        assert ((got - want).abs() / want.abs().amax(dim=1, keepdim=True)).max().item() <= rtol
 
 
 @pytest.mark.cuda
@@ -298,9 +307,10 @@ def _rows_rel_err(got, want):
 @pytest.mark.parametrize("D", [1, 2, 3])
 @pytest.mark.parametrize("dtype, rtol", [(torch.float64, 1e-10), (torch.float32, 1e-4)])
 def test_state_kernels_match_plain_versions_on_card(cuda_device, D, dtype, rtol, L, B):
-    """K7-K10 against their plain versions (K7's and K8's in their own chunk order) on
-    the same inputs, held on the state rows (each scaled by its largest
-    entry): K7's own, and for K8 and K9 the states the plain phases compute
+    """K7-K10 against their plain versions (K7's, K8's and K10's in their own
+    chunk order) on the same inputs, held on the state rows (each scaled by
+    its largest entry): K7's own, K10's fed K8's run aggregates, and for
+    K8's block and run aggregates and K9 the states the plain phases compute
     downstream of them. Time-varying affine maps, a missing step, padding
     steps, and the shapes of CHUNK_SHAPES."""
     rng = np.random.default_rng(20 + D)
@@ -319,21 +329,25 @@ def test_state_kernels_match_plain_versions_on_card(cuda_device, D, dtype, rtol,
                            C.reshape(L, B, D * D)], axis=-1)
     params = to(rows.transpose(2, 0, 1))
     p7 = tk.phase3_states_plain(y, s, packed, starts, D, chunks=tk.PHASE3_STATES_CHUNKS)
-    p8 = tk.affine_phase1_plain(params, D, chunks=tk.AFFINE_PHASE1_CHUNKS)
+    p8, p_runs = tk.affine_phase1_plain(params, D, chunks=tk.AFFINE_PHASE1_CHUNKS)
     p9 = tk.affine_phase2_starts_plain(p8, m0, P0, D)
-    p10 = tk.affine_phase3_states_plain(params, p9, D)
+    p10 = tk.affine_phase3_states_plain(params, p9, D, p_runs)
     tk.reset_launch_counts()
     k7 = tk.phase3_states(y, s, packed, starts, D)
-    k8 = tk.affine_phase1(params, D)
+    k8, k_runs = tk.affine_phase1(params, D)
     k9 = tk.affine_phase2_starts(p8, m0, P0, D)
-    k10 = tk.affine_phase3_states(params, p9, D)
+    k10 = tk.affine_phase3_states(params, p9, D, k_runs)
     torch.cuda.synchronize()
     counts = tk.launch_counts()
     assert [counts[n] for n in ("phase3_states", "affine_phase1", "affine_phase2_starts",
                                 "affine_phase3_states")] == [1, 1, 1, 1]
-    via_k8 = tk.affine_phase3_states_plain(params, tk.affine_phase2_starts_plain(k8, m0, P0, D), D)
-    via_k9 = tk.affine_phase3_states_plain(params, k9, D)
-    for got, want in ((k7, p7), (via_k8, p10), (via_k9, p10), (k10, p10)):
+    assert k_runs.shape == p_runs.shape
+    via_k8 = tk.affine_phase3_states_plain(params, tk.affine_phase2_starts_plain(k8, m0, P0, D),
+                                           D, p_runs)
+    via_k_runs = tk.affine_phase3_states_plain(params, p9, D, k_runs)
+    via_k9 = tk.affine_phase3_states_plain(params, k9, D, p_runs)
+    for got, want in ((k7, p7), (via_k8, p10), (via_k_runs, p10), (via_k9, p10),
+                      (k10, via_k_runs)):
         assert got.shape == want.shape and bool(torch.isfinite(got).all())
         assert _rows_rel_err(got, want) <= rtol
 

@@ -7,8 +7,8 @@ Inputs are made with numpy from a seed and go through both packages. The
 reference side is jax.jvp of its plain block schedule
 (_phase1_aggregates_lanes, _phase2_prefix, _phase3_lml_lanes) or of its
 sequential engine; exactly one case runs its Pallas kernels in interpret
-mode. N = 18 in 4 blocks of 5 steps gives 2 padding steps (K4's chunked
-schedule also runs at 1 and 37 steps a block); one observation
+mode. N = 18 in 4 blocks of 5 steps gives 2 padding steps (K4's and K6's
+chunked schedules also run at 1 and 37 steps a block); one observation
 is NaN; all of the scale, stretch and noise sensitivities are live, so the
 noise tangent meets the mask at the missing and the padding steps.
 
@@ -40,6 +40,7 @@ from temporalgps_torch import convert
 from temporalgps_torch.gp import GP, Matern12, Matern32, Matern52, build_lgssm, to_sde
 from temporalgps_torch.ops import block as tblock
 from temporalgps_torch.ops import kernels as tk
+from temporalgps_torch.ops import lanes
 
 torch.set_num_threads(1)
 
@@ -60,9 +61,9 @@ def _t(x):
     return torch.from_numpy(np.array(x, dtype=np.float64, order="C"))
 
 
-def _y(seed, n=N):
+def _y(seed, n=N, missing=None):
     y = np.random.default_rng(seed).standard_normal(n)
-    y[min(NAN_AT, n // 2)] = np.nan
+    y[list(missing) if missing else min(NAN_AT, n // 2)] = np.nan
     return y
 
 
@@ -127,11 +128,12 @@ def _stages_jvp(D, n):
 
 
 @functools.lru_cache(maxsize=None)
-def _reference(D, k, n=N):
+def _reference(D, k, n=N, missing=None):
     """Primal and k tangents of every stage of the reference's plain block
-    schedule on n observations in B blocks, and the port's inputs built from
-    the same numbers."""
-    y = _y(seed=10 * D + k, n=n)
+    schedule on n observations in B blocks (NaN at the indices `missing`, or
+    at one default index), and the port's inputs built from the same
+    numbers."""
+    y = _y(seed=10 * D + k, n=n, missing=missing)
     jvp = functools.partial(_stages_jvp(D, n), jnp.asarray(y))
     primal, tangents = None, []
     for v in DIRECTIONS[k]:
@@ -159,9 +161,9 @@ PHASE_CASES = [(D, k) for D in (1, 2, 3) for k in (1, 3)]
 @pytest.mark.parametrize("D, k", PHASE_CASES)
 def test_phase1_jvp_plain_matches_reference(D, k):
     ref = _reference(D, k)
-    comps = tk.phase1_jvp(ref["y_main"], ref["s_main"], ref["rows"], D, k)
+    comps, runs = tk.phase1_jvp(ref["y_main"], ref["s_main"], ref["rows"], D, k)
     K = tk.elem_rows(D)
-    assert comps.shape == ((1 + k) * K, B)
+    assert comps.shape == ((1 + k) * K, B) and runs.shape == (1, (1 + k) * K, B)
     for j in range(1 + k):
         _close(comps[j * K:(j + 1) * K], ref["comps"][j * K:(j + 1) * K])
 
@@ -179,7 +181,8 @@ def test_phase2_jvp_starts_plain_matches_reference(D, k):
 @pytest.mark.parametrize("D, k", PHASE_CASES)
 def test_phase3_jvp_lml_plain_matches_reference(D, k):
     ref = _reference(D, k)
-    lml = tk.phase3_jvp_lml(ref["y_main"], ref["s_main"], ref["rows"], _t(ref["starts"]), D, k)
+    lml = tk.phase3_jvp_lml(ref["y_main"], ref["s_main"], ref["rows"], _t(ref["starts"]), D, k,
+                            _t(ref["comps"])[None])
     assert lml.shape == (1 + k, B)
     _close(lml.sum(dim=1), ref["totals"])
 
@@ -196,27 +199,82 @@ CHUNK_LENGTHS = {1: 3, 5: N, 37: 146}
 def test_phase1_jvp_plain_chunked_matches_serial_and_reference(D, k, L, chunks):
     """The kernel's schedule (each block's steps in `chunks` runs, the run
     aggregates combined in order) gives the serial fold's and the
-    reference's aggregates; the noise tangent stays exactly zero over the
-    padding steps, which fill some runs and leave others empty."""
+    reference's aggregates, and the run aggregates it returns (K6's input)
+    give the block aggregates through the same tree; the noise tangent stays
+    exactly zero over the padding steps, which fill some runs and leave
+    others empty."""
     n = CHUNK_LENGTHS[L]
     ref = _reference(D, k, n)
     y_main, s_main, rows = ref["y_main"], ref["s_main"], ref["rows"]
     assert y_main.shape == (L, B)
-    chunked = tk.phase1_jvp_plain(y_main, s_main, rows, D, k, chunks=chunks)
-    serial = tk.phase1_jvp_plain(y_main, s_main, rows, D, k)
+    chunked, runs = tk.phase1_jvp_plain(y_main, s_main, rows, D, k, chunks=chunks)
+    serial, _ = tk.phase1_jvp_plain(y_main, s_main, rows, D, k)
     K = tk.elem_rows(D)
+    assert runs.shape == (chunks, (1 + k) * K, B)
     for j in range(1 + k):
         sets = slice(j * K, (j + 1) * K)
         _close(chunked[sets], serial[sets], rtol=1e-10)
         _close(chunked[sets], ref["comps"][sets], rtol=1e-10)
 
+    def combine_jvp(left, right):
+        return torch.func.jvp(lanes.combine, (left[0], right[0]), (left[1], right[1]))
+
+    elem = lambda rows: tk._elem_rows_to_tuple(rows.unbind(0), D)
+    for j in range(1, 1 + k):
+        total, dtotal = tk._chunk_tree(
+            [(elem(run[:K]), elem(run[j * K:(j + 1) * K])) for run in runs], combine_jvp)
+        assert torch.equal(torch.stack(tk._elem_tuple_to_rows(total)), chunked[:K])
+        assert torch.equal(torch.stack(tk._elem_tuple_to_rows(dtotal)), chunked[j * K:(j + 1) * K])
+
     noise_only = torch.zeros_like(rows)
     noise_only[0] = rows[0]
     noise_only[1:, -1] = 0.7
     pad = B * L - n
-    tail = tk.phase1_jvp_plain(y_main[L - pad:], s_main[L - pad:], noise_only, D, k,
-                               chunks=chunks)
+    tail, _ = tk.phase1_jvp_plain(y_main[L - pad:], s_main[L - pad:], noise_only, D, k,
+                                  chunks=chunks)
     assert torch.equal(tail[K:, B - 1], torch.zeros(k * K, dtype=torch.float64))
+
+
+# K6's chunked schedule: L = 5 (fewer steps than chunks: runs of one step
+# and empty runs) and 37 (not a multiple of the chunk count) steps a block,
+# each with a padded tail, and missing steps on both sides of a chunk
+# boundary in block 1: its step 3 (L = 5) or 30 (L = 37) starts one of K4's
+# 16 runs, so the run before it ends missing and the run from it starts
+# missing. The lengths are those the reference is already compiled for.
+JVP_REPLAY_CASES = {5: (N, (5 + 2, 5 + 3)), 37: (146, (37 + 29, 37 + 30))}
+
+
+@pytest.mark.parametrize("D, k, L", [(D, k, 5) for D, k in PHASE_CASES]
+                         + [(D, k, 37) for D in (1, 3) for k in (1, 3)])
+def test_phase3_jvp_lml_plain_chunked_matches_serial_and_reference(D, k, L):
+    """K6's schedule (run c started from the block start through K4's run
+    aggregates 0 .. c-1 under jvp, the runs replayed side by side, their
+    sums added in run order) gives the serial replay's lml rows and the
+    reference's totals; with only the noise tangent live and a zero tangent
+    start, a block of padding steps, split over two runs, gets exactly zero
+    tangent."""
+    n, missing = JVP_REPLAY_CASES[L]
+    ref = _reference(D, k, n, missing=missing)
+    y_main, s_main, rows, starts = ref["y_main"], ref["s_main"], ref["rows"], _t(ref["starts"])
+    C = tk.PHASE1_JVP_CHUNKS
+    assert y_main.shape == (L, B) and (missing[1] - L) % -(-L // C) == 0
+    assert bool((s_main[[m - L for m in missing], 1] > 1e14).all())
+    _, runs = tk.phase1_jvp_plain(y_main, s_main, rows, D, k, chunks=C)
+    chunked = tk.phase3_jvp_lml_plain(y_main, s_main, rows, starts, D, k, runs)
+    serial = tk.phase3_jvp_lml_plain(y_main, s_main, rows, starts, D, k)
+    for j in range(1 + k):
+        _close(chunked[j], serial[j], rtol=1e-10)
+    _close(chunked.sum(dim=1), ref["totals"], rtol=1e-10)
+
+    noise_only = torch.zeros_like(rows)
+    noise_only[0] = rows[0]
+    noise_only[1:, -1] = 0.7
+    zero_tangents = starts.clone()
+    zero_tangents[tk.state_rows(D):] = 0.0
+    y_t, s_t = y_main[L - (B * L - n):], s_main[L - (B * L - n):]
+    _, tail_runs = tk.phase1_jvp_plain(y_t, s_t, noise_only, D, k, chunks=C)
+    tail = tk.phase3_jvp_lml_plain(y_t, s_t, noise_only, zero_tangents, D, k, tail_runs)
+    assert torch.equal(tail[1:, B - 1], torch.zeros(k, dtype=torch.float64))
 
 
 def test_noise_tangent_is_masked_at_missing_and_padding_steps():
@@ -230,13 +288,13 @@ def test_noise_tangent_is_masked_at_missing_and_padding_steps():
     y_main, s_main = ref["y_main"], ref["s_main"]
     assert (s_main >= 1e14).sum().item() == 3  # one NaN, two padding steps
     K = tk.elem_rows(D)
-    masked = tk.phase1_jvp_plain(y_main, s_main, rows, D, k)[K:]
+    masked = tk.phase1_jvp_plain(y_main, s_main, rows, D, k)[0][K:]
     # The same steps, made observed with a huge finite noise below the
     # threshold, get a (tiny) derivative: the mask is what zeroes it.
     s_live = torch.where(s_main >= 1e14, torch.full_like(s_main, 9e13), s_main)
-    unmasked = tk.phase1_jvp_plain(y_main, s_live, rows, D, k)[K:]
+    unmasked = tk.phase1_jvp_plain(y_main, s_live, rows, D, k)[0][K:]
     block_of_nan = NAN_AT // y_main.shape[0]
-    last = tk.phase1_jvp_plain(y_main[-1:], s_main[-1:], rows, D, k)[K:]
+    last = tk.phase1_jvp_plain(y_main[-1:], s_main[-1:], rows, D, k)[0][K:]
     assert torch.equal(last[:, B - 1], torch.zeros(K, dtype=torch.float64))
     assert not torch.equal(masked[:, block_of_nan], unmasked[:, block_of_nan])
 
@@ -361,8 +419,8 @@ def test_jvp_wrappers_refuse_what_the_kernels_do_not_take(wrapper, error, match)
         "phase1_stream_shapes": lambda: tk.phase1_jvp(y, s[:-1], rows, D, k),
         "phase2_comps_rows": lambda: tk.phase2_jvp_starts(comps[:-1], priors, D, k),
         "phase2_priors": lambda: tk.phase2_jvp_starts(comps, priors[:-1], D, k),
-        "phase3_starts": lambda: tk.phase3_jvp_lml(y, s, rows, starts[:-1], D, k),
-        "phase3_D": lambda: tk.phase3_jvp_lml(y, s, rows, starts, 4, k),
+        "phase3_starts": lambda: tk.phase3_jvp_lml(y, s, rows, starts[:-1], D, k, comps[None]),
+        "phase3_D": lambda: tk.phase3_jvp_lml(y, s, rows, starts, 4, k, comps[None]),
     }
     with pytest.raises(error, match=match):
         calls[wrapper]()
@@ -372,7 +430,11 @@ def test_jvp_wrappers_on_cpu_run_the_plain_versions_and_count_nothing():
     D, k = 3, 3
     ref = _reference(D, k)
     tk.reset_launch_counts()
-    comps = tk.phase1_jvp(ref["y_main"], ref["s_main"], ref["rows"], D, k)
+    comps, runs = tk.phase1_jvp(ref["y_main"], ref["s_main"], ref["rows"], D, k)
+    plain, plain_runs = tk.phase1_jvp_plain(ref["y_main"], ref["s_main"], ref["rows"], D, k)
+    assert torch.equal(comps, plain) and torch.equal(runs, plain_runs)
+    starts = _t(ref["starts"])
     assert torch.equal(
-        comps, tk.phase1_jvp_plain(ref["y_main"], ref["s_main"], ref["rows"], D, k))
+        tk.phase3_jvp_lml(ref["y_main"], ref["s_main"], ref["rows"], starts, D, k, runs),
+        tk.phase3_jvp_lml_plain(ref["y_main"], ref["s_main"], ref["rows"], starts, D, k))
     assert all(n == 0 for n in tk.launch_counts().values())

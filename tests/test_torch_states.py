@@ -1,6 +1,6 @@
 """The port's state-emitting phases (K7 phase3_states and the affine phases
-K8-K10, plain PyTorch versions) against the reference package's XLA block
-schedules, on the CPU.
+K8-K10, plain PyTorch versions, serial and in the kernels' chunk order)
+against the reference package's XLA block schedules, on the CPU.
 
 The reference runs `block.filter_`, `block.affine_prefix_states` and
 `block.latent_marginals` (its XLA schedules of the same blocked algorithm),
@@ -33,6 +33,7 @@ from temporalgps_torch.models.gauss_markov import GaussMarkov
 from temporalgps_torch.models.lgssm import LGSSM
 from temporalgps_torch.ops import block as tblock
 from temporalgps_torch.ops import kernels as tk
+from temporalgps_torch.ops import lanes
 from temporalgps_torch.utils.fill import Fill, tmaterialize
 from temporalgps_torch.utils.gaussian import Gaussian
 
@@ -195,7 +196,9 @@ def test_affine_phases_plain_match_reference_prefix(D):
     want, x0, params = _affine_case(D, seed=10 + D)
     L = params.shape[1]
     assert params.shape == (tk.affine_rows(D), L, B) and L * B > N
-    _check_affine_phases(want, x0, params, tk.affine_phase1_plain(params, D), D)
+    agg, runs = tk.affine_phase1_plain(params, D)
+    assert torch.equal(runs, agg[None])  # the serial fold is one run
+    _check_affine_phases(want, x0, params, agg, D)
 
 
 # K8's chunked schedule: L = 1 (fewer steps than chunks), 5 and 37 (neither
@@ -211,13 +214,43 @@ def test_affine_phase1_plain_chunked_matches_serial_and_reference_prefix(D, L, c
     """The kernel's schedule (each block's maps in `chunks` runs, the run
     aggregates combined in order, empty runs the identity map) gives the
     serial fold's aggregates, and through K9 and K10 the reference's
-    blocked affine prefix."""
+    blocked affine prefix; the run aggregates it returns (K10's input) give
+    the block aggregates through the same tree."""
     n = CHUNK_LENGTHS[L]
     want, x0, params = _affine_case(D, seed=40 + D, n=n)
     assert params.shape == (tk.affine_rows(D), L, B) and L * B > n
-    chunked = tk.affine_phase1_plain(params, D, chunks=chunks)
-    _close(chunked, tk.affine_phase1_plain(params, D))
+    chunked, runs = tk.affine_phase1_plain(params, D, chunks=chunks)
+    _close(chunked, tk.affine_phase1_plain(params, D)[0])
+    assert runs.shape == (chunks, tk.affine_rows(D), B)
+    A, b, C = tk._chunk_tree([tk._affine_rows_to_tuple(run.unbind(0), D) for run in runs],
+                             lanes.affine_combine)
+    assert torch.equal(torch.stack([*tk._flat(A), *tk._state_tuple_to_rows(b, C)]), chunked)
     _check_affine_phases(want, x0, params, chunked, D, n)
+
+
+# K10's chunked schedule: L = 1 (fewer steps than chunks), 37 (not a
+# multiple of the chunk count) and 48 (a multiple) steps a block, each with a
+# padded tail of identity maps (n = 4L - 2, or 3 for L = 1).
+REPLAY_LENGTHS = {1: 3, 37: 146, 48: 190}
+
+
+@pytest.mark.parametrize("L", sorted(REPLAY_LENGTHS))
+@pytest.mark.parametrize("D", [1, 2, 3])
+def test_affine_phase3_states_plain_chunked_matches_serial_and_reference_prefix(D, L):
+    """K10's schedule (run c started from the block start pushed through
+    K8's run aggregates 0 .. c-1, the runs replayed side by side) gives the
+    serial replay's states, and after K8 and K9 the reference's blocked
+    affine prefix."""
+    n = REPLAY_LENGTHS[L]
+    want, x0, params = _affine_case(D, seed=70 + D, n=n)
+    assert params.shape == (tk.affine_rows(D), L, B) and L * B > n
+    agg, runs = tk.affine_phase1_plain(params, D, chunks=tk.AFFINE_PHASE1_CHUNKS)
+    starts = tk.affine_phase2_starts_plain(agg, x0.mean, x0.cov, D)
+    chunked = tk.affine_phase3_states_plain(params, starts, D, runs)
+    _close(chunked, tk.affine_phase3_states_plain(params, starts, D))
+    got = tblock._comps_to_gaussian(tblock._unblock_states(chunked, n), D)
+    _close(got.mean, want.mean)
+    _close(got.cov, want.cov)
 
 
 @pytest.mark.parametrize("D", [1, 2, 3])
