@@ -6,16 +6,22 @@ Phases; any failure exits non-zero without the final result line:
   1. torch / CUDA versions, and the card's name and power limit (nvidia-smi).
   2. Build the hand-written kernels (csrc/, one nvcc per source, side by
      side) and report the build time, ptxas register / shared-memory /
-     spill counts, and the chunk counts of K1, K4, K6 (K4's), K7, K8 and
-     K10 (K8's).
+     spill counts, and the chunk counts of K1, K3 (K1's), K4, K6 (K4's), K7,
+     K8 and K10 (K8's).
   3. Each value kernel (K1 phase1_aggregate, K2 phase2_starts, K3 phase3_lml)
      against its plain PyTorch version on the card, at the main path's shapes
      (Matern-5/2, D = 3, N = 1M: B = 2048 blocks of L = 489 steps), float64
      and float32. The gate is on the per-block lml partials downstream of the
      kernel: relative 1e-10 in float64, 1e-4 in float32 (the kernel and the
-     plain version round and contract to FMA differently). K1's plain
-     version runs in K1's chunk order (kernels.PHASE1_AGGREGATE_CHUNKS), and
-     K1 is also held at phase 4's two ragged shapes.
+     plain version round and contract to FMA differently). K1's and K3's
+     plain versions run in their kernels' chunk order
+     (kernels.PHASE1_AGGREGATE_CHUNKS). K3 and its plain version are both
+     fed K1's run aggregates; K1's block aggregates and its run aggregates
+     are each held on the lml partials the plain phases compute downstream
+     of them. K1-K3 are also held at phase 4's two ragged shapes, and K2
+     alone at B = 1 and 5000 blocks (L = 37; more blocks than its cluster's
+     2048 lanes take several rounds of its scan) on aggregates that the
+     plain K1 makes.
   4. Each forward-mode kernel (K4 phase1_jvp, K5 phase2_jvp_starts, K6
      phase3_jvp_lml) against its plain version (PyTorch's forward-mode
      autodiff of the plain loops) at the training path's shapes (the same
@@ -153,10 +159,13 @@ N_C1 = 10_000
 N_TRAIN_NEW, N_PRED_NEW = 2_000, 500
 KERNEL_RTOL = {"float64": 1e-10, "float32": 1e-4}
 
-# Ragged (L, B) of the chunked kernels (K1, K4, K6, K7, K8, K10) beside the
-# main shapes: L not a multiple of the chunk counts, and fewer steps than
+# Ragged (L, B) of the chunked kernels (K1, K3, K4, K6, K7, K8, K10) beside
+# the main shapes: L not a multiple of the chunk counts, and fewer steps than
 # chunks.
 RAGGED_SHAPES = ((37, 96), (1, 96))
+# (L, B) at which K2 is held alone beside the main and ragged shapes: one
+# block, and more blocks than the 2048 lanes of its cluster.
+PHASE2_SHAPES = ((37, 1), (37, 5000))
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): device memory rate,
 # and arithmetic outside the tensor cores (float64 is half the float32 rate).
@@ -378,6 +387,7 @@ def main():
         kernels._library()
         print(f"  built {os.path.relpath(path, HERE)} in {time.perf_counter() - t0:.1f} s")
         smoke.record["chunks"] = {"phase1_aggregate": kernels.PHASE1_AGGREGATE_CHUNKS,
+                                  "phase3_lml": kernels.PHASE1_AGGREGATE_CHUNKS,
                                   "phase1_jvp": kernels.PHASE1_JVP_CHUNKS,
                                   "phase3_jvp_lml": kernels.PHASE1_JVP_CHUNKS,
                                   "phase3_states": kernels.PHASE3_STATES_CHUNKS,
@@ -424,10 +434,46 @@ def main():
         the end of the last block."""
         rng = np.random.default_rng(SEED + L)
         s = np.full((L, B), NOISE)
-        s[min(5, L - 1), 7] = 1e15
+        s[min(5, L - 1), min(7, B - 1)] = 1e15
         s[max(L - 2, 0):, B - 1] = 1e15
         return (torch.as_tensor(rng.standard_normal((L, B)), dtype=dtypes[name], device=DEVICE),
                 torch.as_tensor(s, dtype=dtypes[name], device=DEVICE))
+
+    def compare_values(name, y, s, packed, m0, P0, shape=None):
+        """K1-K3 against their plain versions (K1's and K3's in their chunk
+        order) on the same inputs, each held on the lml partials downstream:
+        K1's block aggregates and run aggregates, K2's starts, and K3 fed
+        K1's run aggregates."""
+        C = kernels.PHASE1_AGGREGATE_CHUNKS
+        p1, p_runs = kernels.phase1_aggregate_plain(y, s, packed, D, chunks=C)
+        p2 = kernels.phase2_starts_plain(p1, m0, P0, D)
+        p3 = kernels.phase3_lml_plain(y, s, packed, p2, D, p_runs)
+        k1, k_runs = kernels.phase1_aggregate(y, s, packed, D)
+        k2 = kernels.phase2_starts(p1, m0, P0, D)
+        k3 = kernels.phase3_lml(y, s, packed, p2, D, k_runs)
+        torch.cuda.synchronize()
+        via_k1 = kernels.phase3_lml_plain(
+            y, s, packed, kernels.phase2_starts_plain(k1, m0, P0, D), D, p_runs)
+        via_k_runs = kernels.phase3_lml_plain(y, s, packed, p2, D, k_runs)
+        via_k2 = kernels.phase3_lml_plain(y, s, packed, k2, D, p_runs)
+        record_comparison("phase1_aggregate", name, k1, p1, via_k1, p3, shape=shape)
+        record_comparison("phase1_aggregate", name, k_runs, p_runs, via_k_runs, p3, shape=shape,
+                          part="runs")
+        record_comparison("phase2_starts", name, k2, p2, via_k2, p3, shape=shape)
+        record_comparison("phase3_lml", name, k3, via_k_runs, k3, via_k_runs, shape=shape)
+
+    def compare_phase2(name, packed, m0, P0, shape):
+        """K2 alone on the aggregates that the plain K1 makes from (L, B)
+        streams, held on the lml partials downstream."""
+        y, s = ragged_streams(name, *shape)
+        p1, p_runs = kernels.phase1_aggregate_plain(y, s, packed, D,
+                                                    chunks=kernels.PHASE1_AGGREGATE_CHUNKS)
+        p2 = kernels.phase2_starts_plain(p1, m0, P0, D)
+        k2 = kernels.phase2_starts(p1, m0, P0, D)
+        torch.cuda.synchronize()
+        record_comparison("phase2_starts", name, k2, p2,
+                          kernels.phase3_lml_plain(y, s, packed, k2, D, p_runs),
+                          kernels.phase3_lml_plain(y, s, packed, p2, D, p_runs), shape=shape)
 
     def phase_compare():
         for name in dtypes:
@@ -435,31 +481,11 @@ def main():
             L, B = y_main.shape
             smoke.record["shapes"] = {"L": L, "B": B, "D": D, "k": k}
             print(f"  {name}: L={L} B={B} D={D}")
-            p1 = kernels.phase1_aggregate_plain(y_main, s_main, packed, D,
-                                                chunks=kernels.PHASE1_AGGREGATE_CHUNKS)
-            p2 = kernels.phase2_starts_plain(p1, m0, P0, D)
-            p3 = kernels.phase3_lml_plain(y_main, s_main, packed, p2, D)
-            k1 = kernels.phase1_aggregate(y_main, s_main, packed, D)
-            k2 = kernels.phase2_starts(p1, m0, P0, D)
-            k3 = kernels.phase3_lml(y_main, s_main, packed, p2, D)
-            torch.cuda.synchronize()
-            via_k1 = kernels.phase3_lml_plain(
-                y_main, s_main, packed, kernels.phase2_starts_plain(k1, m0, P0, D), D)
-            via_k2 = kernels.phase3_lml_plain(y_main, s_main, packed, k2, D)
-            record_comparison("phase1_aggregate", name, k1, p1, via_k1, p3)
-            record_comparison("phase2_starts", name, k2, p2, via_k2, p3)
-            record_comparison("phase3_lml", name, k3, p3, k3, p3)
+            compare_values(name, y_main, s_main, packed, m0, P0)
             for shape in RAGGED_SHAPES:
-                y_r, s_r = ragged_streams(name, *shape)
-                p1 = kernels.phase1_aggregate_plain(y_r, s_r, packed, D,
-                                                    chunks=kernels.PHASE1_AGGREGATE_CHUNKS)
-                p3 = kernels.phase3_lml_plain(
-                    y_r, s_r, packed, kernels.phase2_starts_plain(p1, m0, P0, D), D)
-                k1 = kernels.phase1_aggregate(y_r, s_r, packed, D)
-                torch.cuda.synchronize()
-                via_k1 = kernels.phase3_lml_plain(
-                    y_r, s_r, packed, kernels.phase2_starts_plain(k1, m0, P0, D), D)
-                record_comparison("phase1_aggregate", name, k1, p1, via_k1, p3, shape=shape)
+                compare_values(name, *ragged_streams(name, *shape), packed, m0, P0, shape=shape)
+            for shape in PHASE2_SHAPES:
+                compare_phase2(name, packed, m0, P0, shape)
 
     # ---- 4. forward-mode kernels against their plain versions ------------
     def jvp_inputs(name):
@@ -679,7 +705,7 @@ def main():
             y_main, s_main, packed, m0, P0 = main_inputs(name)
             _, _, rows, priors = jvp_inputs(name)
             L, B = y_main.shape
-            comps = kernels.phase1_aggregate(y_main, s_main, packed, D)
+            comps, runs = kernels.phase1_aggregate(y_main, s_main, packed, D)
             starts = kernels.phase2_starts(comps, m0, P0, D)
             jcomps, jruns = kernels.phase1_jvp(y_main, s_main, rows, D, k)
             jstarts = kernels.phase2_jvp_starts(jcomps, priors, D, k)
@@ -694,8 +720,8 @@ def main():
                     lambda: kernels.phase2_starts(comps, m0, P0, D),
                     lambda: kernels.phase2_starts_plain(comps, m0, P0, D)),
                 "phase3_lml": (
-                    lambda: kernels.phase3_lml(y_main, s_main, packed, starts, D),
-                    lambda: kernels.phase3_lml_plain(y_main, s_main, packed, starts, D)),
+                    lambda: kernels.phase3_lml(y_main, s_main, packed, starts, D, runs),
+                    lambda: kernels.phase3_lml_plain(y_main, s_main, packed, starts, D, runs)),
                 "phase1_jvp": (
                     lambda: kernels.phase1_jvp(y_main, s_main, rows, D, k),
                     lambda: kernels.phase1_jvp_plain(y_main, s_main, rows, D, k,
@@ -880,7 +906,7 @@ def main():
         for name in dtypes:
             y_main, s_main, packed, m0, P0 = main_inputs(name)
             starts = kernels.phase2_starts(
-                kernels.phase1_aggregate(y_main, s_main, packed, D), m0, P0, D)
+                kernels.phase1_aggregate(y_main, s_main, packed, D)[0], m0, P0, D)
             params, am0, aP0 = affine_inputs(name)
             L, B = y_main.shape
             print(f"  {name}: L={L} B={B} D={D}, affine rows {tuple(params.shape)}")
@@ -894,7 +920,7 @@ def main():
                 y_r, s_r = ragged_streams(name, *shape)
                 r_starts = kernels.phase2_starts_plain(
                     kernels.phase1_aggregate_plain(y_r, s_r, packed, D,
-                                                   chunks=kernels.PHASE1_AGGREGATE_CHUNKS),
+                                                   chunks=kernels.PHASE1_AGGREGATE_CHUNKS)[0],
                     m0, P0, D)
                 p7 = kernels.phase3_states_plain(y_r, s_r, packed, r_starts, D,
                                                  chunks=kernels.PHASE3_STATES_CHUNKS)
@@ -992,7 +1018,7 @@ def main():
             y_main, s_main, packed, m0, P0 = main_inputs(name)
             L, B = y_main.shape
             starts = kernels.phase2_starts(
-                kernels.phase1_aggregate(y_main, s_main, packed, D), m0, P0, D)
+                kernels.phase1_aggregate(y_main, s_main, packed, D)[0], m0, P0, D)
             params, am0, aP0 = affine_inputs(name)
             agg, aruns = kernels.affine_phase1(params, D)
             astarts = kernels.affine_phase2_starts(agg, am0, aP0, D)

@@ -1,15 +1,18 @@
 """Chunk counts and thread-block shapes of the port's chunked kernels on one
-CUDA card: K1 (phase1_aggregate), K4 (phase1_jvp), K6 (phase3_jvp_lml), K7
-(phase3_states), K8 (affine_phase1) and K10 (affine_phase3_states).
+CUDA card: K1 (phase1_aggregate), K3 (phase3_lml), K4 (phase1_jvp), K6
+(phase3_jvp_lml), K7 (phase3_states), K8 (affine_phase1) and K10
+(affine_phase3_states); and the cluster and thread-block shape of the scan
+K2 (phase2_starts).
 
     python3 probes/torch_chunk_sweep.py [--parent DIR] [--only NAME ...]
     python3 probes/torch_chunk_sweep.py --sass [--only NAME ...]
 
 Builds each variant from a copy of temporalgps_torch/csrc/ with the
-kernel's constants rewritten (K1: kPhase1AggregateChunks and
-kPhase1AggregateWarps; K4 and K6: kPhase1JvpChunks and kPhase1JvpWarps; K7:
-kPhase3StatesChunks and kPhase3StatesWarps; K8: kAffineChunks and
-kAffinePrefetch; K10: kAffinePhase3Warps and kAffinePrefetch), one nvcc per
+kernel's constants rewritten (K1 and K3: kPhase1AggregateChunks and
+kPhase1AggregateWarps; K2: kPhase2Cluster, kPhase2Warps and kPhase2Fold;
+K4 and K6: kPhase1JvpChunks and kPhase1JvpWarps; K7: kPhase3StatesChunks
+and kPhase3StatesWarps; K8: kAffineChunks and kAffinePrefetch; K10:
+kAffinePhase3Warps and kAffinePrefetch), one nvcc per
 variant, all started together; checks that every variant gives the default
 build's output (each row relative to its largest entry: 1e-10 in float64;
 in float32 only 1e-2, since the order of the combines, which the chunk
@@ -18,14 +21,15 @@ times each at the main path's shapes (D = 3, k = 3, B = 2048, L = 489:
 N = 1M), float32 and float64, on synthetic inputs: CUDA events, median of 5
 batches of 10 calls, the variants in turn, twice over; then each kernel's
 device time per call under torch.profiler over 10 calls (which leaves out
-the host's time between back-to-back launches). K6 and K10 are fed run
-aggregates and starts from the plain versions (K4's and K8's runs at their
-chunk count). With --parent, DIR/temporalgps_torch/csrc/ (a checkout of an
+the host's time between back-to-back launches). K3, K6 and K10 are fed run
+aggregates and starts from the plain versions (K1's, K4's and K8's runs at
+their chunk count), K2 the plain K1's block aggregates. With --parent,
+DIR/temporalgps_torch/csrc/ (a checkout of an
 earlier commit) is built too and timed first and last in each round; each
 build's entries take the pointers and ints that its own
-temporalgps_torch/ops/kernels.py lists (K4 and K8 with or without a
-run-aggregate output, K6 and K10 with or without the run aggregates and a
-chunk count). --only limits the sweep to the named kernels. Prints the
+temporalgps_torch/ops/kernels.py lists (K1, K4 and K8 with or without a
+run-aggregate output, K3, K6 and K10 with or without the run aggregates
+and a chunk count). --only limits the sweep to the named kernels. Prints the
 card's name and power limit, each variant's ptxas registers, spills and
 shared memory at D = 3, and one JSON line of the times.
 
@@ -53,8 +57,9 @@ sys.path.insert(0, str(HERE))
 
 L_MAIN, B_MAIN, D, K_TANGENTS = 489, 2048, 3, 3
 
-# Each kernel: its source, the Python constant of its chunk count, the
-# kernel's two constants (the first the chunk count), and its variants
+# Each kernel: its source, the Python constant of its chunk count (None for
+# K2, which has none), the kernel's constants (the first the chunk count),
+# and its variants
 # (label, {constant: value}); the first variant is the default build, the
 # reference of the agreement check. K1, K4, K7: chunk count C and warps a
 # thread block W (a cluster holds C / W thread blocks; W = 16 caps a thread
@@ -62,7 +67,11 @@ L_MAIN, B_MAIN, D, K_TANGENTS = 489, 2048, 3, 3
 # ahead (U); C = 32 does not fit, K8's hand-over slots being static shared
 # memory (48 KB at most). K6 and K10 replay K4's and K8's runs, so their C
 # is those kernels' (16 here): K6 varies W as K4, K10 its warps a thread
-# block (the warps share nothing) and U.
+# block (the warps share nothing) and U. K3 replays K1's runs and varies W
+# as K1 (W = 16: one thread block of 16 warps, 128 registers a thread). K2:
+# thread blocks of its cluster NB, warps a thread block W, and aggregates a
+# lane folds before the scan F (NB W 32 F lanes' worth a round: 2048 in one
+# round, but for W4_F1's two rounds).
 SWEEP = {
     "phase1_aggregate": ("block_phases.cu", "PHASE1_AGGREGATE_CHUNKS",
                          ("kPhase1AggregateChunks", "kPhase1AggregateWarps"),
@@ -71,6 +80,16 @@ SWEEP = {
                           ("C32_W8", {"kPhase1AggregateChunks": 32}),
                           ("C32_W16", {"kPhase1AggregateChunks": 32,
                                        "kPhase1AggregateWarps": 16})]),
+    "phase2_starts": ("block_phases.cu", None,
+                      ("kPhase2Cluster", "kPhase2Warps", "kPhase2Fold"),
+                      [("NB8_W8_F1", {}), ("NB8_W4_F2", {"kPhase2Warps": 4, "kPhase2Fold": 2}),
+                       ("NB8_W4_F1", {"kPhase2Warps": 4}),
+                       ("NB4_W16_F1", {"kPhase2Cluster": 4, "kPhase2Warps": 16}),
+                       ("NB4_W8_F2", {"kPhase2Cluster": 4, "kPhase2Fold": 2}),
+                       ("NB1_W8_F8", {"kPhase2Cluster": 1, "kPhase2Fold": 8})]),
+    "phase3_lml": ("block_phases.cu", "PHASE1_AGGREGATE_CHUNKS",
+                   ("kPhase1AggregateChunks", "kPhase1AggregateWarps"),
+                   [("C16_W8", {}), ("C16_W16", {"kPhase1AggregateWarps": 16})]),
     "phase1_jvp": ("block_phases_jvp.cu", "PHASE1_JVP_CHUNKS",
                    ("kPhase1JvpChunks", "kPhase1JvpWarps"),
                    [("C16_W8", {}), ("C8_W8", {"kPhase1JvpChunks": 8}),
@@ -200,7 +219,7 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--parent", type=Path, help="checkout of an earlier commit to time beside")
     parser.add_argument("--only", nargs="+", choices=sorted(SWEEP), default=sorted(SWEEP),
-                        help="the kernels to sweep (default: all six)")
+                        help="the kernels to sweep (default: all eight)")
     parser.add_argument("--sass", action="store_true",
                         help="count the instructions in each kernel's loops instead")
     args = parser.parse_args()
@@ -231,7 +250,7 @@ def main():
     own_py = (csrc.parent / "ops" / "kernels.py").read_text()
     jobs, chunk_arg, signature = [], {}, {}
     for kname in args.only:
-        source, py_const, (c_const, _), variants = SWEEP[kname]
+        source, py_const, (c_const, *_), variants = SWEEP[kname]
         if args.parent:
             label = f"{kname} parent"
             parent_csrc = args.parent / "temporalgps_torch" / "csrc"
@@ -242,7 +261,8 @@ def main():
         for label, consts in variants:
             jobs.append((f"{kname} {label}", csrc, source, consts))
             signature[f"{kname} {label}"] = entry_args(own_py, kname)
-            chunk_arg[f"{kname} {label}"] = consts.get(c_const, getattr(kernels, py_const))
+            chunk_arg[f"{kname} {label}"] = consts.get(
+                c_const, getattr(kernels, py_const) if py_const else None)
     kernels.BUILD_DIR.mkdir(exist_ok=True)
     out_dir, built = build_all(jobs, kernels)
     for label, (_, log) in built.items():
@@ -280,9 +300,10 @@ def main():
                                     to(0.1 * rng.standard_normal()),
                                     to(0.1 * rng.standard_normal()), dtype)
               for _ in range(k))])
-        starts = kernels.phase2_starts_plain(
-            kernels.phase1_aggregate_plain(y, s, packed, D, chunks=kernels.PHASE1_AGGREGATE_CHUNKS),
-            to(np.zeros(D)), to(np.eye(D)), D)
+        agg, runs = kernels.phase1_aggregate_plain(y, s, packed, D,
+                                                   chunks=kernels.PHASE1_AGGREGATE_CHUNKS)
+        prior = torch.cat([to(np.zeros(D)), to(np.eye(D)).reshape(-1)])
+        starts = kernels.phase2_starts_plain(agg, to(np.zeros(D)), to(np.eye(D)), D)
         priors = torch.stack([torch.cat([to(np.zeros(D)), to(np.eye(D)).reshape(-1)]),
                               *(torch.cat([to(0.1 * rng.standard_normal(D)),
                                            to(0.01 * sym(rng.standard_normal((D, D)))).reshape(-1)])
@@ -303,7 +324,12 @@ def main():
         # (C of them) from one without.
         calls_of = {
             "phase1_aggregate": lambda n, C: (
-                [y, s, packed, out := empty(kernels.elem_rows(D), B)], [L, B, D], out),
+                [y, s, packed, out := empty(kernels.elem_rows(D), B)]
+                + [empty(C, kernels.elem_rows(D), B)] * (n == 5), [L, B, D], out),
+            "phase2_starts": lambda n, C: (
+                [agg, prior, out := empty(kernels.state_rows(D), B)], [B, D], out),
+            "phase3_lml": lambda n, C: (
+                [y, s, packed, starts] + [runs] * (n == 6) + [out := empty(B)], [L, B, D], out),
             "phase1_jvp": lambda n, C: (
                 [y, s, rows, out := empty(KJ, B)] + [empty(C, KJ, B)] * (n == 5),
                 [L, B, D, k], out),

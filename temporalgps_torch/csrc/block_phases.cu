@@ -21,12 +21,32 @@
 // combined in order in a log2(C)-level tree: C times the warps in flight and
 // a serial chain of ceil(L / C) steps instead of L. The C warps of 32 blocks
 // are a cluster of C / kPhase1AggregateWarps thread blocks, whose last tree
-// levels go through distributed shared memory.
+// levels go through distributed shared memory. Before the tree each warp
+// stores its chunk's aggregate, which K3 reads.
 //
-// K3 runs one thread per block and is bound by the latency of its serial
-// per-block recursion: at B = 2048 blocks there are only 2048 threads. A
-// thread block of one warp spreads those warps over as many SMs as there
-// are warps, one scheduler each. K2 is one thread block (see below).
+// K3 is bound on paper by operations (215 flops a step at D = 3), and one
+// thread a block left it bound by the latency of an L-step serial recursion
+// on 64 warps. The recursion is not associative, but a run of it can start
+// on its own once its start state is known, and K1's run aggregates give
+// that: K1 stores each warp's run aggregate before its tree, and K3 takes
+// K1's grid and cluster, warp c of 32 blocks pushing the block's start
+// through the aggregates of runs 0 .. c-1 (state-only combines, apply_elem)
+// and replaying the Kalman recursion over run c; the C run sums are added
+// in run order across the cluster. K6 (block_phases_jvp.cu) does the same
+// with a tangent.
+//
+// K2 is a scan of B aggregates of K values: 270 KB in float32 at B = 2048,
+// a bytes bound of 0.1 us, and a dependent chain of combines whatever the
+// schedule. Its time is that chain's depth, and the trips to memory inside
+// it. So each lane holds one aggregate (lane i of warp w of cluster rank z
+// takes block 32 (W z + w) + i, every row read one coalesced access, all
+// rows loaded before the first combine) and the scan is a Kogge-Stone at
+// three levels, each in log2 steps: across the 32 lanes of a warp in
+// register shuffles, across the W warp totals of a thread block through its
+// shared memory, and across the cluster's thread-block totals through
+// distributed shared memory. At B = 2048 one cluster of 8 thread blocks of
+// 8 warps holds every aggregate: 5 + 3 + 3 dependent combines and 3
+// state-only ones to finish, on 8 SMs.
 
 #include <cooperative_groups.h>
 
@@ -34,11 +54,11 @@
 
 namespace tgps {
 
-constexpr int kLaneThreads = 32;   // K1: lanes a warp; K3: one warp per thread block
-constexpr int kScanThreads = 128;  // K2: threads of the single thread block
-// K1: chunks of every block's steps, one per warp, and warps per thread
-// block; a cluster of C / W thread blocks holds a block's C warps.
-// ops/kernels.py passes its PHASE1_AGGREGATE_CHUNKS at the launch; the two must agree.
+constexpr int kLaneThreads = 32;  // lanes a warp; a lane takes one block
+// K1 and K3 (which replays K1's chunks): chunks of every block's steps, one
+// per warp, and warps per thread block; a cluster of C / W thread blocks
+// holds a block's C warps. ops/kernels.py passes its PHASE1_AGGREGATE_CHUNKS
+// at both launches; the two must agree.
 constexpr int kPhase1AggregateChunks = 16;
 constexpr int kPhase1AggregateWarps = 8;
 constexpr int kPhase1AggregateCluster = kPhase1AggregateChunks / kPhase1AggregateWarps;
@@ -46,6 +66,19 @@ static_assert((kPhase1AggregateWarps & (kPhase1AggregateWarps - 1)) == 0 &&
               (kPhase1AggregateCluster & (kPhase1AggregateCluster - 1)) == 0 &&
               kPhase1AggregateCluster * kPhase1AggregateWarps == kPhase1AggregateChunks,
               "the chunk tree takes 2^n chunks, W a thread block, 2^m thread blocks a cluster");
+// K2: thread blocks of its one cluster, warps a thread block, and the
+// aggregates a lane folds before the scan (1: one aggregate a lane). A
+// round of the scan covers kPhase2RoundSize aggregates; a larger B takes
+// several rounds in order, each seeded with the state the earlier ones end
+// in. A float64 element at D = 3 is 66 registers, so 8 warps (255
+// registers a thread) is the largest thread block that holds two.
+constexpr int kPhase2Cluster = 8;
+constexpr int kPhase2Warps = 8;
+constexpr int kPhase2Fold = 1;
+constexpr int kPhase2RoundSize = kPhase2Cluster * kPhase2Warps * kLaneThreads * kPhase2Fold;
+static_assert((kPhase2Cluster & (kPhase2Cluster - 1)) == 0 && kPhase2Cluster <= 8 &&
+              (kPhase2Warps & (kPhase2Warps - 1)) == 0 && kPhase2Warps <= kLaneThreads,
+              "the scan levels take 2^n warps a thread block, 2^m thread blocks a cluster of <= 8");
 
 // Shared memory of K1's chunk tree: at each level half of the remaining
 // warps hand their aggregates to the warp on their left, so W / 2 slots of
@@ -60,18 +93,20 @@ constexpr int phase1_aggregate_shared_bytes() {
 // takes chunk c = z W + w: steps [c Lc, min((c+1) Lc, L)), Lc = ceil(L / C),
 // of block b = 32x + lane, folded from the identity element (an empty chunk
 // stays that; a lane past the last block folds nothing but meets every
-// barrier). The C chunk aggregates are then combined in a log2(C)-level
-// tree, earlier chunk always on the left (combine is not commutative): at
-// span 1, 2, 4, ..., chunk c with c % 2span == span hands its aggregate to
-// chunk c - span, which combines it on the right of its own. The levels
-// inside a thread block go through its shared memory, those across thread
-// blocks through the cluster's (warp 0 of rank z reads rank z + span's
-// slot). Warp 0 of rank 0 ends with the block's aggregate.
+// barrier), and stores the chunk's aggregate to chunk_out. The C chunk
+// aggregates are then combined in a log2(C)-level tree, earlier chunk
+// always on the left (combine is not commutative): at span 1, 2, 4, ...,
+// chunk c with c % 2span == span hands its aggregate to chunk c - span,
+// which combines it on the right of its own. The levels inside a thread
+// block go through its shared memory, those across thread blocks through
+// the cluster's (warp 0 of rank z reads rank z + span's slot). Warp 0 of
+// rank 0 ends with the block's aggregate.
 template <typename T, int D>
 __global__ void __cluster_dims__(1, 1, kPhase1AggregateCluster)
 __launch_bounds__(kLaneThreads * kPhase1AggregateWarps)
 phase1_aggregate_kernel(const T* __restrict__ y, const T* __restrict__ s,
-                        const T* __restrict__ params, T* __restrict__ out, int L, int B) {
+                        const T* __restrict__ params, T* __restrict__ out,
+                        T* __restrict__ chunk_out, int L, int B) {
   constexpr int C = kPhase1AggregateChunks;
   constexpr int W = kPhase1AggregateWarps;
   constexpr int kSlotStride = (W > 1 ? W / 2 : 1) * kLaneThreads;  // row stride of the slots
@@ -88,6 +123,8 @@ phase1_aggregate_kernel(const T* __restrict__ y, const T* __restrict__ s,
   const int hi = b < B ? min(lo + Lc, L) : lo;  // a lane past the last block folds nothing
   const int col = min(b, B - 1);
   Elem<T, D> acc = fold_steps(p, y + col, s + col, lo, hi, B);
+  if (b < B)
+    store_elem(acc, chunk_out + static_cast<long long>(z * W + w) * Dims<D>::kElem * B + b, B);
 #pragma unroll 1
   for (int span = 1; span < W; span *= 2) {
     T* slot = handed + (w / (2 * span)) * kLaneThreads + lane;
@@ -112,75 +149,153 @@ phase1_aggregate_kernel(const T* __restrict__ y, const T* __restrict__ s,
 
 // Exclusive prefix of the B block aggregates, seeded with the prior element
 // (0, m0, P0, 0, 0): starts[b] = prior ∘ agg_0 ∘ ... ∘ agg_{b-1}, written as
-// (m, P) rows. combine is associative but not commutative, so every step
+// (m, P) rows. combine is associative but not commutative, so every level
 // keeps the earlier operand on the left.
 //
-// The reference holds all (K, B) aggregates in TPU VMEM; at B = 2048 in
-// double that is 540 KB, above the 227 KB of shared memory a block may have.
-// So the scan is two-level: (1) each thread folds a contiguous run of
-// ceil(B / kScanThreads) aggregates; (2) an inclusive Hillis-Steele scan of
-// the kScanThreads partials in shared memory (K x 128 values: 34 KB in
-// double at D = 3); (3) each thread re-folds its run from its exclusive
-// prefix, seeded with the prior, writing each block's start on the way.
+// One cluster of NB thread blocks of W warps; round r covers the
+// kPhase2RoundSize aggregates from r kPhase2RoundSize on, thread
+// t = 32 (W z + w) + lane of the cluster taking the F = kPhase2Fold
+// consecutive ones from r kPhase2RoundSize + F t (with F = 1 a warp's loads
+// are one coalesced access a row). A lane past B holds the identity element
+// and meets every barrier. In each round: (1) each thread folds its F
+// aggregates; (2) an inclusive Kogge-Stone across the warp's lanes in
+// shuffles; (3) warp 0 scans the W warp totals from shared memory; (4)
+// warp 0 of every thread block scans the NB thread-block totals that it
+// reads from the cluster's shared memory; (5) each thread forms its start
+// as the state part of carry ∘ blocks_{<z} ∘ warps_{<w} ∘ lanes_{<lane},
+// applied left to right (apply_elem), where carry is the prior pushed
+// through the earlier rounds' totals, and pushes it through its F
+// aggregates, storing each block's start on the way.
 template <typename T, int D>
-__global__ void __launch_bounds__(kScanThreads)
+__global__ void __cluster_dims__(kPhase2Cluster, 1, 1)
+__launch_bounds__(kLaneThreads * kPhase2Warps)
 phase2_starts_kernel(const T* __restrict__ comps, const T* __restrict__ prior,
                      T* __restrict__ starts, int B) {
-  __shared__ T partials[Dims<D>::kElem * kScanThreads];
-  const int t = threadIdx.x;
-  const int run = (B + kScanThreads - 1) / kScanThreads;
-  const int lo = min(t * run, B);
-  const int hi = min(lo + run, B);
-
-  Elem<T, D> own = identity_elem<T, D>();
-  for (int b = lo; b < hi; ++b) own = combine(own, load_elem<T, D>(comps + b, B));
-
-  store_elem(own, partials + t, kScanThreads);
-  __syncthreads();
-  for (int offset = 1; offset < kScanThreads; offset <<= 1) {
-    Elem<T, D> next = own;
-    if (t >= offset) next = combine(load_elem<T, D>(partials + (t - offset), kScanThreads), own);
+  constexpr int W = kPhase2Warps;
+  constexpr int NB = kPhase2Cluster;
+  constexpr int F = kPhase2Fold;
+  __shared__ T warp_incl[Dims<D>::kElem * W];     // inclusive prefix of the warp totals
+  __shared__ T block_total[Dims<D>::kElem];       // this thread block's total
+  __shared__ T cluster_incl[Dims<D>::kElem * NB];  // inclusive prefix of the block totals
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  const int z = static_cast<int>(cluster.block_rank());
+  const int lane = threadIdx.x % kLaneThreads;
+  const int w = threadIdx.x / kLaneThreads;
+  Vec<T, D> carry_m;
+  Mat<T, D> carry_P;
+  load_state(prior, 1, carry_m, carry_P);
+  const int rounds = (B + kPhase2RoundSize - 1) / kPhase2RoundSize;
+#pragma unroll 1
+  for (int r = 0; r < rounds; ++r) {
+    const int first = r * kPhase2RoundSize + F * ((z * W + w) * kLaneThreads + lane);
+    Elem<T, D> e = identity_elem<T, D>();
+    if (first < B) e = load_elem<T, D>(comps + first, B);
+#pragma unroll
+    for (int f = 1; f < F; ++f)
+      if (first + f < B) e = combine(e, load_elem<T, D>(comps + first + f, B));
+    e = warp_scan(e, lane, kLaneThreads);
+    const Elem<T, D> lanes_before = shfl_up_elem(e, 1);  // for lane > 0
+    if (lane == kLaneThreads - 1) store_elem(e, warp_incl + w, W);
     __syncthreads();
-    own = next;
-    store_elem(own, partials + t, kScanThreads);
+    if (w == 0) {
+      Elem<T, D> t = identity_elem<T, D>();
+      if (lane < W) t = load_elem<T, D>(warp_incl + lane, W);
+      t = warp_scan(t, lane, W);
+      if (lane < W) store_elem(t, warp_incl + lane, W);
+      if (lane == W - 1) store_elem(t, block_total, 1);
+    }
+    cluster.sync();
+    if (w == 0) {
+      Elem<T, D> t = identity_elem<T, D>();
+      if (lane < NB) t = load_elem<T, D>(cluster.map_shared_rank(block_total, lane), 1);
+      t = warp_scan(t, lane, NB);
+      if (lane < NB) store_elem(t, cluster_incl + lane, NB);
+    }
     __syncthreads();
-  }
-
-  Elem<T, D> state;
-  state.A = zeros_mat<T, D>();
-  load_state(prior, 1, state.b, state.C);
-  state.eta = zeros_vec<T, D>();
-  state.J = zeros_mat<T, D>();
-  if (t > 0) state = combine(state, load_elem<T, D>(partials + (t - 1), kScanThreads));
-  for (int b = lo; b < hi; ++b) {
-    store_state(state.b, state.C, starts + b, B);
-    state = combine(state, load_elem<T, D>(comps + b, B));
+    Vec<T, D> m = carry_m;
+    Mat<T, D> P = carry_P;
+    if (z > 0) apply_elem(m, P, load_elem<T, D>(cluster_incl + (z - 1), NB));
+    if (w > 0) apply_elem(m, P, load_elem<T, D>(warp_incl + (w - 1), W));
+    if (lane > 0) apply_elem(m, P, lanes_before);
+#pragma unroll
+    for (int f = 0; f < F; ++f) {
+      if (first + f < B) {
+        store_state(m, P, starts + first + f, B);
+        if (f + 1 < F) apply_elem(m, P, load_elem<T, D>(comps + first + f, B));
+      }
+    }
+    if (r + 1 < rounds) apply_elem(carry_m, carry_P, load_elem<T, D>(cluster_incl + (NB - 1), NB));
+    cluster.sync();  // the shared rows stay in place until every thread block has read them
   }
 }
 
+// Warp w of the thread block of cluster rank z in cluster x takes chunk
+// c = z W + w of K1's chunks: steps [c Lc, min((c+1) Lc, L)), Lc =
+// ceil(L / C), of block b = 32x + lane. (1) It loads the block's start and
+// pushes it through K1's aggregates of chunks 0 .. c-1, left to right
+// (apply_elem: the state part of (0, m, P, 0, 0) combined with each); the
+// parameters are loaded after this, so they are not live across it. (2) It
+// runs kalman_step over its chunk, summing the lml from zero, with y and s
+// loaded one step ahead. (3) Warp 0 of rank 0 adds the C partial sums in
+// chunk order, 0 .. C-1, from its own shared memory and the other ranks',
+// and writes the block's lml. An empty chunk and a lane past the last block
+// add zero but meet both cluster barriers.
 template <typename T, int D>
-__global__ void __launch_bounds__(kLaneThreads)
+__global__ void __cluster_dims__(1, 1, kPhase1AggregateCluster)
+__launch_bounds__(kLaneThreads * kPhase1AggregateWarps)
 phase3_lml_kernel(const T* __restrict__ y, const T* __restrict__ s,
                   const T* __restrict__ params, const T* __restrict__ starts,
-                  T* __restrict__ lml, int L, int B) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const Params<T, D> p = load_params<T, D>(params);
-  Vec<T, D> m;
-  Mat<T, D> P;
-  load_state(starts + b, B, m, P);
+                  const T* __restrict__ chunk_aggs, T* __restrict__ lml, int L, int B) {
+  constexpr int C = kPhase1AggregateChunks;
+  constexpr int W = kPhase1AggregateWarps;
+  __shared__ T partials[W * kLaneThreads];  // one partial sum a thread
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  const int z = static_cast<int>(cluster.block_rank());
+  const int lane = threadIdx.x % kLaneThreads;
+  const int w = threadIdx.x / kLaneThreads;
+  const int c = z * W + w;
+  const int b = blockIdx.x * kLaneThreads + lane;
+  const int Lc = (L + C - 1) / C;
+  const int lo = min(c * Lc, L);
+  const int hi = b < B ? min(lo + Lc, L) : lo;  // a lane past the last block runs nothing
   T acc = T(0);
-  for (int l = 0; l < L; ++l) {
-    const long long i = static_cast<long long>(l) * B + b;
-    acc += kalman_step(m, P, p, s[i], y[i]);
+  if (lo < hi) {
+    // The stream values of each step are loaded one step ahead, the first
+    // step's before the start chain, so no step waits a trip to memory.
+    T s_next = s[static_cast<long long>(lo) * B + b];
+    T y_next = y[static_cast<long long>(lo) * B + b];
+    Vec<T, D> m;
+    Mat<T, D> P;
+    load_state(starts + b, B, m, P);
+    const long long chunk_stride = static_cast<long long>(Dims<D>::kElem) * B;
+#pragma unroll 1
+    for (int i = 0; i < c; ++i) apply_elem(m, P, load_elem<T, D>(chunk_aggs + i * chunk_stride + b, B));
+    const Params<T, D> p = load_params<T, D>(params);
+    for (int l = lo; l < hi; ++l) {
+      const T s_l = s_next, y_l = y_next;
+      if (l + 1 < hi) {
+        s_next = s[static_cast<long long>(l + 1) * B + b];
+        y_next = y[static_cast<long long>(l + 1) * B + b];
+      }
+      acc += kalman_step(m, P, p, s_l, y_l);
+    }
   }
-  lml[b] = acc;
+  partials[w * kLaneThreads + lane] = acc;
+  cluster.sync();
+  if (z == 0 && w == 0 && b < B) {
+    T total = T(0);
+#pragma unroll 1
+    for (int i = 0; i < C; ++i)
+      total += cluster.map_shared_rank(partials, i / W)[(i % W) * kLaneThreads + lane];
+    lml[b] = total;
+  }
+  cluster.sync();  // the other ranks' partial sums stay in place until they are read
 }
 
 inline int lane_grid(int B) { return (B + kLaneThreads - 1) / kLaneThreads; }
 
 template <typename T, int D>
-int launch_phase1_d(const T* y, const T* s, const T* params, T* out, int L, int B,
+int launch_phase1_d(const T* y, const T* s, const T* params, T* out, T* chunk_out, int L, int B,
                     cudaStream_t stream) {
   const int bytes = phase1_aggregate_shared_bytes<T, D>();
   const cudaError_t err = cudaFuncSetAttribute(
@@ -188,19 +303,19 @@ int launch_phase1_d(const T* y, const T* s, const T* params, T* out, int L, int 
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(lane_grid(B), 1, kPhase1AggregateCluster);
   phase1_aggregate_kernel<T, D><<<grid, kLaneThreads * kPhase1AggregateWarps, bytes, stream>>>(
-      y, s, params, out, L, B);
+      y, s, params, out, chunk_out, L, B);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch_phase1(const T* y, const T* s, const T* params, T* out, int L, int B, int D,
-                  int chunks, cudaStream_t stream) {
+int launch_phase1(const T* y, const T* s, const T* params, T* out, T* chunk_out, int L, int B,
+                  int D, int chunks, cudaStream_t stream) {
   if (L < 1 || B < 1 || chunks != kPhase1AggregateChunks)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (D) {
-    case 1: return launch_phase1_d<T, 1>(y, s, params, out, L, B, stream);
-    case 2: return launch_phase1_d<T, 2>(y, s, params, out, L, B, stream);
-    case 3: return launch_phase1_d<T, 3>(y, s, params, out, L, B, stream);
+    case 1: return launch_phase1_d<T, 1>(y, s, params, out, chunk_out, L, B, stream);
+    case 2: return launch_phase1_d<T, 2>(y, s, params, out, chunk_out, L, B, stream);
+    case 3: return launch_phase1_d<T, 3>(y, s, params, out, chunk_out, L, B, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -208,23 +323,27 @@ int launch_phase1(const T* y, const T* s, const T* params, T* out, int L, int B,
 template <typename T>
 int launch_phase2(const T* comps, const T* prior, T* starts, int B, int D, cudaStream_t stream) {
   if (B < 1) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int threads = kLaneThreads * kPhase2Warps;
   switch (D) {
-    case 1: phase2_starts_kernel<T, 1><<<1, kScanThreads, 0, stream>>>(comps, prior, starts, B); break;
-    case 2: phase2_starts_kernel<T, 2><<<1, kScanThreads, 0, stream>>>(comps, prior, starts, B); break;
-    case 3: phase2_starts_kernel<T, 3><<<1, kScanThreads, 0, stream>>>(comps, prior, starts, B); break;
+    case 1: phase2_starts_kernel<T, 1><<<kPhase2Cluster, threads, 0, stream>>>(comps, prior, starts, B); break;
+    case 2: phase2_starts_kernel<T, 2><<<kPhase2Cluster, threads, 0, stream>>>(comps, prior, starts, B); break;
+    case 3: phase2_starts_kernel<T, 3><<<kPhase2Cluster, threads, 0, stream>>>(comps, prior, starts, B); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch_phase3(const T* y, const T* s, const T* params, const T* starts, T* lml, int L,
-                  int B, int D, cudaStream_t stream) {
-  if (L < 1 || B < 1) return static_cast<int>(cudaErrorInvalidValue);
+int launch_phase3(const T* y, const T* s, const T* params, const T* starts, const T* chunk_aggs,
+                  T* lml, int L, int B, int D, int chunks, cudaStream_t stream) {
+  if (L < 1 || B < 1 || chunks != kPhase1AggregateChunks)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(lane_grid(B), 1, kPhase1AggregateCluster);
+  constexpr int threads = kLaneThreads * kPhase1AggregateWarps;
   switch (D) {
-    case 1: phase3_lml_kernel<T, 1><<<lane_grid(B), kLaneThreads, 0, stream>>>(y, s, params, starts, lml, L, B); break;
-    case 2: phase3_lml_kernel<T, 2><<<lane_grid(B), kLaneThreads, 0, stream>>>(y, s, params, starts, lml, L, B); break;
-    case 3: phase3_lml_kernel<T, 3><<<lane_grid(B), kLaneThreads, 0, stream>>>(y, s, params, starts, lml, L, B); break;
+    case 1: phase3_lml_kernel<T, 1><<<grid, threads, 0, stream>>>(y, s, params, starts, chunk_aggs, lml, L, B); break;
+    case 2: phase3_lml_kernel<T, 2><<<grid, threads, 0, stream>>>(y, s, params, starts, chunk_aggs, lml, L, B); break;
+    case 3: phase3_lml_kernel<T, 3><<<grid, threads, 0, stream>>>(y, s, params, starts, chunk_aggs, lml, L, B); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
@@ -235,14 +354,15 @@ int launch_phase3(const T* y, const T* s, const T* params, const T* starts, T* l
 extern "C" {
 
 int tgps_phase1_aggregate_f32(const float* y, const float* s, const float* params, float* out,
-                              int L, int B, int D, int chunks, void* stream) {
-  return tgps::launch_phase1<float>(y, s, params, out, L, B, D, chunks,
+                              float* chunk_out, int L, int B, int D, int chunks, void* stream) {
+  return tgps::launch_phase1<float>(y, s, params, out, chunk_out, L, B, D, chunks,
                                     static_cast<cudaStream_t>(stream));
 }
 
 int tgps_phase1_aggregate_f64(const double* y, const double* s, const double* params,
-                              double* out, int L, int B, int D, int chunks, void* stream) {
-  return tgps::launch_phase1<double>(y, s, params, out, L, B, D, chunks,
+                              double* out, double* chunk_out, int L, int B, int D, int chunks,
+                              void* stream) {
+  return tgps::launch_phase1<double>(y, s, params, out, chunk_out, L, B, D, chunks,
                                      static_cast<cudaStream_t>(stream));
 }
 
@@ -257,14 +377,16 @@ int tgps_phase2_starts_f64(const double* comps, const double* prior, double* sta
 }
 
 int tgps_phase3_lml_f32(const float* y, const float* s, const float* params, const float* starts,
-                        float* lml, int L, int B, int D, void* stream) {
-  return tgps::launch_phase3<float>(y, s, params, starts, lml, L, B, D,
+                        const float* chunk_aggs, float* lml, int L, int B, int D, int chunks,
+                        void* stream) {
+  return tgps::launch_phase3<float>(y, s, params, starts, chunk_aggs, lml, L, B, D, chunks,
                                     static_cast<cudaStream_t>(stream));
 }
 
 int tgps_phase3_lml_f64(const double* y, const double* s, const double* params,
-                        const double* starts, double* lml, int L, int B, int D, void* stream) {
-  return tgps::launch_phase3<double>(y, s, params, starts, lml, L, B, D,
+                        const double* starts, const double* chunk_aggs, double* lml, int L,
+                        int B, int D, int chunks, void* stream) {
+  return tgps::launch_phase3<double>(y, s, params, starts, chunk_aggs, lml, L, B, D, chunks,
                                      static_cast<cudaStream_t>(stream));
 }
 

@@ -59,7 +59,7 @@
 // some 800, and an SM holds one 8-warp thread block at K6's register count,
 // so each scheduler has two dependent chains to issue from; a cluster lasts
 // as long as its last chunk, the one with the longest start chain. K5 is
-// bound, like K2, by the latency of a serial scan.
+// bound by the latency of a serial scan.
 
 #include <cooperative_groups.h>
 
@@ -183,7 +183,7 @@ phase1_jvp_kernel(const T* __restrict__ y, const T* __restrict__ s, const T* __r
 }
 
 // Thread block j scans the primal aggregates and tangent j together, with
-// the two-level schedule of K2 (block_phases.cu), so shared memory holds two
+// a two-level schedule (as K9's, block_states.cu), so shared memory holds two
 // element sets whatever k is: 2K x 128 values, 67,584 B in double at D = 3.
 // That is above the 48 KB a kernel gets statically, hence dynamic shared
 // memory and cudaFuncAttributeMaxDynamicSharedMemorySize at the launch.

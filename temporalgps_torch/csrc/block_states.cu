@@ -38,7 +38,7 @@
 // chunks 0 .. c-1 (at most C - 1 affine steps, read from L2) and replays its
 // chunk of ceil(L / C) steps with the next step's rows loaded ahead, as K8
 // does: C times the threads, and each with a step in flight. K10's chunk
-// count is K8's (kAffineChunks). K9 is one thread block, as K2 (see below).
+// count is K8's (kAffineChunks). K9 is one thread block (see below).
 //
 // K8 is bound by bytes: it reads KT values a step and does about 180 flops
 // with them. One thread per block would keep one step of 21 rows a thread in
@@ -212,7 +212,7 @@ affine_phase1_kernel(const T* __restrict__ params, T* __restrict__ out,
 //
 // The reference holds all (KT, B) aggregates in TPU VMEM; at B = 2048 in
 // double that is 344 KB, above the 227 KB of shared memory a thread block may
-// have. So the scan is two-level, as K2's: (1) each thread folds a contiguous
+// have. So the scan is two-level: (1) each thread folds a contiguous
 // run of ceil(B / kAffineScanThreads) aggregates; (2) an inclusive
 // Hillis-Steele scan of the partials in shared memory (KT x 128 values:
 // 21.5 KB in double at D = 3); (3) each thread re-folds its run from its

@@ -418,6 +418,64 @@ __device__ __forceinline__ Elem<T, D> combine(const Elem<T, D>& ei, const Elem<T
   return out;
 }
 
+// combine with a state on the left: the element (0, m, P, 0, 0), then ej, in
+// place on (m, P). With A_i = 0, eta_i = 0 and J_i = 0 on the left the result
+// has A = 0, eta = 0 and J = 0 again, so only b and C are formed, by
+// combine's operations in its order (apply_elem_jvp without the tangent).
+template <typename T, int D>
+__device__ __forceinline__ void apply_elem(Vec<T, D>& m, Mat<T, D>& P, const Elem<T, D>& ej) {
+  const Mat<T, D> M = inv(madd(mm(P, ej.J), eye<T, D>()));
+  const Mat<T, D> AjM = mm(ej.A, M);
+  const Vec<T, D> u = vadd(m, mv(P, ej.eta));
+  const Mat<T, D> X = mm(AjM, P);
+  m = vadd(mv(AjM, u), ej.b);
+  P = sym(madd(mmT(X, ej.A), ej.C));
+}
+
+// Lane i receives lane i - delta's element of the warp (its own where
+// i < delta); every lane of the warp must take part.
+template <typename T, int D>
+__device__ __forceinline__ Mat<T, D> shfl_up_mat(const Mat<T, D>& X, int delta) {
+  Mat<T, D> out;
+#pragma unroll
+  for (int i = 0; i < D; ++i)
+#pragma unroll
+    for (int j = 0; j < D; ++j) out.m[i][j] = __shfl_up_sync(0xffffffffu, X.m[i][j], delta);
+  return out;
+}
+
+template <typename T, int D>
+__device__ __forceinline__ Vec<T, D> shfl_up_vec(const Vec<T, D>& x, int delta) {
+  Vec<T, D> out;
+#pragma unroll
+  for (int i = 0; i < D; ++i) out.v[i] = __shfl_up_sync(0xffffffffu, x.v[i], delta);
+  return out;
+}
+
+template <typename T, int D>
+__device__ __forceinline__ Elem<T, D> shfl_up_elem(const Elem<T, D>& e, int delta) {
+  Elem<T, D> out;
+  out.A = shfl_up_mat(e.A, delta);
+  out.b = shfl_up_vec(e.b, delta);
+  out.C = shfl_up_mat(e.C, delta);
+  out.eta = shfl_up_vec(e.eta, delta);
+  out.J = shfl_up_mat(e.J, delta);
+  return out;
+}
+
+// Inclusive Kogge-Stone scan of the elements of the first n lanes of a warp
+// (n a power of two, at most 32): lane i ends with e_0 ∘ ... ∘ e_i, the
+// earlier operand on the left at every level. Every lane takes part.
+template <typename T, int D>
+__device__ __forceinline__ Elem<T, D> warp_scan(Elem<T, D> e, int lane, int n) {
+#pragma unroll 1
+  for (int d = 1; d < n; d *= 2) {
+    const Elem<T, D> left = shfl_up_elem(e, d);
+    if (lane >= d) e = combine(left, e);
+  }
+  return e;
+}
+
 // Predict, scalar update (in place on m, P), and the step's log marginal
 // likelihood.
 template <typename T, int D>

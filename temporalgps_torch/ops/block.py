@@ -5,11 +5,13 @@
 Time is cut into B blocks of L steps, stored as (L, B) streams of y and of
 the noise s:
 
-  phase 1 (K1)  each block folds its L step elements into one aggregate;
+  phase 1 (K1)  each block folds its L step elements into one aggregate (and
+                keeps the aggregates of the runs of steps it folds apart);
   phase 2 (K2)  a prefix over the B aggregates, seeded with the prior, gives
                 the exact filtering state at every block start;
   phase 3 (K3)  each block runs the Kalman recursion from its start state and
-                sums its log marginal likelihood.
+                sums its log marginal likelihood (each run from the block
+                start pushed through the earlier runs' aggregates).
 
 The series is padded to B*L with steps that observe nothing (s = LARGE_VAR,
 y = 0), whose lml is the closed-form constant the compensation removes. The
@@ -169,9 +171,9 @@ def _logpdf_fused_impl(A, a, Q, H, h, s, y, m0, P0, B, phases: _Phases):
     D = m0.shape[-1]
     y_main, s_main, comp = _blocked_streams(y, s, B)
     packed = kernels.pack_params(A, a, Q, H, h, m0.dtype)
-    comps = phases.phase1_aggregate(y_main, s_main, packed, D)
+    comps, runs = phases.phase1_aggregate(y_main, s_main, packed, D)
     starts = phases.phase2_starts(comps, m0, symmetrize(P0), D)
-    return torch.sum(phases.phase3_lml(y_main, s_main, packed, starts, D)) + comp
+    return torch.sum(phases.phase3_lml(y_main, s_main, packed, starts, D, runs)) + comp
 
 
 class _LogpdfFused(torch.autograd.Function):
@@ -319,7 +321,7 @@ def _filter_state_comps(model, y, n_blocks, fused):
     y_main, s_main, _ = _blocked_streams(y, tmaterialize(e.s), B)
     packed = kernels.pack_params(t.As.value, t.offs.value, t.Qs.value, e.H.value, e.h.value,
                                  model.dtype)
-    comps = phases.phase1_aggregate(y_main, s_main, packed, D)
+    comps, _ = phases.phase1_aggregate(y_main, s_main, packed, D)
     starts = phases.phase2_starts(comps, t.x0.mean, symmetrize(t.x0.cov), D)
     return _unblock_states(phases.phase3_states(y_main, s_main, packed, starts, D), N)
 

@@ -23,9 +23,10 @@ holding the time-invariant noise tangent (unused in row 0: the noise is
 streamed). Their elements, states and lml rows are the primal set followed
 by the k tangent sets: ((1+k)*K, B), ((1+k)*SD, B), (1+k, B).
 
-K4 (phase1_jvp) and K8 (affine_phase1) also return the aggregates of the
-runs of steps their warps fold, (C, rows, B), run c first: K6
-(phase3_jvp_lml) and K10 (affine_phase3_states) start their runs from them.
+K1 (phase1_aggregate), K4 (phase1_jvp) and K8 (affine_phase1) also return
+the aggregates of the runs of steps their warps fold, (C, rows, B), run c
+first: K3 (phase3_lml), K6 (phase3_jvp_lml) and K10 (affine_phase3_states)
+start their runs from them.
 
 Each wrapper runs the plain version when its tensors are on the CPU, and
 launches its kernel when they are on a CUDA device; there is no other route.
@@ -61,10 +62,10 @@ NVCC_FLAGS = (
 _MASK_THRESH = 1e14
 # Chunks of each block's steps that K1, K4, K7 and K8 run side by side (one
 # warp each): the kernels' kPhase1AggregateChunks, kPhase1JvpChunks,
-# kPhase3StatesChunks and kAffineChunks. K6 replays K4's chunks and K10 K8's,
-# from their chunk aggregates, so each shares that count. Each launch passes
-# its constant and the kernel refuses any other, so the plain versions'
-# chunks= and the card's schedule are the same.
+# kPhase3StatesChunks and kAffineChunks. K3 replays K1's chunks, K6 K4's and
+# K10 K8's, from their chunk aggregates, so each shares that count. Each
+# launch passes its constant and the kernel refuses any other, so the plain
+# versions' chunks= and the card's schedule are the same.
 PHASE1_AGGREGATE_CHUNKS = 16
 PHASE1_JVP_CHUNKS = 16
 PHASE3_STATES_CHUNKS = 16
@@ -164,9 +165,9 @@ def build() -> Path:
 
 _ENTRY_ARGS = {
     # pointers, then ints, then the stream
-    "phase1_aggregate": (4, 4),  # y, s, params, out; L, B, D, chunks
+    "phase1_aggregate": (5, 4),  # y, s, params, out, chunk_out; L, B, D, chunks
     "phase2_starts": (3, 2),     # comps, prior, starts; B, D
-    "phase3_lml": (5, 3),        # y, s, params, starts, lml; L, B, D
+    "phase3_lml": (6, 4),        # y, s, params, starts, chunk_aggs, lml; L, B, D, chunks
     "phase1_jvp": (5, 5),         # y, s, rows, out, chunk_out; L, B, D, k, chunks
     "phase2_jvp_starts": (3, 3),  # comps, priors, starts; B, D, k
     "phase3_jvp_lml": (6, 5),     # y, s, rows, starts, chunk_aggs, lml; L, B, D, k, chunks
@@ -398,14 +399,16 @@ def _chunk_aggregates(y_blocked, s_blocked, packed, D, chunks):
 
 
 def phase1_aggregate_plain(y_blocked, s_blocked, packed, D, chunks=None):
-    """(L, B) streams -> (K, B) block aggregates: for each block, the left
-    fold of its L step elements from the identity element.
+    """(L, B) streams -> ((K, B) block aggregates, (runs, K, B) run
+    aggregates): for each block, the left fold of its L step elements from
+    the identity element, and the folds of its runs.
 
     chunks=None folds each block's L steps in one run. With `chunks` (a
     power of two; K1's is PHASE1_AGGREGATE_CHUNKS) it takes K1's schedule:
     `_chunk_aggregates`, then the run aggregates combined by `_chunk_tree`."""
     aggs = _chunk_aggregates(y_blocked, s_blocked, packed, D, chunks or 1)
-    return torch.stack(_elem_tuple_to_rows(_chunk_tree(aggs, lanes.combine)))
+    rows = lambda e: torch.stack(_elem_tuple_to_rows(e))
+    return rows(_chunk_tree(aggs, lanes.combine)), torch.stack([rows(run) for run in aggs])
 
 
 def _shift(e, k, diag=1.0):
@@ -449,17 +452,45 @@ def _prefix_starts(e, combine, seed):
     return torch.stack(_state_tuple_to_rows(b, C))
 
 
-def phase3_lml_plain(y_blocked, s_blocked, packed, starts, D):
-    """Per-block log marginal likelihood (B,): the Kalman recursion of each
-    block from its start state."""
-    L, B = y_blocked.shape
-    A, a, Q, H, h = _unpack_params(packed, D)
+def _run_starts(starts, D, aggs):
+    """(m, P) of every run side by side, (runs*B,) components, from the
+    (SD, B) block starts and the element trees of runs 0 .. runs-2: run c's
+    start the state part of (0, m_b, P_b, 0, 0) ∘ agg_0 ∘ ... ∘ agg_{c-1},
+    combined left to right (the seeding K2 does at block level)."""
     m, P = _state_rows_to_tuple(starts.unbind(0), D)
-    acc = y_blocked.new_zeros(B)
-    for y_l, s_l in zip(y_blocked.unbind(0), s_blocked.unbind(0)):
+    run_starts = [(m, P)]
+    zero = starts.new_zeros(starts.shape[1])
+    zmat = tuple(tuple(zero for _ in range(D)) for _ in range(D))
+    state = (zmat, m, P, (zero,) * D, zmat)
+    for agg in aggs:
+        state = lanes.combine(state, agg)
+        run_starts.append((state[1], state[2]))
+    return _tree_map(lambda *runs: torch.cat(runs), *run_starts)
+
+
+def phase3_lml_plain(y_blocked, s_blocked, packed, starts, D, chunk_aggs=None):
+    """Per-block log marginal likelihood (B,): the Kalman recursion of each
+    block from its start state.
+
+    chunk_aggs=None runs each block's L steps in one run from its start.
+    With `chunk_aggs`, the (runs, K, B) run aggregates that
+    `phase1_aggregate_plain(..., chunks=runs)` gives, it takes K3's
+    schedule: the steps split into runs of ceil(L / runs); run c's start by
+    `_run_starts`; every run replayed from its start, side by side as lanes,
+    a run past its last step adding nothing; and the runs' sums added in run
+    order."""
+    L, B = y_blocked.shape
+    n = 1 if chunk_aggs is None else chunk_aggs.shape[0]
+    A, a, Q, H, h = _unpack_params(packed, D)
+    aggs = [] if chunk_aggs is None else chunk_aggs[:-1]
+    m, P = _run_starts(starts, D, [_elem_rows_to_tuple(agg.unbind(0), D) for agg in aggs])
+    acc = y_blocked.new_zeros(n * B)
+    for l, (y_l, s_l) in enumerate(zip(_chunk_lanes(y_blocked, n, 0.0).unbind(0),
+                                       _chunk_lanes(s_blocked, n, 1.0).unbind(0))):
         m, P, lml = lanes.kalman_step(m, P, A, a, Q, H, h, s_l, y_l)
-        acc = acc + lml
-    return acc
+        exists = _chunk_step_exists(l, L, B, n, y_blocked)
+        acc = acc + (lml if exists is None else torch.where(exists, lml, 0.0))
+    return functools.reduce(operator.add, acc.reshape(n, B).unbind(0))
 
 
 # ---------------------------------------------------------------------------
@@ -620,22 +651,13 @@ def phase3_states_plain(y_blocked, s_blocked, packed, starts, D, chunks=None):
     chunks=None runs each block's L steps in one run from its start. With
     `chunks` (K7's is PHASE3_STATES_CHUNKS) it takes K7's schedule: the steps
     split into `chunks` runs of ceil(L / chunks); the runs' aggregates by
-    `_chunk_aggregates`; run c's start the state part of
-    (0, m_b, P_b, 0, 0) ∘ agg_0 ∘ ... ∘ agg_{c-1}, combined left to right;
-    and every run replayed from its start, side by side as lanes."""
+    `_chunk_aggregates`; run c's start by `_run_starts`; and every run
+    replayed from its start, side by side as lanes."""
     L, B = y_blocked.shape
     n = chunks or 1
     A, a, Q, H, h = _unpack_params(packed, D)
-    m, P = _state_rows_to_tuple(starts.unbind(0), D)
-    run_starts = [(m, P)]
-    if n > 1:
-        zero = starts.new_zeros(B)
-        zmat = tuple(tuple(zero for _ in range(D)) for _ in range(D))
-        state = (zmat, m, P, (zero,) * D, zmat)
-        for agg in _chunk_aggregates(y_blocked, s_blocked, packed, D, n)[:-1]:
-            state = lanes.combine(state, agg)
-            run_starts.append((state[1], state[2]))
-    m, P = _tree_map(lambda *runs: torch.cat(runs), *run_starts)
+    aggs = _chunk_aggregates(y_blocked, s_blocked, packed, D, n)[:-1] if n > 1 else []
+    m, P = _run_starts(starts, D, aggs)
     out = []
     for y_l, s_l in zip(_chunk_lanes(y_blocked, n, 0.0).unbind(0),
                         _chunk_lanes(s_blocked, n, 1.0).unbind(0)):
@@ -715,8 +737,11 @@ def affine_phase3_states_plain(params, starts, D, chunk_aggs=None):
 # w-th run of ceil(L / C) steps, and the run aggregates are combined in order
 # in shared memory, then across the cluster of thread blocks that holds the
 # C warps (`phase1_aggregate_plain(..., chunks=C)` is the same schedule).
+# Before the tree each warp stores its run aggregate, which K3 reads.
 def phase1_aggregate(y_blocked, s_blocked, packed, D):
-    """(L, B) y and noise streams -> (K, B) block aggregate elements."""
+    """(L, B) y and noise streams -> ((K, B) block aggregate elements,
+    (PHASE1_AGGREGATE_CHUNKS, K, B) run aggregates; one run on the CPU,
+    where the serial plain version runs)."""
     if _route(y_blocked, s_blocked, packed) == "cpu":
         return phase1_aggregate_plain(y_blocked, s_blocked, packed, D)
     _check_kernel_args(D, y_blocked, s_blocked, packed)
@@ -724,24 +749,28 @@ def phase1_aggregate(y_blocked, s_blocked, packed, D):
     _check_shape("packed params", packed, (param_len(D),))
     L, B = y_blocked.shape
     out = torch.empty((elem_rows(D), B), dtype=y_blocked.dtype, device=y_blocked.device)
-    _launch("phase1_aggregate", (y_blocked, s_blocked, packed, out),
+    chunk_out = out.new_empty((PHASE1_AGGREGATE_CHUNKS, *out.shape))
+    _launch("phase1_aggregate", (y_blocked, s_blocked, packed, out, chunk_out),
             (L, B, D, PHASE1_AGGREGATE_CHUNKS))
     phase1_aggregate.launches += 1
-    return out
+    return out, chunk_out
 
 
 phase1_aggregate.launches = 0
 
 
 # K2. Replaces temporalgps_tpu/ops/pallas_kernels.py phase2_starts
-# (_phase2_kernel). One thread block of 128 threads. The TPU kernel holds all
-# (K, B) aggregates in VMEM; here that would be 540 KB at B = 2048 in
-# float64, above the 227 KB of shared memory a block may have, so the scan is
-# two-level: each thread folds a contiguous run of ceil(B/128) aggregates,
-# the 128 partials are scanned in shared memory (K x 128 values, 34 KB in
-# float64), and each thread re-folds its run from its exclusive prefix,
-# seeded with the prior, writing the starts. It works for any B. Bound by
-# latency: ceil(B/128) + 7 + ceil(B/128) dependent combines on one SM.
+# (_phase2_kernel). The TPU kernel scans all (K, B) aggregates in VMEM (540
+# KB at B = 2048 in float64, above the 227 KB of shared memory a thread
+# block may have). Bound on paper by bytes (0.1 us), in practice by the
+# depth of its chain of dependent combines. So each lane of one cluster of
+# 8 thread blocks of 8 warps holds one aggregate (a warp reads 32
+# neighbouring addresses a row) and the scan is a Kogge-Stone across the
+# warp's lanes in shuffles, then across the warp totals in shared memory,
+# then across the thread-block totals in the cluster's: at B = 2048, 5 + 3
+# + 3 dependent combines and 3 state-only ones to finish, on 8 SMs. A
+# larger B is scanned in rounds of 2048 in order, each seeded with the
+# state the earlier rounds end in; any B >= 1 is taken.
 def phase2_starts(comps, x0_mean, x0_cov, D):
     """(K, B) block aggregates and the prior (m0, P0) -> (SD, B) block-start
     filtering states (mean rows, then row-major covariance rows)."""
@@ -763,28 +792,36 @@ phase2_starts.launches = 0
 
 
 # K3. Replaces temporalgps_tpu/ops/pallas_kernels.py phase3_lml
-# (_phase3_kernel). One thread per block runs the predict + scalar-update
-# recursion from its start state over its L steps and writes its summed log
-# marginal likelihood; the sum over blocks and the padding compensation stay
-# outside (ops/block.py). Bound, like K1, by the latency of the serial
-# recursion at B threads; a step is 215 dependent flops at D = 3, under a
-# third of K1's, with the same one-warp-per-block spread.
-def phase3_lml(y_blocked, s_blocked, packed, starts, D):
-    """(L, B) streams and (SD, B) start states -> (B,) per-block lml."""
-    if _route(y_blocked, s_blocked, packed, starts) == "cpu":
-        return phase3_lml_plain(y_blocked, s_blocked, packed, starts, D)
-    _check_kernel_args(D, y_blocked, s_blocked, packed, starts)
+# (_phase3_kernel). Runs the predict + scalar-update recursion of each block
+# from its start state and writes its summed log marginal likelihood; the
+# sum over blocks and the padding compensation stay outside (ops/block.py).
+# Bound by operations (215 flops a step at D = 3); one thread a block left it
+# bound by the latency of the L-step recursion on 64 warps. So it takes K1's
+# grid and cluster: warp c of 32 blocks starts run c from the block start
+# pushed through K1's run aggregates 0 .. c-1 (the state part of each
+# combine only), replays the run's ceil(L / C) steps, and the C run sums are
+# added in run order across the cluster
+# (`phase3_lml_plain(..., chunk_aggs=...)` is the same schedule).
+def phase3_lml(y_blocked, s_blocked, packed, starts, D, chunk_aggs):
+    """(L, B) streams, (SD, B) start states and the run aggregates of
+    `phase1_aggregate` -> (B,) per-block lml."""
+    if _route(y_blocked, s_blocked, packed, starts, chunk_aggs) == "cpu":
+        return phase3_lml_plain(y_blocked, s_blocked, packed, starts, D, chunk_aggs)
+    _check_kernel_args(D, y_blocked, s_blocked, packed, starts, chunk_aggs)
     _check_streams(y_blocked, s_blocked)
     _check_shape("packed params", packed, (param_len(D),))
     L, B = y_blocked.shape
     _check_shape("starts", starts, (state_rows(D), B))
+    _check_shape("chunk_aggs", chunk_aggs, (PHASE1_AGGREGATE_CHUNKS, elem_rows(D), B))
     out = torch.empty((B,), dtype=y_blocked.dtype, device=y_blocked.device)
-    _launch("phase3_lml", (y_blocked, s_blocked, packed, starts, out), (L, B, D))
+    _launch("phase3_lml", (y_blocked, s_blocked, packed, starts, chunk_aggs, out),
+            (L, B, D, PHASE1_AGGREGATE_CHUNKS))
     phase3_lml.launches += 1
     return out
 
 
 phase3_lml.launches = 0
+
 
 def _check_tangent_count(k):
     if k < 1:
@@ -838,8 +875,10 @@ phase1_jvp.launches = 0
 # K5. Replaces temporalgps_tpu/ops/pallas_kernels.py phase2_jvp_starts
 # (_phase2_jvp_kernel). The reference scans all 1+k element sets in one
 # program in VMEM; here thread block j of k scans the primal and tangent j
-# together with K2's two-level schedule, so shared memory holds two element
-# sets whatever k is (67,584 B in float64 at D = 3: dynamic shared memory,
+# together in a two-level scan (each thread folds a contiguous run of
+# ceil(B/128) aggregates, the 128 partials are scanned in shared memory, and
+# each thread re-folds its run from its prefix), so shared memory holds two
+# element sets whatever k is (67,584 B in float64 at D = 3: dynamic shared memory,
 # with the attribute raised at the launch). Bound by bytes ((1+k)(K + SD) B
 # values moved, one combine a block and tangent), and in practice by the
 # latency of 2 ceil(B/128) + 7 dependent combines.
@@ -967,7 +1006,7 @@ affine_phase1.launches = 0
 # K9. Replaces temporalgps_tpu/ops/pallas_kernels.py affine_phase2_starts
 # (_affine_phase2_kernel). The TPU kernel holds all (KT, B) aggregates in
 # VMEM (344 KB at B = 2048 in float64, above the 227 KB of shared memory a
-# thread block may have), so this is K2's two-level scan: one thread block of
+# thread block may have), so this is a two-level scan: one thread block of
 # 128 threads, each folding a contiguous run, an inclusive scan of the 128
 # partials in shared memory (KT x 128 values, 21.5 KB in float64), and each
 # thread re-folding its run from its exclusive prefix, seeded with x0. Bound

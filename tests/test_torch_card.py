@@ -27,9 +27,9 @@ def cuda_device():
 
 
 # (L, B) of the chunked kernels' card tests: B = 300 is not a multiple of the
-# thread-block sizes; L = 37 is not a multiple of K1's, K4's, K6's, K7's, K8's
-# or K10's chunk count and L = 1 is fewer steps than chunks, so some chunks
-# are ragged or empty.
+# thread-block sizes; L = 37 is not a multiple of K1's, K3's, K4's, K6's,
+# K7's, K8's or K10's chunk count and L = 1 is fewer steps than chunks, so
+# some chunks are ragged or empty.
 CHUNK_SHAPES = [(37, 300), (37, 96), (1, 96)]
 
 
@@ -38,9 +38,19 @@ def _streams_with_gaps(rng, L, B):
     the last block, padding steps."""
     y = rng.standard_normal((L, B))
     s = np.full((L, B), 0.3)
-    s[min(5, L - 1), 7] = 1e15
+    s[min(5, L - 1), min(7, B - 1)] = 1e15
     s[max(L - 2, 0):, B - 1] = 1e15
     return y, s
+
+
+def _value_inputs(rng, D, dtype, device, L, B):
+    """Streams with gaps, packed parameters and a prior for K1-K3."""
+    y, s = _streams_with_gaps(rng, L, B)
+    A = np.eye(D) * 0.9 + 0.01 * rng.standard_normal((D, D))
+    to = lambda x: torch.as_tensor(x, dtype=dtype, device=device)
+    packed = tk.pack_params(to(A), to(np.zeros(D)), to(0.1 * np.eye(D)), to(np.ones(D)),
+                            to(0.05), dtype)
+    return to(y).contiguous(), to(s).contiguous(), packed, to(np.zeros(D)), to(np.eye(D))
 
 
 @pytest.mark.cuda
@@ -48,44 +58,68 @@ def _streams_with_gaps(rng, L, B):
 @pytest.mark.parametrize("D", [1, 2, 3])
 @pytest.mark.parametrize("dtype, rtol", [(torch.float64, 1e-10), (torch.float32, 1e-4)])
 def test_kernels_match_plain_versions_on_card(cuda_device, D, dtype, rtol, L, B):
-    """Each kernel against its plain version (K1's in its own chunk order) on
-    the same inputs, held on the per-block lml downstream of it (the kernels
-    contract to FMA). A missing step, padding steps, and the shapes of
-    CHUNK_SHAPES."""
-    rng = np.random.default_rng(D)
-    y, s = _streams_with_gaps(rng, L, B)
-    A = np.eye(D) * 0.9 + 0.01 * rng.standard_normal((D, D))
-    to = lambda x: torch.as_tensor(x, dtype=dtype, device=cuda_device)
-    packed = tk.pack_params(to(A), to(np.zeros(D)), to(0.1 * np.eye(D)), to(np.ones(D)),
-                            to(0.05), dtype)
-    y_t, s_t = to(y).contiguous(), to(s).contiguous()
-    m0, P0 = to(np.zeros(D)), to(np.eye(D))
-    p1 = tk.phase1_aggregate_plain(y_t, s_t, packed, D, chunks=tk.PHASE1_AGGREGATE_CHUNKS)
+    """Each kernel against its plain version (K1's and K3's in their own
+    chunk order) on the same inputs, held on the per-block lml downstream of
+    it (the kernels contract to FMA): K1's block and run aggregates, K2's
+    starts, and K3 fed K1's run aggregates. A missing step, padding steps,
+    and the shapes of CHUNK_SHAPES."""
+    y_t, s_t, packed, m0, P0 = _value_inputs(np.random.default_rng(D), D, dtype, cuda_device,
+                                             L, B)
+    p1, p_runs = tk.phase1_aggregate_plain(y_t, s_t, packed, D,
+                                           chunks=tk.PHASE1_AGGREGATE_CHUNKS)
     p2 = tk.phase2_starts_plain(p1, m0, P0, D)
-    p3 = tk.phase3_lml_plain(y_t, s_t, packed, p2, D)
+    p3 = tk.phase3_lml_plain(y_t, s_t, packed, p2, D, p_runs)
     tk.reset_launch_counts()
-    k1 = tk.phase1_aggregate(y_t, s_t, packed, D)
+    k1, k_runs = tk.phase1_aggregate(y_t, s_t, packed, D)
     k2 = tk.phase2_starts(p1, m0, P0, D)
-    k3 = tk.phase3_lml(y_t, s_t, packed, p2, D)
+    k3 = tk.phase3_lml(y_t, s_t, packed, p2, D, k_runs)
     torch.cuda.synchronize()
     counts = tk.launch_counts()
     assert (counts["phase1_aggregate"], counts["phase2_starts"], counts["phase3_lml"]) == (1, 1, 1)
-    assert k1.shape == p1.shape
-    via_k1 = tk.phase3_lml_plain(y_t, s_t, packed, tk.phase2_starts_plain(k1, m0, P0, D), D)
-    via_k2 = tk.phase3_lml_plain(y_t, s_t, packed, k2, D)
-    scale = p3.abs().max().item()
-    for got in (via_k1, via_k2, k3):
+    assert k1.shape == p1.shape and k_runs.shape == p_runs.shape
+    via_k1 = tk.phase3_lml_plain(y_t, s_t, packed, tk.phase2_starts_plain(k1, m0, P0, D), D,
+                                 p_runs)
+    via_k_runs = tk.phase3_lml_plain(y_t, s_t, packed, p2, D, k_runs)
+    via_k2 = tk.phase3_lml_plain(y_t, s_t, packed, k2, D, p_runs)
+    for got, want in ((via_k1, p3), (via_k_runs, p3), (via_k2, p3), (k3, via_k_runs)):
         assert bool(torch.isfinite(got).all())
-        assert (got - p3).abs().max().item() <= rtol * scale
+        assert (got - want).abs().max().item() <= rtol * want.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 96, 2048, 5000])
+@pytest.mark.parametrize("D", [1, 3])
+@pytest.mark.parametrize("dtype, rtol", [(torch.float64, 1e-10), (torch.float32, 1e-4)])
+def test_phase2_kernel_takes_any_block_count(cuda_device, D, dtype, rtol, B):
+    """K2 on the aggregates that the plain K1 makes from (37, B) streams, held
+    on the per-block lml downstream: one block, a width that is not a
+    multiple of a warp, one lane a block in one round (2048), and several
+    rounds (5000)."""
+    y_t, s_t, packed, m0, P0 = _value_inputs(np.random.default_rng(B + D), D, dtype,
+                                             cuda_device, 37, B)
+    p1, p_runs = tk.phase1_aggregate_plain(y_t, s_t, packed, D,
+                                           chunks=tk.PHASE1_AGGREGATE_CHUNKS)
+    p2 = tk.phase2_starts_plain(p1, m0, P0, D)
+    tk.reset_launch_counts()
+    k2 = tk.phase2_starts(p1, m0, P0, D)
+    torch.cuda.synchronize()
+    assert tk.phase2_starts.launches == 1 and k2.shape == p2.shape
+    want = tk.phase3_lml_plain(y_t, s_t, packed, p2, D, p_runs)
+    got = tk.phase3_lml_plain(y_t, s_t, packed, k2, D, p_runs)
+    assert bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() <= rtol * want.abs().max().item()
 
 
 # The chunked kernels' C entries: the shapes of their pointer arguments and
 # the ints before the chunk count, at D = 2 on 5 steps of 4 blocks (k = 1).
+_VALUE_RUNS = (tk.PHASE1_AGGREGATE_CHUNKS, tk.elem_rows(2), 4)
 _JVP_RUNS = (tk.PHASE1_JVP_CHUNKS, 2 * tk.elem_rows(2), 4)
 _AFFINE_RUNS = (tk.AFFINE_PHASE1_CHUNKS, tk.affine_rows(2), 4)
 _CHUNKED_LAUNCHES = {
-    "phase1_aggregate": ([(5, 4), (5, 4), (tk.param_len(2),), (tk.elem_rows(2), 4)],
+    "phase1_aggregate": ([(5, 4), (5, 4), (tk.param_len(2),), (tk.elem_rows(2), 4), _VALUE_RUNS],
                          (5, 4, 2), tk.PHASE1_AGGREGATE_CHUNKS),
+    "phase3_lml": ([(5, 4), (5, 4), (tk.param_len(2),), (tk.state_rows(2), 4), _VALUE_RUNS, (4,)],
+                   (5, 4, 2), tk.PHASE1_AGGREGATE_CHUNKS),
     "phase1_jvp": ([(5, 4), (5, 4), (2, tk.param_s_len(2)), (2 * tk.elem_rows(2), 4), _JVP_RUNS],
                    (5, 4, 2, 1), tk.PHASE1_JVP_CHUNKS),
     "phase3_jvp_lml": ([(5, 4), (5, 4), (2, tk.param_s_len(2)), (2 * tk.state_rows(2), 4),
@@ -321,7 +355,7 @@ def test_state_kernels_match_plain_versions_on_card(cuda_device, D, dtype, rtol,
     packed = tk.pack_params(to(A), to(np.zeros(D)), to(0.1 * np.eye(D)), to(np.ones(D)),
                             to(0.05), dtype)
     m0, P0 = to(0.1 * rng.standard_normal(D)), to(np.eye(D))
-    starts = tk.phase2_starts_plain(tk.phase1_aggregate_plain(y, s, packed, D), m0, P0, D)
+    starts = tk.phase2_starts_plain(tk.phase1_aggregate_plain(y, s, packed, D)[0], m0, P0, D)
     F = np.eye(D) * 0.95 + 0.02 * rng.standard_normal((L, B, D, D))
     G = 0.1 * rng.standard_normal((L, B, D, D))
     C = np.einsum("lbij,lbkj->lbik", G, G)

@@ -96,8 +96,9 @@ def test_blocked_streams_match_reference_padding(D):
 def test_phase1_plain_matches_reference(D):
     model, blocked, _y_p, _s_p, y_main, s_main, packed = _reference_setup(D, seed=10 + D)
     agg_ref = _phase1_ref(blocked, B, D, jnp.float64)
-    comps = tk.phase1_aggregate_plain(y_main, s_main, packed, D)
+    comps, runs = tk.phase1_aggregate_plain(y_main, s_main, packed, D)
     assert comps.shape == (tk.elem_rows(D), B)
+    assert torch.equal(runs, comps[None])  # the serial schedule folds one run
     for got, want in zip(_elem_from_rows(comps, D), agg_ref):
         _close(got, want)
 
@@ -115,12 +116,18 @@ def test_phase1_plain_chunked_matches_serial_and_reference(D, L, chunks):
     """The kernel's schedule (each block's steps in `chunks` runs, the run
     aggregates combined in order, empty runs the identity) gives the serial
     fold's aggregates and the reference's, and downstream the reference's
-    block starts (K2) and lml (K3)."""
+    block starts (K2) and lml (K3); K3's schedule, each run replayed from
+    the block start pushed through the earlier runs' aggregates, gives the
+    serial recursion's per-block lml and the reference's."""
     n = CHUNK_LENGTHS[L]
     model, blocked, _y_p, _s_p, y_main, s_main, packed = _reference_setup(D, seed=50 + L, n=n)
     assert y_main.shape == (L, B) and L * B > n
-    chunked = tk.phase1_aggregate_plain(y_main, s_main, packed, D, chunks=chunks)
-    _close(chunked, tk.phase1_aggregate_plain(y_main, s_main, packed, D))
+    chunked, runs = tk.phase1_aggregate_plain(y_main, s_main, packed, D, chunks=chunks)
+    assert runs.shape == (chunks, tk.elem_rows(D), B)
+    _close(chunked, tk.phase1_aggregate_plain(y_main, s_main, packed, D)[0])
+    as_elem = lambda rows: tk._elem_rows_to_tuple(rows.unbind(0), D)
+    tree = tk._chunk_tree([as_elem(run) for run in runs], tk.lanes.combine)
+    _close(torch.stack(tk._elem_tuple_to_rows(tree)), chunked)
     agg_ref = _phase1_ref(blocked, B, D, jnp.float64)
     for got, want in zip(_elem_from_rows(chunked, D), agg_ref):
         _close(got, want)
@@ -132,8 +139,10 @@ def test_phase1_plain_chunked_matches_serial_and_reference(D, L, chunks):
     starts = tk.phase2_starts_plain(chunked, _t(x0.mean), 0.5 * (P0 + P0.T), D)
     _close(starts[:D].T, pref[1][:-1])
     _close(starts[D:].T.reshape(B, D, D), pref[2][:-1])
-    lml = tk.phase3_lml_plain(y_main, s_main, packed, starts, D).sum()
-    _close(lml, _phase3_ref(blocked, JGaussian(pref[1][:-1], pref[2][:-1]), B, D, jnp.float64))
+    partials = tk.phase3_lml_plain(y_main, s_main, packed, starts, D, runs)
+    _close(partials, tk.phase3_lml_plain(y_main, s_main, packed, starts, D))
+    _close(partials.sum(),
+           _phase3_ref(blocked, JGaussian(pref[1][:-1], pref[2][:-1]), B, D, jnp.float64))
 
 
 @pytest.mark.parametrize("D", [1, 2, 3])
@@ -155,15 +164,22 @@ def test_phase2_plain_matches_reference(D):
     _close(starts[D:].T.reshape(B, D, D), pref[2][:-1])
 
 
+@pytest.mark.parametrize("chunks", [None, tk.PHASE1_AGGREGATE_CHUNKS])
 @pytest.mark.parametrize("D", [1, 2, 3])
-def test_phase3_plain_matches_reference(D):
+def test_phase3_plain_matches_reference(D, chunks):
+    """The per-block lml from the reference's block starts, serial or on K3's
+    schedule (chunks: K1's run aggregates handed on; 5 steps a block in 16
+    runs leave 11 runs empty), against the reference's total and its
+    lane-major recursion block by block."""
     model, blocked, y_p, s_p, y_main, s_main, packed = _reference_setup(D, seed=30 + D)
     agg_ref = _phase1_ref(blocked, B, D, jnp.float64)
     prior = jblock._prior_element(model.trans.x0, D, jnp.float64)
     pref = _phase2_ref(tuple(jnp.concatenate([p, a]) for p, a in zip(prior, agg_ref)))
     m0, P0 = pref[1][:-1], pref[2][:-1]
     starts = torch.cat([_t(m0).T, _t(P0).reshape(B, -1).T]).contiguous()
-    partials = tk.phase3_lml_plain(y_main, s_main, packed, starts, D)
+    _, runs = tk.phase1_aggregate_plain(y_main, s_main, packed, D, chunks=chunks)
+    partials = tk.phase3_lml_plain(y_main, s_main, packed, starts, D,
+                                   None if chunks is None else runs)
     assert partials.shape == (B,)
     total_ref = _phase3_ref(blocked, JGaussian(m0, P0), B, D, jnp.float64)
     _close(partials.sum(), total_ref)
@@ -191,10 +207,11 @@ def test_wrappers_on_cpu_run_the_plain_versions():
     D = 3
     x0_mean, x0_cov = torch.zeros(D, dtype=torch.float64), torch.eye(D, dtype=torch.float64)
     tk.reset_launch_counts()
-    comps = tk.phase1_aggregate(y_main, s_main, packed, D)
+    comps, runs = tk.phase1_aggregate(y_main, s_main, packed, D)
     starts = tk.phase2_starts(comps, x0_mean, x0_cov, D)
-    lml = tk.phase3_lml(y_main, s_main, packed, starts, D)
-    assert torch.equal(comps, tk.phase1_aggregate_plain(y_main, s_main, packed, D))
+    lml = tk.phase3_lml(y_main, s_main, packed, starts, D, runs)
+    p_comps, p_runs = tk.phase1_aggregate_plain(y_main, s_main, packed, D)
+    assert torch.equal(comps, p_comps) and torch.equal(runs, p_runs) and runs.shape[0] == 1
     assert torch.equal(starts, tk.phase2_starts_plain(comps, x0_mean, x0_cov, D))
     assert torch.equal(lml, tk.phase3_lml_plain(y_main, s_main, packed, starts, D))
     assert tk.launch_counts() == dict.fromkeys(

@@ -126,7 +126,7 @@ def test_phase3_states_plain_chunked_matches_serial_and_reference_filter(D, L, c
     assert (L == 1 or BOUNDARY[L] % Lc == 0) and bool((s_main[BOUNDARY[L], 1] > 1e14))
     packed = tk.pack_params(t.As.value, t.offs.value, t.Qs.value, e.H.value, e.h.value,
                             torch.float64)
-    aggs = tk.phase1_aggregate_plain(y_main, s_main, packed, D)
+    aggs, _ = tk.phase1_aggregate_plain(y_main, s_main, packed, D)
     starts = tk.phase2_starts_plain(aggs, t.x0.mean, 0.5 * (t.x0.cov + t.x0.cov.T), D)
     chunked = tk.phase3_states_plain(y_main, s_main, packed, starts, D, chunks=chunks)
     _close(chunked, tk.phase3_states_plain(y_main, s_main, packed, starts, D))
