@@ -21,7 +21,8 @@ Phases; any failure exits non-zero without the final result line:
      of them. K1-K3 are also held at phase 4's two ragged shapes, and K2
      alone at B = 1 and 5000 blocks (L = 37; more blocks than its cluster's
      2048 lanes take several rounds of its scan) on aggregates that the
-     plain K1 makes.
+     plain K1 makes; K5 and K9, which run the same cluster scan, likewise in
+     phases 4 and 9.
   4. Each forward-mode kernel (K4 phase1_jvp, K5 phase2_jvp_starts, K6
      phase3_jvp_lml) against its plain version (PyTorch's forward-mode
      autodiff of the plain loops) at the training path's shapes (the same
@@ -35,7 +36,8 @@ Phases; any failure exits non-zero without the final result line:
      each held on the rows the plain phases compute downstream of them.
      K4-K6 are also held, with the same gate, at two ragged shapes of
      B = 96 blocks: L = 37 (not a multiple of the chunk count) and L = 1
-     (fewer steps than chunks), with a missing step and padding steps.
+     (fewer steps than chunks), with a missing step and padding steps; K5
+     alone at B = 1 and 5000 on aggregates that the plain K4 makes.
   5. The lml path, through the public entry points:
        to_sde(GP((s2*Matern52()).stretch(sc)), ArrayStorage(float32))(
            RegularSpacing(0, 1e-3, 1_000_000), 0.1) -> logpdf
@@ -80,7 +82,8 @@ Phases; any failure exits non-zero without the final result line:
      AFFINE_PHASE1_CHUNKS); K10 and its plain version are both fed K8's run
      aggregates, and K8's run aggregates are held on the states downstream
      of them. K7 is also held at phase 4's two ragged shapes (a missing step
-     and padding steps), K8-K10 at the same shapes on time-varying maps.
+     and padding steps), K8-K10 at the same shapes on time-varying maps, and
+     K9 alone at B = 1 and 5000 on aggregates that the plain K8 makes.
  10. The posterior path, through the public entry points:
        marginals(posterior(fx, y)(x, 0.1))   (temporalgps_torch.gp.posterior)
      for the reference's bench config c1 (GP(Matern32()), float32,
@@ -163,8 +166,9 @@ KERNEL_RTOL = {"float64": 1e-10, "float32": 1e-4}
 # the main shapes: L not a multiple of the chunk counts, and fewer steps than
 # chunks.
 RAGGED_SHAPES = ((37, 96), (1, 96))
-# (L, B) at which K2 is held alone beside the main and ragged shapes: one
-# block, and more blocks than the 2048 lanes of its cluster.
+# (L, B) at which each scan (K2, K5, K9) is held alone beside the main and
+# ragged shapes: one block, and more blocks than the 2048 lanes of its
+# cluster.
 PHASE2_SHAPES = ((37, 1), (37, 5000))
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): device memory rate,
@@ -522,6 +526,18 @@ def main():
         record_comparison("phase2_jvp_starts", name, k2, p2, via_k2, p3, shape=shape)
         record_comparison("phase3_jvp_lml", name, k3, via_k_runs, k3, via_k_runs, shape=shape)
 
+    def compare_phase2_jvp(name, rows, priors, shape):
+        """K5 alone on the aggregates that the plain K4 makes from (L, B)
+        streams, held on the lml rows downstream."""
+        y, s = ragged_streams(name, *shape)
+        p1, p_runs = kernels.phase1_jvp_plain(y, s, rows, D, k, chunks=kernels.PHASE1_JVP_CHUNKS)
+        p2 = kernels.phase2_jvp_starts_plain(p1, priors, D, k)
+        k2 = kernels.phase2_jvp_starts(p1, priors, D, k)
+        torch.cuda.synchronize()
+        record_comparison("phase2_jvp_starts", name, k2, p2,
+                          kernels.phase3_jvp_lml_plain(y, s, rows, k2, D, k, p_runs),
+                          kernels.phase3_jvp_lml_plain(y, s, rows, p2, D, k, p_runs), shape=shape)
+
     def phase_compare_jvp():
         for name in dtypes:
             y_main, s_main, rows, priors = jvp_inputs(name)
@@ -530,6 +546,8 @@ def main():
             compare_jvp(name, y_main, s_main, rows, priors)
             for shape in RAGGED_SHAPES:
                 compare_jvp(name, *ragged_streams(name, *shape), rows, priors, shape=shape)
+            for shape in PHASE2_SHAPES:
+                compare_phase2_jvp(name, rows, priors, shape)
 
     # ---- 5. lml path -----------------------------------------------------
     def phase_main_path():
@@ -901,6 +919,20 @@ def main():
         record_comparison("affine_phase3_states", name, k10, via_k_runs, rows(k10),
                           rows(via_k_runs), "states", shape=shape)
 
+    def compare_affine_phase2(name, shape):
+        """K9 alone on the aggregates that the plain K8 makes from (KT, L, B)
+        time-varying maps, held on the state rows downstream."""
+        rows = lambda t: t.reshape(D + D * D, -1)
+        params, m0, P0 = ragged_affine(name, *shape)
+        p8, p_runs = kernels.affine_phase1_plain(params, D, chunks=kernels.AFFINE_PHASE1_CHUNKS)
+        p9 = kernels.affine_phase2_starts_plain(p8, m0, P0, D)
+        k9 = kernels.affine_phase2_starts(p8, m0, P0, D)
+        torch.cuda.synchronize()
+        record_comparison("affine_phase2_starts", name, k9, p9,
+                          rows(kernels.affine_phase3_states_plain(params, k9, D, p_runs)),
+                          rows(kernels.affine_phase3_states_plain(params, p9, D, p_runs)),
+                          "states", shape=shape)
+
     def phase_compare_states():
         rows = lambda t: t.reshape(D + D * D, -1)
         for name in dtypes:
@@ -929,6 +961,8 @@ def main():
                 record_comparison("phase3_states", name, k7, p7, rows(k7), rows(p7), "states",
                                   shape=shape)
                 compare_affine(name, *ragged_affine(name, *shape), shape=shape)
+            for shape in PHASE2_SHAPES:
+                compare_affine_phase2(name, shape)
 
     # ---- 10. posterior path ----------------------------------------------
     def phase_posterior():

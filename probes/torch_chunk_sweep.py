@@ -1,8 +1,9 @@
 """Chunk counts and thread-block shapes of the port's chunked kernels on one
 CUDA card: K1 (phase1_aggregate), K3 (phase3_lml), K4 (phase1_jvp), K6
 (phase3_jvp_lml), K7 (phase3_states), K8 (affine_phase1) and K10
-(affine_phase3_states); and the cluster and thread-block shape of the scan
-K2 (phase2_starts).
+(affine_phase3_states); and the cluster and thread-block shapes of the
+three scans K2 (phase2_starts), K5 (phase2_jvp_starts) and K9
+(affine_phase2_starts).
 
     python3 probes/torch_chunk_sweep.py [--parent DIR] [--only NAME ...]
     python3 probes/torch_chunk_sweep.py --sass [--only NAME ...]
@@ -10,9 +11,11 @@ K2 (phase2_starts).
 Builds each variant from a copy of temporalgps_torch/csrc/ with the
 kernel's constants rewritten (K1 and K3: kPhase1AggregateChunks and
 kPhase1AggregateWarps; K2: kPhase2Cluster, kPhase2Warps and kPhase2Fold;
-K4 and K6: kPhase1JvpChunks and kPhase1JvpWarps; K7: kPhase3StatesChunks
-and kPhase3StatesWarps; K8: kAffineChunks and kAffinePrefetch; K10:
-kAffinePhase3Warps and kAffinePrefetch), one nvcc per
+K4 and K6: kPhase1JvpChunks and kPhase1JvpWarps; K5: kPhase2JvpCluster,
+kPhase2JvpWarps, kPhase2JvpFold and kPhase2JvpSharedWarpsF32 / F64; K7:
+kPhase3StatesChunks and kPhase3StatesWarps; K8: kAffineChunks and
+kAffinePrefetch; K9: kAffineScanCluster, kAffineScanWarps and
+kAffineScanFold; K10: kAffinePhase3Warps and kAffinePrefetch), one nvcc per
 variant, all started together; checks that every variant gives the default
 build's output (each row relative to its largest entry: 1e-10 in float64;
 in float32 only 1e-2, since the order of the combines, which the chunk
@@ -23,8 +26,8 @@ batches of 10 calls, the variants in turn, twice over; then each kernel's
 device time per call under torch.profiler over 10 calls (which leaves out
 the host's time between back-to-back launches). K3, K6 and K10 are fed run
 aggregates and starts from the plain versions (K1's, K4's and K8's runs at
-their chunk count), K2 the plain K1's block aggregates. With --parent,
-DIR/temporalgps_torch/csrc/ (a checkout of an
+their chunk count); K2, K5 and K9 the plain K1's, K4's and K8's block
+aggregates. With --parent, DIR/temporalgps_torch/csrc/ (a checkout of an
 earlier commit) is built too and timed first and last in each round; each
 build's entries take the pointers and ints that its own
 temporalgps_torch/ops/kernels.py lists (K1, K4 and K8 with or without a
@@ -58,7 +61,7 @@ sys.path.insert(0, str(HERE))
 L_MAIN, B_MAIN, D, K_TANGENTS = 489, 2048, 3, 3
 
 # Each kernel: its source, the Python constant of its chunk count (None for
-# K2, which has none), the kernel's constants (the first the chunk count),
+# the scans, which have none), the kernel's constants (the first the chunk count),
 # and its variants
 # (label, {constant: value}); the first variant is the default build, the
 # reference of the agreement check. K1, K4, K7: chunk count C and warps a
@@ -68,10 +71,13 @@ L_MAIN, B_MAIN, D, K_TANGENTS = 489, 2048, 3, 3
 # memory (48 KB at most). K6 and K10 replay K4's and K8's runs, so their C
 # is those kernels' (16 here): K6 varies W as K4, K10 its warps a thread
 # block (the warps share nothing) and U. K3 replays K1's runs and varies W
-# as K1 (W = 16: one thread block of 16 warps, 128 registers a thread). K2:
-# thread blocks of its cluster NB, warps a thread block W, and aggregates a
-# lane folds before the scan F (NB W 32 F lanes' worth a round: 2048 in one
-# round, but for W4_F1's two rounds).
+# as K1 (W = 16: one thread block of 16 warps, 128 registers a thread). K2,
+# K5, K9: thread blocks of the cluster NB, warps a thread block W, and
+# aggregates a lane folds before the scan F (NB W 32 F lanes' worth a round:
+# 2048 in one round; the smaller shapes take two or four). K5 also: the
+# levels that take the left pair from shuffles ("shfl") or from shared memory
+# ("smem"), in both dtypes (the default build: shuffles in float, shared
+# memory in double).
 SWEEP = {
     "phase1_aggregate": ("block_phases.cu", "PHASE1_AGGREGATE_CHUNKS",
                          ("kPhase1AggregateChunks", "kPhase1AggregateWarps"),
@@ -87,6 +93,21 @@ SWEEP = {
                        ("NB4_W16_F1", {"kPhase2Cluster": 4, "kPhase2Warps": 16}),
                        ("NB4_W8_F2", {"kPhase2Cluster": 4, "kPhase2Fold": 2}),
                        ("NB1_W8_F8", {"kPhase2Cluster": 1, "kPhase2Fold": 8})]),
+    "phase2_jvp_starts": ("block_phases_jvp.cu", None,
+                          ("kPhase2JvpCluster", "kPhase2JvpWarps", "kPhase2JvpFold",
+                           "kPhase2JvpSharedWarpsF32", "kPhase2JvpSharedWarpsF64"),
+                          [("NB8_W8_F1", {})] + [
+                              (f"NB{nb}_W{w}_F1_{level}",
+                               {"kPhase2JvpCluster": nb, "kPhase2JvpWarps": w,
+                                "kPhase2JvpSharedWarpsF32": smem, "kPhase2JvpSharedWarpsF64": smem})
+                              for nb in (8, 4) for w in (8, 4)
+                              for level, smem in (("shfl", 0), ("smem", 1))]),
+    "affine_phase2_starts": ("block_states.cu", None,
+                             ("kAffineScanCluster", "kAffineScanWarps", "kAffineScanFold"),
+                             [(f"NB{nb}_W{w}_F{f}",
+                               {"kAffineScanCluster": nb, "kAffineScanWarps": w,
+                                "kAffineScanFold": f})
+                              for nb in (8, 4) for w in (8, 4) for f in (1, 2)]),
     "phase3_lml": ("block_phases.cu", "PHASE1_AGGREGATE_CHUNKS",
                    ("kPhase1AggregateChunks", "kPhase1AggregateWarps"),
                    [("C16_W8", {}), ("C16_W16", {"kPhase1AggregateWarps": 16})]),
@@ -180,7 +201,8 @@ def build_all(jobs, kernels):
     for i, (label, csrc, source, consts) in enumerate(jobs):
         work = out_dir / f"v{i}"
         work.mkdir()
-        shutil.copy(csrc / "lanes.cuh", work / "lanes.cuh")
+        for header in csrc.glob("*.cuh"):
+            shutil.copy(header, work / header.name)
         (work / source).write_text(rewrite((csrc / source).read_text(), consts))
         lib = work / "lib.so"
         cmd = [nvcc, *kernels.NVCC_FLAGS, "-shared", "-o", str(lib), str(work / source)]
@@ -219,7 +241,7 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--parent", type=Path, help="checkout of an earlier commit to time beside")
     parser.add_argument("--only", nargs="+", choices=sorted(SWEEP), default=sorted(SWEEP),
-                        help="the kernels to sweep (default: all eight)")
+                        help="the kernels to sweep (default: all ten)")
     parser.add_argument("--sass", action="store_true",
                         help="count the instructions in each kernel's loops instead")
     args = parser.parse_args()
@@ -333,6 +355,10 @@ def main():
             "phase1_jvp": lambda n, C: (
                 [y, s, rows, out := empty(KJ, B)] + [empty(C, KJ, B)] * (n == 5),
                 [L, B, D, k], out),
+            "phase2_jvp_starts": lambda n, C: (
+                [jagg, priors, out := empty((1 + k) * kernels.state_rows(D), B)], [B, D, k], out),
+            "affine_phase2_starts": lambda n, C: (
+                [aagg, prior, out := empty(kernels.state_rows(D), B)], [B, D], out),
             "phase3_jvp_lml": lambda n, C: (
                 [y, s, rows, jstarts] + [jruns] * (n == 6) + [out := empty(1 + k, B)],
                 [L, B, D, k], out),

@@ -38,19 +38,21 @@
 // K2 is a scan of B aggregates of K values: 270 KB in float32 at B = 2048,
 // a bytes bound of 0.1 us, and a dependent chain of combines whatever the
 // schedule. Its time is that chain's depth, and the trips to memory inside
-// it. So each lane holds one aggregate (lane i of warp w of cluster rank z
-// takes block 32 (W z + w) + i, every row read one coalesced access, all
-// rows loaded before the first combine) and the scan is a Kogge-Stone at
-// three levels, each in log2 steps: across the 32 lanes of a warp in
-// register shuffles, across the W warp totals of a thread block through its
-// shared memory, and across the cluster's thread-block totals through
-// distributed shared memory. At B = 2048 one cluster of 8 thread blocks of
-// 8 warps holds every aggregate: 5 + 3 + 3 dependent combines and 3
-// state-only ones to finish, on 8 SMs.
+// it. So it is the cluster scan of scan.cuh (which K5 and K9 share) on
+// filtering elements: each lane holds one aggregate (lane i of warp w of
+// cluster rank z takes block 32 (W z + w) + i, every row read one coalesced
+// access) and the scan is a Kogge-Stone at three levels, across the 32 lanes
+// of a warp in register shuffles, across the W warp totals of a thread block
+// through its shared memory, and across the cluster's thread-block totals
+// through distributed shared memory. At B = 2048 one cluster of 8 thread
+// blocks of 8 warps holds every aggregate: 5 + 3 + 3 dependent combines and
+// 3 state-only ones (apply_elem) to finish, on 8 SMs, in 154 registers in
+// float and 255 in double (a 92 B spill) at D = 3.
 
 #include <cooperative_groups.h>
 
 #include "lanes.cuh"
+#include "scan.cuh"
 
 namespace tgps {
 
@@ -68,17 +70,14 @@ static_assert((kPhase1AggregateWarps & (kPhase1AggregateWarps - 1)) == 0 &&
               "the chunk tree takes 2^n chunks, W a thread block, 2^m thread blocks a cluster");
 // K2: thread blocks of its one cluster, warps a thread block, and the
 // aggregates a lane folds before the scan (1: one aggregate a lane). A
-// round of the scan covers kPhase2RoundSize aggregates; a larger B takes
-// several rounds in order, each seeded with the state the earlier ones end
-// in. A float64 element at D = 3 is 66 registers, so 8 warps (255
-// registers a thread) is the largest thread block that holds two.
+// round of the scan covers kPhase2Cluster * kPhase2Warps * 32 * kPhase2Fold
+// aggregates; a larger B takes several rounds in order, each seeded with the
+// state the earlier ones end in. A float64 element at D = 3 is 66
+// registers, so 8 warps (255 registers a thread) is the largest thread block
+// that holds two.
 constexpr int kPhase2Cluster = 8;
 constexpr int kPhase2Warps = 8;
 constexpr int kPhase2Fold = 1;
-constexpr int kPhase2RoundSize = kPhase2Cluster * kPhase2Warps * kLaneThreads * kPhase2Fold;
-static_assert((kPhase2Cluster & (kPhase2Cluster - 1)) == 0 && kPhase2Cluster <= 8 &&
-              (kPhase2Warps & (kPhase2Warps - 1)) == 0 && kPhase2Warps <= kLaneThreads,
-              "the scan levels take 2^n warps a thread block, 2^m thread blocks a cluster of <= 8");
 
 // Shared memory of K1's chunk tree: at each level half of the remaining
 // warps hand their aggregates to the warp on their left, so W / 2 slots of
@@ -147,86 +146,56 @@ phase1_aggregate_kernel(const T* __restrict__ y, const T* __restrict__ s,
   if (w == 0 && z == 0 && b < B) store_elem(acc, out + b, B);
 }
 
+// K2's element policy for cluster_scan (scan.cuh): filtering elements,
+// (K, B) aggregates, the prior element (0, m0, P0, 0, 0) applied as a state
+// (apply_elem), starts written as (m, P) rows.
+template <typename T, int D>
+struct ElemScan {
+  using Scalar = T;
+  using Element = Elem<T, D>;
+  struct State {
+    Vec<T, D> m;
+    Mat<T, D> P;
+  };
+  static constexpr int kRows = Dims<D>::kElem;
+  const T* comps;
+  const T* prior;
+  T* starts;
+  int B;
+  __device__ Element identity() const { return identity_elem<T, D>(); }
+  __device__ Element combine(const Element& ei, const Element& ej) const {
+    return tgps::combine(ei, ej);
+  }
+  __device__ Element shfl_up(const Element& e, int delta) const { return shfl_up_elem(e, delta); }
+  __device__ Element load(const T* base, long long stride) const {
+    return load_elem<T, D>(base, stride);
+  }
+  __device__ void store(const Element& e, T* base, long long stride) const {
+    store_elem(e, base, stride);
+  }
+  __device__ Element load_agg(int b) const { return load_elem<T, D>(comps + b, B); }
+  __device__ State prior_state() const {
+    State s;
+    load_state(prior, 1, s.m, s.P);
+    return s;
+  }
+  __device__ void apply(State& s, const Element& e) const { apply_elem(s.m, s.P, e); }
+  __device__ void store_start(const State& s, int b) const { store_state(s.m, s.P, starts + b, B); }
+};
+
 // Exclusive prefix of the B block aggregates, seeded with the prior element
 // (0, m0, P0, 0, 0): starts[b] = prior ∘ agg_0 ∘ ... ∘ agg_{b-1}, written as
-// (m, P) rows. combine is associative but not commutative, so every level
-// keeps the earlier operand on the left.
-//
-// One cluster of NB thread blocks of W warps; round r covers the
-// kPhase2RoundSize aggregates from r kPhase2RoundSize on, thread
-// t = 32 (W z + w) + lane of the cluster taking the F = kPhase2Fold
-// consecutive ones from r kPhase2RoundSize + F t (with F = 1 a warp's loads
-// are one coalesced access a row). A lane past B holds the identity element
-// and meets every barrier. In each round: (1) each thread folds its F
-// aggregates; (2) an inclusive Kogge-Stone across the warp's lanes in
-// shuffles; (3) warp 0 scans the W warp totals from shared memory; (4)
-// warp 0 of every thread block scans the NB thread-block totals that it
-// reads from the cluster's shared memory; (5) each thread forms its start
-// as the state part of carry ∘ blocks_{<z} ∘ warps_{<w} ∘ lanes_{<lane},
-// applied left to right (apply_elem), where carry is the prior pushed
-// through the earlier rounds' totals, and pushes it through its F
-// aggregates, storing each block's start on the way.
+// (m, P) rows, by one cluster of kPhase2Cluster thread blocks of
+// kPhase2Warps warps (cluster_scan).
 template <typename T, int D>
 __global__ void __cluster_dims__(kPhase2Cluster, 1, 1)
 __launch_bounds__(kLaneThreads * kPhase2Warps)
 phase2_starts_kernel(const T* __restrict__ comps, const T* __restrict__ prior,
                      T* __restrict__ starts, int B) {
-  constexpr int W = kPhase2Warps;
-  constexpr int NB = kPhase2Cluster;
-  constexpr int F = kPhase2Fold;
-  __shared__ T warp_incl[Dims<D>::kElem * W];     // inclusive prefix of the warp totals
-  __shared__ T block_total[Dims<D>::kElem];       // this thread block's total
-  __shared__ T cluster_incl[Dims<D>::kElem * NB];  // inclusive prefix of the block totals
-  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
-  const int z = static_cast<int>(cluster.block_rank());
-  const int lane = threadIdx.x % kLaneThreads;
-  const int w = threadIdx.x / kLaneThreads;
-  Vec<T, D> carry_m;
-  Mat<T, D> carry_P;
-  load_state(prior, 1, carry_m, carry_P);
-  const int rounds = (B + kPhase2RoundSize - 1) / kPhase2RoundSize;
-#pragma unroll 1
-  for (int r = 0; r < rounds; ++r) {
-    const int first = r * kPhase2RoundSize + F * ((z * W + w) * kLaneThreads + lane);
-    Elem<T, D> e = identity_elem<T, D>();
-    if (first < B) e = load_elem<T, D>(comps + first, B);
-#pragma unroll
-    for (int f = 1; f < F; ++f)
-      if (first + f < B) e = combine(e, load_elem<T, D>(comps + first + f, B));
-    e = warp_scan(e, lane, kLaneThreads);
-    const Elem<T, D> lanes_before = shfl_up_elem(e, 1);  // for lane > 0
-    if (lane == kLaneThreads - 1) store_elem(e, warp_incl + w, W);
-    __syncthreads();
-    if (w == 0) {
-      Elem<T, D> t = identity_elem<T, D>();
-      if (lane < W) t = load_elem<T, D>(warp_incl + lane, W);
-      t = warp_scan(t, lane, W);
-      if (lane < W) store_elem(t, warp_incl + lane, W);
-      if (lane == W - 1) store_elem(t, block_total, 1);
-    }
-    cluster.sync();
-    if (w == 0) {
-      Elem<T, D> t = identity_elem<T, D>();
-      if (lane < NB) t = load_elem<T, D>(cluster.map_shared_rank(block_total, lane), 1);
-      t = warp_scan(t, lane, NB);
-      if (lane < NB) store_elem(t, cluster_incl + lane, NB);
-    }
-    __syncthreads();
-    Vec<T, D> m = carry_m;
-    Mat<T, D> P = carry_P;
-    if (z > 0) apply_elem(m, P, load_elem<T, D>(cluster_incl + (z - 1), NB));
-    if (w > 0) apply_elem(m, P, load_elem<T, D>(warp_incl + (w - 1), W));
-    if (lane > 0) apply_elem(m, P, lanes_before);
-#pragma unroll
-    for (int f = 0; f < F; ++f) {
-      if (first + f < B) {
-        store_state(m, P, starts + first + f, B);
-        if (f + 1 < F) apply_elem(m, P, load_elem<T, D>(comps + first + f, B));
-      }
-    }
-    if (r + 1 < rounds) apply_elem(carry_m, carry_P, load_elem<T, D>(cluster_incl + (NB - 1), NB));
-    cluster.sync();  // the shared rows stay in place until every thread block has read them
-  }
+  using P = ElemScan<T, D>;
+  __shared__ T shared[scan_shared_rows<P, kPhase2Cluster, kPhase2Warps>()];
+  cluster_scan<kPhase2Cluster, kPhase2Warps, kPhase2Fold, false>(P{comps, prior, starts, B}, B,
+                                                                 shared, nullptr);
 }
 
 // Warp w of the thread block of cluster rank z in cluster x takes chunk

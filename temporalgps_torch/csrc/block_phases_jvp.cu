@@ -58,17 +58,33 @@
 // instruction issue: a replay step is some 480 instructions and a chain step
 // some 800, and an SM holds one 8-warp thread block at K6's register count,
 // so each scheduler has two dependent chains to issue from; a cluster lasts
-// as long as its last chunk, the one with the longest start chain. K5 is
-// bound by the latency of a serial scan.
+// as long as its last chunk, the one with the longest start chain.
+//
+// K5 is a scan of the B block aggregates carried with one tangent: bound on
+// paper by bytes ((1+k)(K + SD) B values), in practice by the depth of its
+// chain of dependent combine_jvps. It is K2's cluster scan (scan.cuh) on
+// (primal, tangent) pairs, one cluster of kPhase2JvpCluster thread blocks
+// of kPhase2JvpWarps warps per tangent (a (NB, k) grid; the primal is
+// recomputed in every cluster and written by cluster 0): one pair a lane,
+// a Kogge-Stone across a warp's lanes, then across the warp totals and the
+// cluster's thread-block totals, 5 + 3 + 3 dependent combine_jvps and 3
+// apply_elem_jvps at B = 2048. A pair is 66 values, so a level that holds
+// its own pair and the left one needs 132 registers for them in float and
+// 264 in double, above the 255 a thread may have. At D = 3 the float
+// shuffles take 255 registers and spill 84 B; in double they spill 3.2 KB,
+// so there each level reads the left pair from shared memory instead, as
+// combine_jvp needs it, and the lane prefix is read back from there rather
+// than held across the barriers: 1.6 KB of spill, and 10% less time on an
+// H100 (probes/torch_chunk_sweep.py).
 
 #include <cooperative_groups.h>
 
 #include "lanes.cuh"
+#include "scan.cuh"
 
 namespace tgps {
 
-constexpr int kJvpLaneThreads = 32;   // K4, K6: a warp's lanes take 32 neighbouring blocks
-constexpr int kJvpScanThreads = 128;  // K5: threads of each tangent's thread block
+constexpr int kJvpLaneThreads = 32;  // K4, K6: a warp's lanes take 32 neighbouring blocks
 constexpr double kMaskThresh = 1e14;  // LARGE_VAR / 10
 // K4 and K6 (which replays K4's chunks): chunks of every block's steps, one
 // per warp, and warps per thread block; a cluster of C / W thread blocks
@@ -81,6 +97,32 @@ static_assert((kPhase1JvpWarps & (kPhase1JvpWarps - 1)) == 0 &&
               (kPhase1JvpCluster & (kPhase1JvpCluster - 1)) == 0 &&
               kPhase1JvpCluster * kPhase1JvpWarps == kPhase1JvpChunks,
               "the chunk tree takes 2^n chunks, W a thread block, 2^m thread blocks a cluster");
+
+// K5: thread blocks of each tangent's cluster, warps a thread block, and
+// the aggregates a lane folds before the scan (a round covers
+// kPhase2JvpCluster * kPhase2JvpWarps * 32 * kPhase2JvpFold aggregates; a
+// larger B takes several rounds in order). kPhase2JvpSharedWarpsF32 and
+// F64 (0 or 1) choose, for float and double, the levels that read the left
+// pair from shared memory (1) or from shuffles (0).
+constexpr int kPhase2JvpCluster = 8;
+constexpr int kPhase2JvpWarps = 8;
+constexpr int kPhase2JvpFold = 1;
+constexpr int kPhase2JvpSharedWarpsF32 = 0;
+constexpr int kPhase2JvpSharedWarpsF64 = 1;
+
+template <typename T>
+__host__ __device__ constexpr bool phase2_jvp_shared_warps() {
+  return (sizeof(T) == sizeof(double) ? kPhase2JvpSharedWarpsF64 : kPhase2JvpSharedWarpsF32) != 0;
+}
+
+// Dynamic shared memory of K5: the lane slots of the shared-memory levels,
+// one pair of 2K rows a lane (none with shuffles).
+template <typename T, int D>
+constexpr int phase2_jvp_shared_bytes() {
+  return phase2_jvp_shared_warps<T>()
+             ? 2 * Dims<D>::kElem * kPhase2JvpWarps * kJvpLaneThreads * static_cast<int>(sizeof(T))
+             : 0;
+}
 
 // Shared memory of K4's chunk tree: at each level half of the remaining
 // warps hand their primal and tangent aggregates to the warp on their left,
@@ -182,69 +224,76 @@ phase1_jvp_kernel(const T* __restrict__ y, const T* __restrict__ s, const T* __r
   store_elem(dacc, out + static_cast<long long>(1 + j) * K * B + b, B);
 }
 
-// Thread block j scans the primal aggregates and tangent j together, with
-// a two-level schedule (as K9's, block_states.cu), so shared memory holds two
-// element sets whatever k is: 2K x 128 values, 67,584 B in double at D = 3.
-// That is above the 48 KB a kernel gets statically, hence dynamic shared
-// memory and cudaFuncAttributeMaxDynamicSharedMemorySize at the launch.
-//
-// The identity element that fills the front of the scan has an all-zero
-// tangent (also in A); the prior element's tangent is (0, dm0, dP0, 0, 0).
+// K5's element policy for cluster_scan (scan.cuh): (primal, tangent j)
+// pairs of filtering elements. The identity has an all-zero tangent (also
+// in A); the prior element (0, m0, P0, 0, 0) has tangent (0, dm0, dP0, 0, 0)
+// and is applied as a state (apply_elem_jvp); cluster j = 0 writes the
+// primal starts, cluster j tangent j's.
 template <typename T, int D>
-__global__ void __launch_bounds__(kJvpScanThreads)
+struct ElemJvpScan {
+  using Scalar = T;
+  using Element = ElemJvp<T, D>;
+  struct State {
+    Vec<T, D> m, dm;
+    Mat<T, D> P, dP;
+  };
+  static constexpr int kRows = 2 * Dims<D>::kElem;  // the primal rows, then the tangent's
+  const T* comps;    // (K, B) primal aggregates
+  const T* dcomps;   // (K, B) tangent j of them
+  const T* priors;   // (1+k, SD)
+  T* starts;         // (SD, B) primal starts
+  T* dstarts;        // (SD, B) tangent j of them
+  int B;
+  int j;
+  __device__ Element identity() const { return {identity_elem<T, D>(), zero_elem<T, D>()}; }
+  __device__ Element combine(const Element& ei, const Element& ej) const {
+    return combine_jvp(ei.primal, ei.tangent, ej.primal, ej.tangent);
+  }
+  __device__ Element shfl_up(const Element& e, int delta) const {
+    return {shfl_up_elem(e.primal, delta), shfl_up_elem(e.tangent, delta)};
+  }
+  __device__ Element load(const T* base, long long stride) const {
+    return {load_elem<T, D>(base, stride), load_elem<T, D>(base + Dims<D>::kElem * stride, stride)};
+  }
+  __device__ void store(const Element& e, T* base, long long stride) const {
+    store_elem(e.primal, base, stride);
+    store_elem(e.tangent, base + Dims<D>::kElem * stride, stride);
+  }
+  __device__ Element load_agg(int b) const {
+    return {load_elem<T, D>(comps + b, B), load_elem<T, D>(dcomps + b, B)};
+  }
+  __device__ State prior_state() const {
+    State s;
+    load_state(priors, 1, s.m, s.P);
+    load_state(priors + static_cast<long long>(1 + j) * Dims<D>::kState, 1, s.dm, s.dP);
+    return s;
+  }
+  __device__ void apply(State& s, const Element& e) const {
+    apply_elem_jvp(s.m, s.dm, s.P, s.dP, e.primal, e.tangent);
+  }
+  __device__ void store_start(const State& s, int b) const {
+    if (j == 0) store_state(s.m, s.P, starts + b, B);
+    store_state(s.dm, s.dP, dstarts + b, B);
+  }
+};
+
+// Cluster j of the (kPhase2JvpCluster, k) grid scans the primal aggregates
+// and tangent j together (cluster_scan): ((1+k)*K, B) aggregates and
+// (1+k, SD) priors -> ((1+k)*SD, B) starts.
+template <typename T, int D>
+__global__ void __cluster_dims__(kPhase2JvpCluster, 1, 1)
+__launch_bounds__(kJvpLaneThreads * kPhase2JvpWarps)
 phase2_jvp_starts_kernel(const T* __restrict__ comps, const T* __restrict__ priors,
                          T* __restrict__ starts, int B) {
-  constexpr int K = Dims<D>::kElem;
-  constexpr int SD = Dims<D>::kState;
+  using P = ElemJvpScan<T, D>;
+  constexpr bool kShared = phase2_jvp_shared_warps<T>();
+  __shared__ T shared[scan_shared_rows<P, kPhase2JvpCluster, kPhase2JvpWarps>()];
   extern __shared__ __align__(16) unsigned char shared_raw[];
-  T* partials = reinterpret_cast<T*>(shared_raw);
-  T* dpartials = partials + K * kJvpScanThreads;
-  const int t = threadIdx.x;
-  const int j = blockIdx.x;
-  const T* dcomps = comps + static_cast<long long>(1 + j) * K * B;
-  const int run = (B + kJvpScanThreads - 1) / kJvpScanThreads;
-  const int lo = min(t * run, B);
-  const int hi = min(lo + run, B);
-
-  ElemJvp<T, D> own;
-  own.primal = identity_elem<T, D>();
-  own.tangent = zero_elem<T, D>();
-  for (int b = lo; b < hi; ++b)
-    own = combine_jvp(own.primal, own.tangent, load_elem<T, D>(comps + b, B),
-                      load_elem<T, D>(dcomps + b, B));
-
-  store_elem(own.primal, partials + t, kJvpScanThreads);
-  store_elem(own.tangent, dpartials + t, kJvpScanThreads);
-  __syncthreads();
-  for (int offset = 1; offset < kJvpScanThreads; offset <<= 1) {
-    ElemJvp<T, D> next = own;
-    if (t >= offset)
-      next = combine_jvp(load_elem<T, D>(partials + (t - offset), kJvpScanThreads),
-                         load_elem<T, D>(dpartials + (t - offset), kJvpScanThreads),
-                         own.primal, own.tangent);
-    __syncthreads();
-    own = next;
-    store_elem(own.primal, partials + t, kJvpScanThreads);
-    store_elem(own.tangent, dpartials + t, kJvpScanThreads);
-    __syncthreads();
-  }
-
-  ElemJvp<T, D> state;
-  state.primal = zero_elem<T, D>();
-  state.tangent = zero_elem<T, D>();
-  load_state(priors, 1, state.primal.b, state.primal.C);
-  load_state(priors + static_cast<long long>(1 + j) * SD, 1, state.tangent.b, state.tangent.C);
-  if (t > 0)
-    state = combine_jvp(state.primal, state.tangent,
-                        load_elem<T, D>(partials + (t - 1), kJvpScanThreads),
-                        load_elem<T, D>(dpartials + (t - 1), kJvpScanThreads));
-  T* dstarts = starts + static_cast<long long>(1 + j) * SD * B;
-  for (int b = lo; b < hi; ++b) {
-    if (j == 0) store_state(state.primal.b, state.primal.C, starts + b, B);
-    store_state(state.tangent.b, state.tangent.C, dstarts + b, B);
-    state = combine_jvp(state.primal, state.tangent, load_elem<T, D>(comps + b, B),
-                        load_elem<T, D>(dcomps + b, B));
-  }
+  const int j = blockIdx.y;
+  const P p{comps, comps + static_cast<long long>(1 + j) * Dims<D>::kElem * B, priors, starts,
+            starts + static_cast<long long>(1 + j) * Dims<D>::kState * B, B, j};
+  cluster_scan<kPhase2JvpCluster, kPhase2JvpWarps, kPhase2JvpFold, kShared>(
+      p, B, shared, kShared ? reinterpret_cast<T*>(shared_raw) : nullptr);
 }
 
 // Warp w of the thread block of cluster rank z in cluster (x, j) takes chunk
@@ -363,18 +412,22 @@ int launch_phase1_jvp(const T* y, const T* s, const T* rows, T* out, T* chunk_ou
 template <typename T, int D>
 int launch_phase2_jvp_d(const T* comps, const T* priors, T* starts, int B, int k,
                         cudaStream_t stream) {
-  const int bytes = 2 * Dims<D>::kElem * kJvpScanThreads * static_cast<int>(sizeof(T));
-  const cudaError_t err = cudaFuncSetAttribute(
-      phase2_jvp_starts_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  phase2_jvp_starts_kernel<T, D><<<k, kJvpScanThreads, bytes, stream>>>(comps, priors, starts, B);
+  constexpr int bytes = phase2_jvp_shared_bytes<T, D>();
+  if (bytes > 0) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        phase2_jvp_starts_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid(kPhase2JvpCluster, k);
+  phase2_jvp_starts_kernel<T, D><<<grid, kJvpLaneThreads * kPhase2JvpWarps, bytes, stream>>>(
+      comps, priors, starts, B);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_phase2_jvp(const T* comps, const T* priors, T* starts, int B, int D, int k,
                       cudaStream_t stream) {
-  if (B < 1 || k < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (B < 1 || k < 1 || k > 65535) return static_cast<int>(cudaErrorInvalidValue);
   switch (D) {
     case 1: return launch_phase2_jvp_d<T, 1>(comps, priors, starts, B, k, stream);
     case 2: return launch_phase2_jvp_d<T, 2>(comps, priors, starts, B, k, stream);

@@ -38,7 +38,18 @@
 // chunks 0 .. c-1 (at most C - 1 affine steps, read from L2) and replays its
 // chunk of ceil(L / C) steps with the next step's rows loaded ahead, as K8
 // does: C times the threads, and each with a step in flight. K10's chunk
-// count is K8's (kAffineChunks). K9 is one thread block (see below).
+// count is K8's (kAffineChunks).
+//
+// K9 is a scan of B affine aggregates of KT values (172 KB in float32 at
+// B = 2048): bound on paper by bytes (0.1 us), in practice by the depth of
+// its chain of dependent compositions. It is the cluster scan of scan.cuh,
+// which K2 runs on filtering elements, on affine maps (21 values at D = 3):
+// one aggregate a lane, a Kogge-Stone across a warp's lanes in shuffles,
+// then across the warp totals and the cluster's thread-block totals. At
+// B = 2048 one cluster of kAffineScanCluster thread blocks of
+// kAffineScanWarps warps holds every aggregate: 5 + 3 + 3 dependent
+// affine_combines and 3 affine_steps, in 80 registers in float and 158 in
+// double at D = 3, no spill.
 //
 // K8 is bound by bytes: it reads KT values a step and does about 180 flops
 // with them. One thread per block would keep one step of 21 rows a thread in
@@ -56,11 +67,11 @@
 #include <cooperative_groups.h>
 
 #include "lanes.cuh"
+#include "scan.cuh"
 
 namespace tgps {
 
-constexpr int kStateThreads = 32;        // K7, K8, K10: lanes a warp
-constexpr int kAffineScanThreads = 128;  // K9: threads of the single thread block
+constexpr int kStateThreads = 32;  // K7, K8, K10: lanes a warp
 // K7: chunks of every block's steps, one per warp, and warps per thread
 // block; a cluster of C / W thread blocks holds a block's C warps.
 // ops/kernels.py passes its PHASE3_STATES_CHUNKS at the launch; the two must agree.
@@ -84,6 +95,13 @@ constexpr int kAffinePrefetch = 1;
 // 16).
 constexpr int kAffinePhase3Warps = 8;
 static_assert(kAffineChunks % kAffinePhase3Warps == 0, "W divides the chunk count");
+// K9: thread blocks of its one cluster, warps a thread block, and the
+// aggregates a lane folds before the scan (a round covers
+// kAffineScanCluster * kAffineScanWarps * 32 * kAffineScanFold aggregates;
+// a larger B takes several rounds in order).
+constexpr int kAffineScanCluster = 8;
+constexpr int kAffineScanWarps = 8;
+constexpr int kAffineScanFold = 1;
 
 // Shared memory of K7: every warp's chunk aggregate, K rows of 32 lanes a
 // warp, read by the warps of later chunks.
@@ -205,54 +223,57 @@ affine_phase1_kernel(const T* __restrict__ params, T* __restrict__ out,
   if (w == 0 && b < B) store_affine(acc, out + b, B);
 }
 
-// Exclusive prefix of the B aggregates seeded with x0, the element
-// (0, m0, P0): starts[b] = x0 then agg_0, ..., agg_{b-1}, written as (m, P)
-// rows. Composition is associative but not commutative, so every step keeps
-// the earlier operand on the left.
-//
-// The reference holds all (KT, B) aggregates in TPU VMEM; at B = 2048 in
-// double that is 344 KB, above the 227 KB of shared memory a thread block may
-// have. So the scan is two-level: (1) each thread folds a contiguous
-// run of ceil(B / kAffineScanThreads) aggregates; (2) an inclusive
-// Hillis-Steele scan of the partials in shared memory (KT x 128 values:
-// 21.5 KB in double at D = 3); (3) each thread re-folds its run from its
-// exclusive prefix, seeded with x0, writing each block's start on the way.
+// K9's element policy for cluster_scan (scan.cuh): affine maps, (KT, B)
+// aggregates, x0 = (0, m0, P0) applied as a state (affine_step, the state
+// part of a composition), starts written as (m, P) rows.
 template <typename T, int D>
-__global__ void __launch_bounds__(kAffineScanThreads)
+struct AffineScan {
+  using Scalar = T;
+  using Element = Affine<T, D>;
+  struct State {
+    Vec<T, D> m;
+    Mat<T, D> P;
+  };
+  static constexpr int kRows = Dims<D>::kAffine;
+  const T* agg;
+  const T* prior;
+  T* starts;
+  int B;
+  __device__ Element identity() const { return identity_affine<T, D>(); }
+  __device__ Element combine(const Element& ei, const Element& ej) const {
+    return affine_combine(ei, ej);
+  }
+  __device__ Element shfl_up(const Element& e, int delta) const { return shfl_up_affine(e, delta); }
+  __device__ Element load(const T* base, long long stride) const {
+    return load_affine<T, D>(base, stride);
+  }
+  __device__ void store(const Element& e, T* base, long long stride) const {
+    store_affine(e, base, stride);
+  }
+  __device__ Element load_agg(int b) const { return load_affine<T, D>(agg + b, B); }
+  __device__ State prior_state() const {
+    State s;
+    load_state(prior, 1, s.m, s.P);
+    return s;
+  }
+  __device__ void apply(State& s, const Element& e) const { affine_step(s.m, s.P, e); }
+  __device__ void store_start(const State& s, int b) const { store_state(s.m, s.P, starts + b, B); }
+};
+
+// Exclusive prefix of the B aggregates seeded with x0, the map (0, m0, P0):
+// starts[b] = x0 then agg_0, ..., agg_{b-1}, written as (m, P) rows, by one
+// cluster of kAffineScanCluster thread blocks of kAffineScanWarps warps
+// (cluster_scan). Composition is associative but not commutative, so every
+// level keeps the earlier operand on the left.
+template <typename T, int D>
+__global__ void __cluster_dims__(kAffineScanCluster, 1, 1)
+__launch_bounds__(kStateThreads * kAffineScanWarps)
 affine_phase2_starts_kernel(const T* __restrict__ agg, const T* __restrict__ prior,
                             T* __restrict__ starts, int B) {
-  __shared__ T partials[Dims<D>::kAffine * kAffineScanThreads];
-  const int t = threadIdx.x;
-  const int run = (B + kAffineScanThreads - 1) / kAffineScanThreads;
-  const int lo = min(t * run, B);
-  const int hi = min(lo + run, B);
-
-  Affine<T, D> own = identity_affine<T, D>();
-  for (int b = lo; b < hi; ++b) own = affine_combine(own, load_affine<T, D>(agg + b, B));
-
-  store_affine(own, partials + t, kAffineScanThreads);
-  __syncthreads();
-  for (int offset = 1; offset < kAffineScanThreads; offset <<= 1) {
-    Affine<T, D> next = own;
-    if (t >= offset) {
-      next = affine_combine(load_affine<T, D>(partials + (t - offset), kAffineScanThreads), own);
-    }
-    __syncthreads();
-    own = next;
-    store_affine(own, partials + t, kAffineScanThreads);
-    __syncthreads();
-  }
-
-  Affine<T, D> state;
-  state.A = zeros_mat<T, D>();
-  load_state(prior, 1, state.b, state.C);
-  if (t > 0) {
-    state = affine_combine(state, load_affine<T, D>(partials + (t - 1), kAffineScanThreads));
-  }
-  for (int b = lo; b < hi; ++b) {
-    store_state(state.b, state.C, starts + b, B);
-    state = affine_combine(state, load_affine<T, D>(agg + b, B));
-  }
+  using P = AffineScan<T, D>;
+  __shared__ T shared[scan_shared_rows<P, kAffineScanCluster, kAffineScanWarps>()];
+  cluster_scan<kAffineScanCluster, kAffineScanWarps, kAffineScanFold, false>(
+      P{agg, prior, starts, B}, B, shared, nullptr);
 }
 
 // Warp w of thread block (x, y) takes chunk c = y W + w: steps [c Lc,
@@ -357,10 +378,11 @@ template <typename T>
 int launch_affine_phase2(const T* agg, const T* prior, T* starts, int B, int D,
                          cudaStream_t stream) {
   if (B < 1) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int threads = kStateThreads * kAffineScanWarps;
   switch (D) {
-    case 1: affine_phase2_starts_kernel<T, 1><<<1, kAffineScanThreads, 0, stream>>>(agg, prior, starts, B); break;
-    case 2: affine_phase2_starts_kernel<T, 2><<<1, kAffineScanThreads, 0, stream>>>(agg, prior, starts, B); break;
-    case 3: affine_phase2_starts_kernel<T, 3><<<1, kAffineScanThreads, 0, stream>>>(agg, prior, starts, B); break;
+    case 1: affine_phase2_starts_kernel<T, 1><<<kAffineScanCluster, threads, 0, stream>>>(agg, prior, starts, B); break;
+    case 2: affine_phase2_starts_kernel<T, 2><<<kAffineScanCluster, threads, 0, stream>>>(agg, prior, starts, B); break;
+    case 3: affine_phase2_starts_kernel<T, 3><<<kAffineScanCluster, threads, 0, stream>>>(agg, prior, starts, B); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

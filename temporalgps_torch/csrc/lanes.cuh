@@ -463,19 +463,6 @@ __device__ __forceinline__ Elem<T, D> shfl_up_elem(const Elem<T, D>& e, int delt
   return out;
 }
 
-// Inclusive Kogge-Stone scan of the elements of the first n lanes of a warp
-// (n a power of two, at most 32): lane i ends with e_0 ∘ ... ∘ e_i, the
-// earlier operand on the left at every level. Every lane takes part.
-template <typename T, int D>
-__device__ __forceinline__ Elem<T, D> warp_scan(Elem<T, D> e, int lane, int n) {
-#pragma unroll 1
-  for (int d = 1; d < n; d *= 2) {
-    const Elem<T, D> left = shfl_up_elem(e, d);
-    if (lane >= d) e = combine(left, e);
-  }
-  return e;
-}
-
 // Predict, scalar update (in place on m, P), and the step's log marginal
 // likelihood.
 template <typename T, int D>
@@ -730,6 +717,16 @@ __device__ __forceinline__ void store_affine(const Affine<T, D>& e, T* base, lon
   for (int r = 0; r < D; ++r)
 #pragma unroll
     for (int c = 0; c < D; ++c) base[(k++) * stride] = e.C.m[r][c];
+}
+
+// shfl_up_elem for an affine map.
+template <typename T, int D>
+__device__ __forceinline__ Affine<T, D> shfl_up_affine(const Affine<T, D>& e, int delta) {
+  Affine<T, D> out;
+  out.A = shfl_up_mat(e.A, delta);
+  out.b = shfl_up_vec(e.b, delta);
+  out.C = shfl_up_mat(e.C, delta);
+  return out;
 }
 
 // Composition: ei first, then ej.

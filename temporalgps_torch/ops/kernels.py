@@ -763,8 +763,9 @@ phase1_aggregate.launches = 0
 # (_phase2_kernel). The TPU kernel scans all (K, B) aggregates in VMEM (540
 # KB at B = 2048 in float64, above the 227 KB of shared memory a thread
 # block may have). Bound on paper by bytes (0.1 us), in practice by the
-# depth of its chain of dependent combines. So each lane of one cluster of
-# 8 thread blocks of 8 warps holds one aggregate (a warp reads 32
+# depth of its chain of dependent combines. So it runs the cluster scan of
+# csrc/scan.cuh, which K5 and K9 share: each lane of one cluster of 8
+# thread blocks of 8 warps holds one aggregate (a warp reads 32
 # neighbouring addresses a row) and the scan is a Kogge-Stone across the
 # warp's lanes in shuffles, then across the warp totals in shared memory,
 # then across the thread-block totals in the cluster's: at B = 2048, 5 + 3
@@ -874,14 +875,17 @@ phase1_jvp.launches = 0
 
 # K5. Replaces temporalgps_tpu/ops/pallas_kernels.py phase2_jvp_starts
 # (_phase2_jvp_kernel). The reference scans all 1+k element sets in one
-# program in VMEM; here thread block j of k scans the primal and tangent j
-# together in a two-level scan (each thread folds a contiguous run of
-# ceil(B/128) aggregates, the 128 partials are scanned in shared memory, and
-# each thread re-folds its run from its prefix), so shared memory holds two
-# element sets whatever k is (67,584 B in float64 at D = 3: dynamic shared memory,
-# with the attribute raised at the launch). Bound by bytes ((1+k)(K + SD) B
-# values moved, one combine a block and tangent), and in practice by the
-# latency of 2 ceil(B/128) + 7 dependent combines.
+# program in VMEM. Bound on paper by bytes ((1+k)(K + SD) B values moved),
+# in practice by the depth of its chain of dependent combines. So it is K2's
+# cluster scan (csrc/scan.cuh) on (primal, tangent j) pairs: one cluster of
+# 8 thread blocks of 8 warps per tangent (the primal recomputed in each,
+# written by the first), one pair a lane, a Kogge-Stone across each warp's
+# lanes, then across the warp and thread-block totals: at B = 2048, 5 + 3
+# + 3 dependent combine_jvps and 3 state-only ones; a larger B in rounds of
+# 2048. A pair is 66 values, two of them 264 registers in float64, so in
+# float64 each level reads its left pair from shared memory (dynamic, 132 KB
+# a thread block at D = 3) rather than shuffles. Any B >= 1 and
+# 1 <= k <= 65535 are taken.
 def phase2_jvp_starts(comps, priors, D, k):
     """((1+k)*K, B) aggregates and (1+k, SD) priors (m0 then row-major P0, for
     the primal and each tangent) -> ((1+k)*SD, B) block-start states."""
@@ -1006,11 +1010,13 @@ affine_phase1.launches = 0
 # K9. Replaces temporalgps_tpu/ops/pallas_kernels.py affine_phase2_starts
 # (_affine_phase2_kernel). The TPU kernel holds all (KT, B) aggregates in
 # VMEM (344 KB at B = 2048 in float64, above the 227 KB of shared memory a
-# thread block may have), so this is a two-level scan: one thread block of
-# 128 threads, each folding a contiguous run, an inclusive scan of the 128
-# partials in shared memory (KT x 128 values, 21.5 KB in float64), and each
-# thread re-folding its run from its exclusive prefix, seeded with x0. Bound
-# by latency: ceil(B/128) + 7 + ceil(B/128) dependent combines on one SM.
+# thread block may have). Bound on paper by bytes, in practice by the depth
+# of its chain of dependent compositions. So it is K2's cluster scan
+# (csrc/scan.cuh) on affine maps: one aggregate a lane of one cluster of 8
+# thread blocks of 8 warps, a Kogge-Stone across each warp's lanes in
+# shuffles (21 values a map at D = 3), then across the warp and
+# thread-block totals: at B = 2048, 5 + 3 + 3 dependent affine_combines and
+# 3 affine_steps, seeded with x0; a larger B in rounds of 2048.
 def affine_phase2_starts(agg, x0_mean, x0_cov, D):
     """(KT, B) aggregates and the initial state (m0, P0) -> (SD, B)
     block-start states."""

@@ -86,28 +86,92 @@ def test_kernels_match_plain_versions_on_card(cuda_device, D, dtype, rtol, L, B)
         assert (got - want).abs().max().item() <= rtol * want.abs().max().item()
 
 
+def _jvp_inputs(rng, D, k, dtype, device, L, B):
+    """Streams with gaps, (1+k, PK2) parameter rows with a live noise
+    tangent, and (1+k, SD) priors for K4-K6."""
+    y, s = _streams_with_gaps(rng, L, B)
+    to = lambda x: torch.as_tensor(x, dtype=dtype, device=device)
+    sym = lambda X: 0.5 * (X + X.T)
+    A = np.eye(D) * 0.9 + 0.01 * rng.standard_normal((D, D))
+    primal = tk.pack_params_s(to(A), to(np.zeros(D)), to(0.1 * np.eye(D)), to(np.ones(D)),
+                              to(0.05), to(0.0), dtype)
+    tangents = [
+        tk.pack_params_s(to(0.1 * rng.standard_normal((D, D))), to(0.1 * rng.standard_normal(D)),
+                         to(0.05 * sym(rng.standard_normal((D, D)))),
+                         to(0.1 * rng.standard_normal(D)), to(0.1 * rng.standard_normal()),
+                         to(0.2 * rng.standard_normal()), dtype)
+        for _ in range(k)
+    ]
+    rows = torch.stack([primal, *tangents])
+    priors = torch.stack([
+        torch.cat([to(np.zeros(D)), to(np.eye(D)).reshape(-1)]),
+        *(torch.cat([to(0.1 * rng.standard_normal(D)),
+                     to(0.1 * sym(rng.standard_normal((D, D)))).reshape(-1)])
+          for _ in range(k)),
+    ])
+    return to(y).contiguous(), to(s).contiguous(), rows, priors
+
+
+def _affine_maps(rng, D, dtype, device, L, B):
+    """Time-varying stable affine maps (KT, L, B)."""
+    F = np.eye(D) * 0.95 + 0.02 * rng.standard_normal((L, B, D, D))
+    G = 0.1 * rng.standard_normal((L, B, D, D))
+    C = np.einsum("lbij,lbkj->lbik", G, G)
+    rows = np.concatenate([F.reshape(L, B, D * D), 0.1 * rng.standard_normal((L, B, D)),
+                           C.reshape(L, B, D * D)], axis=-1)
+    return torch.as_tensor(rows.transpose(2, 0, 1), dtype=dtype, device=device).contiguous()
+
+
+def _scan_case(scan, rng, D, dtype, device, B):
+    """(kernel starts, plain starts, the rows downstream of both, wrapper) of
+    one scan on aggregates that the plain phase 1 makes from (37, B) inputs:
+    the per-block lml (K2), the (1+k, B) lml rows (K5, k tangents), the
+    states after every step (K9)."""
+    if scan == "phase2_starts":
+        y_t, s_t, packed, m0, P0 = _value_inputs(rng, D, dtype, device, 37, B)
+        p1, p_runs = tk.phase1_aggregate_plain(y_t, s_t, packed, D,
+                                               chunks=tk.PHASE1_AGGREGATE_CHUNKS)
+        starts = (tk.phase2_starts(p1, m0, P0, D), tk.phase2_starts_plain(p1, m0, P0, D))
+        downstream = lambda st: tk.phase3_lml_plain(y_t, s_t, packed, st, D, p_runs)[None]
+        return (*starts, downstream, tk.phase2_starts)
+    if scan.startswith("phase2_jvp_starts"):
+        k = int(scan[-1])
+        y_t, s_t, rows, priors = _jvp_inputs(rng, D, k, dtype, device, 37, B)
+        p1, p_runs = tk.phase1_jvp_plain(y_t, s_t, rows, D, k, chunks=tk.PHASE1_JVP_CHUNKS)
+        starts = (tk.phase2_jvp_starts(p1, priors, D, k), tk.phase2_jvp_starts_plain(p1, priors, D, k))
+        downstream = lambda st: tk.phase3_jvp_lml_plain(y_t, s_t, rows, st, D, k, p_runs)
+        return (*starts, downstream, tk.phase2_jvp_starts)
+    params = _affine_maps(rng, D, dtype, device, 37, B)
+    to = lambda x: torch.as_tensor(x, dtype=dtype, device=device)
+    m0, P0 = to(0.1 * rng.standard_normal(D)), to(np.eye(D))
+    p8, p_runs = tk.affine_phase1_plain(params, D, chunks=tk.AFFINE_PHASE1_CHUNKS)
+    starts = (tk.affine_phase2_starts(p8, m0, P0, D), tk.affine_phase2_starts_plain(p8, m0, P0, D))
+    downstream = lambda st: tk.affine_phase3_states_plain(params, st, D, p_runs)
+    return (*starts, downstream, tk.affine_phase2_starts)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B", [1, 96, 2048, 5000])
 @pytest.mark.parametrize("D", [1, 3])
 @pytest.mark.parametrize("dtype, rtol", [(torch.float64, 1e-10), (torch.float32, 1e-4)])
-def test_phase2_kernel_takes_any_block_count(cuda_device, D, dtype, rtol, B):
-    """K2 on the aggregates that the plain K1 makes from (37, B) streams, held
-    on the per-block lml downstream: one block, a width that is not a
-    multiple of a warp, one lane a block in one round (2048), and several
-    rounds (5000)."""
-    y_t, s_t, packed, m0, P0 = _value_inputs(np.random.default_rng(B + D), D, dtype,
-                                             cuda_device, 37, B)
-    p1, p_runs = tk.phase1_aggregate_plain(y_t, s_t, packed, D,
-                                           chunks=tk.PHASE1_AGGREGATE_CHUNKS)
-    p2 = tk.phase2_starts_plain(p1, m0, P0, D)
+@pytest.mark.parametrize("scan", ["phase2_starts", "phase2_jvp_starts_k1", "phase2_jvp_starts_k3",
+                                  "affine_phase2_starts"])
+def test_phase2_kernel_takes_any_block_count(cuda_device, scan, D, dtype, rtol, B):
+    """The three scans of the cluster scan (csrc/scan.cuh), each on the
+    aggregates that its plain phase 1 makes from (37, B) inputs, held on the
+    rows the plain phases compute downstream, each row scaled by its largest
+    entry: K2 on the per-block lml, K5 (k = 1 and 3) on the (1+k, B) lml
+    rows, K9 on time-varying affine maps' states. One block, a width that is
+    not a multiple of a warp, one lane a block in one round (2048), and
+    several rounds (5000)."""
+    rng = np.random.default_rng(B + D)
     tk.reset_launch_counts()
-    k2 = tk.phase2_starts(p1, m0, P0, D)
+    got, want, downstream, wrapper = _scan_case(scan, rng, D, dtype, cuda_device, B)
     torch.cuda.synchronize()
-    assert tk.phase2_starts.launches == 1 and k2.shape == p2.shape
-    want = tk.phase3_lml_plain(y_t, s_t, packed, p2, D, p_runs)
-    got = tk.phase3_lml_plain(y_t, s_t, packed, k2, D, p_runs)
-    assert bool(torch.isfinite(got).all())
-    assert (got - want).abs().max().item() <= rtol * want.abs().max().item()
+    assert wrapper.launches == 1 and got.shape == want.shape
+    rows_got, rows_want = downstream(got), downstream(want)
+    assert bool(torch.isfinite(rows_got).all())
+    assert _rows_rel_err(rows_got, rows_want) <= rtol
 
 
 # The chunked kernels' C entries: the shapes of their pointer arguments and
@@ -160,28 +224,8 @@ def test_jvp_kernels_match_plain_versions_on_card(cuda_device, D, k, dtype, rtol
     own largest entry: K4's block and run aggregates, K5's starts, and K6 fed
     K4's run aggregates. A missing step, padding steps and a live noise
     tangent exercise the mask; B = 300 the ragged edge of K5."""
-    rng = np.random.default_rng(10 * D + k)
-    y, s = _streams_with_gaps(rng, L, B)
-    to = lambda x: torch.as_tensor(x, dtype=dtype, device=cuda_device)
-    sym = lambda X: 0.5 * (X + X.T)
-    A = np.eye(D) * 0.9 + 0.01 * rng.standard_normal((D, D))
-    primal = tk.pack_params_s(to(A), to(np.zeros(D)), to(0.1 * np.eye(D)), to(np.ones(D)),
-                              to(0.05), to(0.0), dtype)
-    tangents = [
-        tk.pack_params_s(to(0.1 * rng.standard_normal((D, D))), to(0.1 * rng.standard_normal(D)),
-                         to(0.05 * sym(rng.standard_normal((D, D)))),
-                         to(0.1 * rng.standard_normal(D)), to(0.1 * rng.standard_normal()),
-                         to(0.2 * rng.standard_normal()), dtype)
-        for _ in range(k)
-    ]
-    rows = torch.stack([primal, *tangents])
-    priors = torch.stack([
-        torch.cat([to(np.zeros(D)), to(np.eye(D)).reshape(-1)]),
-        *(torch.cat([to(0.1 * rng.standard_normal(D)),
-                     to(0.1 * sym(rng.standard_normal((D, D)))).reshape(-1)])
-          for _ in range(k)),
-    ])
-    y_t, s_t = to(y).contiguous(), to(s).contiguous()
+    y_t, s_t, rows, priors = _jvp_inputs(np.random.default_rng(10 * D + k), D, k, dtype,
+                                         cuda_device, L, B)
     p1, p_runs = tk.phase1_jvp_plain(y_t, s_t, rows, D, k, chunks=tk.PHASE1_JVP_CHUNKS)
     p2 = tk.phase2_jvp_starts_plain(p1, priors, D, k)
     p3 = tk.phase3_jvp_lml_plain(y_t, s_t, rows, p2, D, k, p_runs)
@@ -356,12 +400,7 @@ def test_state_kernels_match_plain_versions_on_card(cuda_device, D, dtype, rtol,
                             to(0.05), dtype)
     m0, P0 = to(0.1 * rng.standard_normal(D)), to(np.eye(D))
     starts = tk.phase2_starts_plain(tk.phase1_aggregate_plain(y, s, packed, D)[0], m0, P0, D)
-    F = np.eye(D) * 0.95 + 0.02 * rng.standard_normal((L, B, D, D))
-    G = 0.1 * rng.standard_normal((L, B, D, D))
-    C = np.einsum("lbij,lbkj->lbik", G, G)
-    rows = np.concatenate([F.reshape(L, B, D * D), 0.1 * rng.standard_normal((L, B, D)),
-                           C.reshape(L, B, D * D)], axis=-1)
-    params = to(rows.transpose(2, 0, 1))
+    params = _affine_maps(rng, D, dtype, cuda_device, L, B)
     p7 = tk.phase3_states_plain(y, s, packed, starts, D, chunks=tk.PHASE3_STATES_CHUNKS)
     p8, p_runs = tk.affine_phase1_plain(params, D, chunks=tk.AFFINE_PHASE1_CHUNKS)
     p9 = tk.affine_phase2_starts_plain(p8, m0, P0, D)
