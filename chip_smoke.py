@@ -60,7 +60,9 @@ Phases; any failure exits non-zero without the final result line:
      component, with an absolute floor of 1e-6 of the largest component
      (the components are sums over the same steps, so their float32 rounding
      shares that scale), printed beside the components' sizes; a model the
-     kernels do not take (irregular times) raises on the card; three Adam
+     kernels do not take (irregular times) takes the general schedule's
+     forward mode on the card, K4 not launched, within 1e-8 of the CPU port
+     (value and gradient, N = 64); three Adam
      steps on vg at N = 1M with finite, decreasing loss; and fit() at
      N = 20k on vg and on autograd, which must agree.
   7. Time each kernel (median of 5 batches of 10 calls) and its plain
@@ -95,8 +97,9 @@ Phases; any failure exits non-zero without the final result line:
      engine on the CPU at N = 20k; at N = 1M the float32 error against
      float64 is printed beside the sizes it compares, with finite values and
      positive variances gated; a posterior at new times (2k training and 500
-     prediction times, interleaved: the sequential filter, then K8-K10) on
-     the card within 1e-9 of the CPU in float64; cov refuses.
+     prediction times, interleaved: the streamed K1, K2 and the streamed K7,
+     then K8-K10) on the card within 1e-9 of the CPU in float64; cov
+     refuses.
  11. Time K7-K10 as phase 7 does, each plain version once, and the
      end-to-end posterior-marginals call at c1 and at N = 1M, with each
      kernel's bound from this run's shapes.
@@ -106,9 +109,35 @@ Phases; any failure exits non-zero without the final result line:
      missing data, K1/K2/K7, the reversal of the dynamics, the affine rows,
      K8-K10, the projection).
 
+ 13. The streamed forms of K1, K3 and K7 (per-step (A, a, Q) rows) against
+     their plain versions in their chunk order at irregular-c2's shapes
+     (D = 3, N = 1M, B = 2048, L = 489) and at phase 4's two ragged shapes
+     (the first L*B transitions of irregular-c2, identity rows on the padding
+     steps), float64 and float32, gated as in phase 3 (K1's block and run
+     aggregates on the lml partials downstream, K3 fed K1's runs, K7's
+     states row by row); each timed as in phase 7 with its bound.
+ 14. irregular-c2 through the public entry points: c2's model and noise on
+     N = 1M times whose steps are drawn uniform on [0.5e-3, 1.5e-3]
+     (default_rng(0)), c2's y with one NaN. The float32 `logpdf` and
+     posterior marginals are this slice's main path: the streamed K1, K3, K7
+     with K2 and K8-K10 must launch, the constant K1, K3, K7 must not.
+     logpdf, the filter, posterior marginals at the training inputs and at
+     100k new times (merged N = 1.1M): finite, positive variances, float32
+     lml within 1e-3 of float64; float64 at N = 20k within 1e-9 of the
+     sequential engine on the CPU (lml and posterior marginals). vg(p0)
+     (k = 3) on the general schedule's forward mode: float32 within 1e-3 of
+     float64, and at N = 20k the float64 gradient within 1e-6 of the
+     sequential engine's autograd. The D = 6 model (Matern52() +
+     Matern52().stretch(3), assembled block-diagonally) at N = 100k on the
+     matrix path: no kernel launched, finite; float64 at N = 2k within 1e-10
+     of the CPU's matrix path. Every call timed by CUDA events (median of
+     batches); torch.profiler and host stages of the irregular logpdf and
+     the new-times posterior.
+
 The third line from the end is the card's name and power limit, the second
-{"kernels": [...]} with the float32 (main path) numbers of all ten kernels,
-the last {"ok": true, "device": {...}}.
+{"kernels": [...]} with the float32 (main path) numbers of all thirteen
+kernels (the ten and the streamed forms of K1, K3, K7), the last
+{"ok": true, "device": {...}}.
 """
 
 import json
@@ -141,6 +170,9 @@ SOURCES = {
     "affine_phase1": "temporalgps_torch/csrc/block_states.cu",
     "affine_phase2_starts": "temporalgps_torch/csrc/block_states.cu",
     "affine_phase3_states": "temporalgps_torch/csrc/block_states.cu",
+    "phase1_aggregate_streamed": "temporalgps_torch/csrc/block_phases.cu",
+    "phase3_lml_streamed": "temporalgps_torch/csrc/block_phases.cu",
+    "phase3_states_streamed": "temporalgps_torch/csrc/block_states.cu",
 }
 REPLACES = {
     "phase1_aggregate": "temporalgps_tpu/ops/pallas_kernels.py:227",
@@ -153,11 +185,29 @@ REPLACES = {
     "affine_phase1": "temporalgps_tpu/ops/pallas_kernels.py:905",
     "affine_phase2_starts": "temporalgps_tpu/ops/pallas_kernels.py:974",
     "affine_phase3_states": "temporalgps_tpu/ops/pallas_kernels.py:1017",
+    # The streamed forms of K1, K3 and K7 (per-step transitions) replace the
+    # same TPU kernels, which the reference's general schedule runs in XLA
+    # for such models.
+    "phase1_aggregate_streamed": "temporalgps_tpu/ops/pallas_kernels.py:227",
+    "phase3_lml_streamed": "temporalgps_tpu/ops/pallas_kernels.py:731",
+    "phase3_states_streamed": "temporalgps_tpu/ops/pallas_kernels.py:810",
 }
 VALUE_KERNELS = ("phase1_aggregate", "phase2_starts", "phase3_lml")
 JVP_KERNELS = ("phase1_jvp", "phase2_jvp_starts", "phase3_jvp_lml")
 STATE_KERNELS = ("phase3_states", "affine_phase1", "affine_phase2_starts", "affine_phase3_states")
 POSTERIOR_KERNELS = ("phase1_aggregate", "phase2_starts") + STATE_KERNELS
+STREAMED_KERNELS = ("phase1_aggregate_streamed", "phase3_lml_streamed", "phase3_states_streamed")
+# The irregular-times posterior: streamed K1, K2, streamed K7, then K8-K10.
+IRREGULAR_POSTERIOR_KERNELS = ("phase1_aggregate_streamed", "phase2_starts",
+                               "phase3_states_streamed") + STATE_KERNELS[1:]
+# irregular-c2: c2's model and noise on N_MAIN irregular times (time steps
+# drawn uniform on [0.5e-3, 1.5e-3], default_rng(SEED)); posterior marginals
+# at N_NEW new times, sorted, uniform over the span; the D = 6 model (the sum
+# of Matern52() and Matern52().stretch(D6_STRETCH)) at N_D6 of the same
+# times; gates against the sequential engine at N_SMALL (N_D6_SMALL for D = 6).
+DT_RANGE = (0.5e-3, 1.5e-3)
+N_NEW = 100_000
+N_D6, N_D6_SMALL, D6_STRETCH = 100_000, 2_000, 3.0
 N_C1 = 10_000
 N_TRAIN_NEW, N_PRED_NEW = 2_000, 500
 KERNEL_RTOL = {"float64": 1e-10, "float32": 1e-4}
@@ -242,10 +292,15 @@ def flops_affine_step(D):
 
 def kernel_work(name, L, B, D, k):
     """(operations, values moved) of one call: the primal once and each of
-    the k tangents once; every input read once, every output written once."""
+    the k tangents once; every input read once, every output written once.
+    A streamed form does its kernel's work and reads KT transition values
+    a step more."""
     K, SD, PK = 3 * D * D + 2 * D, D + D * D, 2 * D * D + 2 * D + 1
     KT = 2 * D * D + D
     steps = L * B
+    if name.endswith("_streamed"):
+        ops, values = kernel_work(name[:-len("_streamed")], L, B, D, k)
+        return ops, values + KT * steps
     if name == "phase1_aggregate":
         return steps * (flops_step_element(D) + flops_combine(D)), 2 * steps + PK + K * B
     if name == "phase2_starts":
@@ -322,7 +377,8 @@ def main():
     from temporalgps_torch.gp import GP, ArrayStorage, Matern32, Matern52, to_sde
     from temporalgps_torch.gp import posterior as gpost
     from temporalgps_torch.gp.lti_sde import build_lgssm
-    from temporalgps_torch.models.missings import (posterior_with_missings,
+    from temporalgps_torch.models.missings import (logpdf_with_missings,
+                                                   posterior_with_missings,
                                                    replace_observation_noise_cov,
                                                    transform_model_and_obs)
     from temporalgps_torch.ops import block, kernels
@@ -654,22 +710,26 @@ def main():
                     f"rel={rec['grad_f32_rel_per_component']} (tol 1e-3 relative + {floor:.3g} "
                     f"absolute, {rec['grad_floor_over_smallest']:.2e} of the smallest component)")
 
-        # A model K4-K6 do not take (irregular times) is refused on the card.
-        times = torch.linspace(0.0, 4.0, 64, dtype=torch.float64, device=DEVICE) ** 1.5
+        # A model K4-K6 do not take (irregular times) takes the forward mode
+        # of the general block schedule on the card, and matches the CPU port.
+        times = torch.linspace(0.0, 4.0, 64, dtype=torch.float64) ** 1.5
 
-        def irregular_fn(p):
-            s2, sc, noise = torch.exp(p)
-            kern = (s2 * Matern52()).stretch(sc)
-            return build_lgssm(to_sde(GP(kern), device=DEVICE)(times, noise))
+        def irregular_on(device):
+            def irregular_fn(p):
+                s2, sc, noise = torch.exp(p)
+                kern = (s2 * Matern52()).stretch(sc)
+                return build_lgssm(to_sde(GP(kern), device=device)(times.to(device), noise))
 
-        before = kernels.launch_counts()
-        try:
-            value_and_grad_fwd_lgssm(irregular_fn, y_np[:64])(p0)
-            refused = False
-        except NotImplementedError as e:
-            refused = "item 4b" in str(e)
-        smoke.check(refused and kernels.launch_counts() == before,
-                    "a model the kernels do not take raises on the card (no plain schedule runs)")
+            return irregular_fn
+
+        before = kernels.launch_counts()["phase1_jvp"]
+        v_i, g_i = value_and_grad_fwd_lgssm(irregular_on(DEVICE), y_np[:64])(p0)
+        v_c, g_c = value_and_grad_fwd_lgssm(irregular_on("cpu"), y_np[:64])(p0.cpu())
+        r_i = max(rel(v_i.item(), v_c.item()),
+                  ((g_i.cpu() - g_c).abs().max() / g_c.abs().max()).item())
+        smoke.check(kernels.launch_counts()["phase1_jvp"] == before and r_i <= 1e-8,
+                    f"irregular times: the general schedule's forward mode on the card, K4 not "
+                    f"launched, value and gradient vs the CPU port rel={r_i:.3e} (tol 1e-8)")
 
         y_small = y_np[:N_SMALL]
         _, g_k = value_and_grad_fwd_lgssm(make_model_fn(torch.float64, N_SMALL, DEVICE), y_small)(p0)
@@ -1033,9 +1093,9 @@ def main():
         m_c, v_c = new_times("cpu")
         r_new = max(rel_max(m_n.cpu(), m_c), rel_max(v_n.cpu(), v_c))
         rec["new_times_rel_vs_cpu"] = r_new
-        smoke.check(all(counts[kn] == 1 for kn in STATE_KERNELS[1:])
+        smoke.check(all(counts[kn] == 1 for kn in IRREGULAR_POSTERIOR_KERNELS)
                     and counts["phase3_states"] == 0 and m_n.shape == (N_PRED_NEW,),
-                    f"new times: sequential filter, then K8-K10: {counts}")
+                    f"new times: streamed K1, K2, streamed K7, then K8-K10: {counts}")
         smoke.check(r_new <= 1e-9,
                     f"float64 new times ({N_TRAIN_NEW} + {N_PRED_NEW}) card vs CPU "
                     f"rel={r_new:.3e} (tol 1e-9)")
@@ -1107,6 +1167,318 @@ def main():
                         and all(us > 0 for us in summary["kernel_us"].values()),
                         f"{name}: the profiler saw K1, K2, K7-K10 on the device")
 
+    # ---- 13-14. per-step transitions: irregular times, D > 3 ----------------
+    times_np = np.cumsum(np.random.default_rng(SEED).uniform(*DT_RANGE, N_MAIN))
+    x_new = np.sort(np.random.default_rng(SEED + 2).uniform(times_np[0], times_np[-1], N_NEW))
+
+    def make_irregular(dtype, N, device, s2=S2, sc=SC, noise=NOISE):
+        """irregular-c2: c2's model on the first N irregular times."""
+        kern = (s2 * Matern52()).stretch(sc)
+        return to_sde(GP(kern), ArrayStorage(dtype), device=device)(
+            torch.as_tensor(times_np[:N], device=device), noise)
+
+    def make_irregular_fn(dtype, N, device):
+        def model_fn(p):
+            s2, sc, noise = torch.exp(p)
+            return build_lgssm(make_irregular(dtype, N, device, s2=s2, sc=sc, noise=noise))
+
+        return model_fn
+
+    def streamed_inputs(name):
+        """The streams, emission row, (KT, L, B) transition rows and prior
+        that logpdf hands the streamed K1 and K3 for irregular-c2."""
+        dtype = dtypes[name]
+        model = build_lgssm(make_irregular(dtype, N_MAIN, DEVICE))
+        model, y, _comp = transform_model_and_obs(model, y_dev[name])
+        A, a, Q, H, h, s, y, m0, P0 = block._fused_leaves(model, y)
+        B = block._pallas_blocks(N_MAIN)
+        y_main, s_main, _ = block._blocked_streams(y, s, B)
+        return (y_main, s_main, block._emission_params(H, h, dtype),
+                block._rows_blocked(A, a, Q, B), m0, symmetrize(P0))
+
+    def ragged_rows(name, L, B):
+        """(KT, L, B) rows: the first L*B transitions of irregular-c2, with
+        identity rows on the padding steps ragged_streams marks."""
+        model = build_lgssm(make_irregular(dtypes[name], L * B, DEVICE))
+        rows = block._affine_comps_iteration(model, B)
+        ident = torch.eye(D, dtype=rows.dtype, device=DEVICE).reshape(-1)
+        rows[:, max(L - 2, 0):, B - 1] = 0.0
+        rows[:D * D, max(L - 2, 0):, B - 1] = ident[:, None]
+        return rows
+
+    def compare_streamed(name, y, s, packed, rows, m0, P0, shape=None):
+        """The streamed K1, K3, K7 against their plain versions in their
+        chunk order on the same inputs: K1's block and run aggregates held
+        on the lml partials downstream, K3 fed K1's run aggregates, K7's
+        states row by row."""
+        st_rows = lambda t: t.reshape(D + D * D, -1)
+        p1, p_runs = kernels.phase1_aggregate_plain(
+            y, s, packed, D, chunks=kernels.PHASE1_AGGREGATE_CHUNKS, trans_rows=rows)
+        p2 = kernels.phase2_starts_plain(p1, m0, P0, D)
+        p3 = kernels.phase3_lml_plain(y, s, packed, p2, D, p_runs, trans_rows=rows)
+        p7 = kernels.phase3_states_plain(y, s, packed, p2, D, chunks=kernels.PHASE3_STATES_CHUNKS,
+                                         trans_rows=rows)
+        k1, k_runs = kernels.phase1_aggregate_streamed(y, s, packed, D, rows)
+        k3 = kernels.phase3_lml_streamed(y, s, packed, p2, D, k_runs, rows)
+        k7 = kernels.phase3_states_streamed(y, s, packed, p2, D, rows)
+        torch.cuda.synchronize()
+        via_k1 = kernels.phase3_lml_plain(
+            y, s, packed, kernels.phase2_starts_plain(k1, m0, P0, D), D, p_runs, trans_rows=rows)
+        via_k_runs = kernels.phase3_lml_plain(y, s, packed, p2, D, k_runs, trans_rows=rows)
+        record_comparison("phase1_aggregate_streamed", name, k1, p1, via_k1, p3, shape=shape)
+        record_comparison("phase1_aggregate_streamed", name, k_runs, p_runs, via_k_runs, p3,
+                          shape=shape, part="runs")
+        record_comparison("phase3_lml_streamed", name, k3, via_k_runs, k3, via_k_runs,
+                          shape=shape)
+        record_comparison("phase3_states_streamed", name, k7, p7, st_rows(k7), st_rows(p7),
+                          "states", shape=shape)
+
+    # ---- 13. streamed kernels against their plain versions; their times ----
+    def phase_compare_streamed():
+        for name in dtypes:
+            y_main, s_main, packed, rows, m0, P0 = streamed_inputs(name)
+            L, B = y_main.shape
+            print(f"  {name}: L={L} B={B} D={D}, transition rows {tuple(rows.shape)}")
+            compare_streamed(name, y_main, s_main, packed, rows, m0, P0)
+            for shape in RAGGED_SHAPES:
+                compare_streamed(name, *ragged_streams(name, *shape), packed,
+                                 ragged_rows(name, *shape), m0, P0, shape=shape)
+            comps, runs = kernels.phase1_aggregate_streamed(y_main, s_main, packed, D, rows)
+            starts = kernels.phase2_starts(comps, m0, P0, D)
+            C1, C7 = kernels.PHASE1_AGGREGATE_CHUNKS, kernels.PHASE3_STATES_CHUNKS
+            time_calls(name, {
+                "phase1_aggregate_streamed": (
+                    lambda: kernels.phase1_aggregate_streamed(y_main, s_main, packed, D, rows),
+                    lambda: kernels.phase1_aggregate_plain(y_main, s_main, packed, D, chunks=C1,
+                                                           trans_rows=rows)),
+                "phase3_lml_streamed": (
+                    lambda: kernels.phase3_lml_streamed(y_main, s_main, packed, starts, D, runs,
+                                                        rows),
+                    lambda: kernels.phase3_lml_plain(y_main, s_main, packed, starts, D, runs,
+                                                     trans_rows=rows)),
+                "phase3_states_streamed": (
+                    lambda: kernels.phase3_states_streamed(y_main, s_main, packed, starts, D,
+                                                           rows),
+                    lambda: kernels.phase3_states_plain(y_main, s_main, packed, starts, D,
+                                                        chunks=C7, trans_rows=rows)),
+            }, L, B)
+
+    # ---- 14. irregular-c2 and the D = 6 model ----------------------------
+    def make_d6(dtype, N, device):
+        """The D = 6 model: the block-diagonal LGSSM of Matern52() and
+        Matern52().stretch(D6_STRETCH) on the first N irregular times, noise
+        NOISE, assembled from two port models as the reference's Sum
+        compiles it (the port has no Sum yet, ROADMAP Queue 1 item 2)."""
+        from temporalgps_torch.models.emissions import ScalarEmissions
+        from temporalgps_torch.models.gauss_markov import GaussMarkov
+        from temporalgps_torch.models.lgssm import LGSSM
+        from temporalgps_torch.utils.fill import Fill
+        from temporalgps_torch.utils.gaussian import Gaussian
+
+        t = torch.as_tensor(times_np[:N], device=device)
+        parts = [build_lgssm(to_sde(GP(kern), ArrayStorage(dtype), device=device)(t, NOISE))
+                 for kern in (Matern52(), Matern52().stretch(D6_STRETCH))]
+
+        def diag(mats):
+            out = mats[0].new_zeros(*mats[0].shape[:-2], 6, 6)
+            out[..., :3, :3], out[..., 3:, 3:] = mats
+            return out
+
+        trans = GaussMarkov(
+            As=diag([m.trans.As for m in parts]), Qs=diag([m.trans.Qs for m in parts]),
+            offs=Fill(torch.cat([m.trans.offs.value for m in parts]), N),
+            x0=Gaussian(torch.cat([m.trans.x0.mean for m in parts]),
+                        diag([m.trans.x0.cov for m in parts])), forward=True)
+        emis = ScalarEmissions(H=Fill(torch.cat([m.emis.H.value for m in parts]), N),
+                               h=Fill(parts[0].emis.h.value + parts[1].emis.h.value, N),
+                               s=parts[0].emis.s)
+        return LGSSM(trans, emis)
+
+    def irregular_stages(cname, fx, y):
+        """Host-clock ms of the stages of the irregular logpdf or of the
+        posterior at new times (medians of 5, between synchronises)."""
+        from temporalgps_torch.models import lgssm as tlgssm
+
+        if cname == "irregular_logpdf":
+            build_ms, model = stage_ms(lambda: build_lgssm(fx), reps=5)
+            missing_ms, (model_f, y_f, _) = stage_ms(
+                lambda: transform_model_and_obs(model, y), reps=5)
+            B = block._pallas_blocks(len(model_f))
+            rows_ms, _ = stage_ms(lambda: block._rows_blocked(
+                *block._fused_leaves(model_f, y_f)[:3], B), reps=5)
+            kernels_ms, _ = stage_ms(lambda: block.logpdf(model_f, y_f), reps=5)
+            return {"build_lgssm": build_ms, "missing_data": missing_ms,
+                    "transition_rows": rows_ms, "block_logpdf_with_rows": kernels_ms}
+        fp = gpost.posterior(fx, y)
+        fxp = fp(x_new, NOISE)
+        merge_ms, (x_s, noise_all, y_all, _, pr_idx) = stage_ms(
+            lambda: gpost._build_inference_data(fp, x_new), reps=5)
+        build_ms, model = stage_ms(lambda: build_lgssm(fp.prior(x_s, noise_all)), reps=5)
+        missing_ms, (model_f, y_f, _) = stage_ms(
+            lambda: transform_model_and_obs(model, y_all), reps=5)
+        filter_ms, xf = stage_ms(lambda: block._filter_state_comps(model_f, y_f, None, None),
+                                 reps=5)
+        reversal_ms, post = stage_ms(lambda: block._reversed_model(model_f, xf), reps=5)
+        marg_ms, _ = stage_ms(lambda: tlgssm.marginals_diag(post), reps=5)
+        return {"host_merge_and_sort": merge_ms, "build_lgssm": build_ms,
+                "missing_data": missing_ms, "K1s_K2_K7s_filter_states": filter_ms,
+                "reversal_of_dynamics": reversal_ms, "marginals_K8_K10_and_rows": marg_ms,
+                "x_new_points": len(fxp.x)}
+
+    def phase_irregular():
+        from temporalgps_torch.models import lgssm as tlgssm
+
+        rec = smoke.record["irregular"] = {}
+
+        def new_times(fx, y):
+            return gpost.marginals(gpost.posterior(fx, y)(x_new, NOISE))
+
+        def filter_states(fx, y):
+            model_f, y_f, _ = transform_model_and_obs(build_lgssm(fx), y)
+            return tlgssm.filter_(model_f, y_f)
+
+        # The main path of this slice: float32, its launch counts are the kernels line's.
+        fx32 = make_irregular(torch.float32, N_MAIN, DEVICE)
+        kernels.reset_launch_counts()
+        lml32 = logpdf(fx32, y_dev["float32"])
+        m32, v32 = posterior_marginals(fx32, y_dev["float32"])
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        smoke.record.setdefault("launches", {}).update({kn: counts[kn] for kn in STREAMED_KERNELS})
+        smoke.check(all(counts[kn] >= 1 for kn in STREAMED_KERNELS + IRREGULAR_POSTERIOR_KERNELS)
+                    and counts["phase1_aggregate"] == counts["phase3_lml"] == 0
+                    and counts["phase3_states"] == 0,
+                    f"irregular-c2 float32 logpdf and posterior marginals: streamed K1, K3, K7, "
+                    f"K2, K8-K10 launched, the constant K1, K3, K7 not: {counts}")
+        outs = {}
+        for name, dtype in dtypes.items():
+            fx = fx32 if name == "float32" else make_irregular(dtype, N_MAIN, DEVICE)
+            y = y_dev[name]
+            xf = filter_states(fx, y)
+            m_n, v_n = new_times(fx, y)
+            outs[name] = [t.double() for t in (
+                logpdf(fx, y).reshape(1), xf.mean, xf.cov, *posterior_marginals(fx, y), m_n, v_n)]
+            smoke.check(finite(*outs[name]) and bool((outs[name][4] > 0).all())
+                        and bool((outs[name][6] > 0).all()) and m_n.shape == (N_NEW,),
+                        f"irregular-c2 {name}: finite lml, states and marginals, positive "
+                        f"variances, {N_NEW} new-time marginals")
+        labels = ("lml", "filter_means", "filter_covs", "post_means", "post_vars",
+                  "new_means", "new_vars")
+        r32 = {lab: rel_max(a, b) for lab, a, b in zip(labels, outs["float32"], outs["float64"])}
+        rec["f32_vs_f64_rel"] = r32
+        smoke.check(r32["lml"] <= 1e-3, f"irregular-c2 float32 vs float64 lml rel={r32['lml']:.3e} "
+                    f"(tol 1e-3); the rest, relative to the largest entry: {json.dumps(r32)}")
+
+        # At N_SMALL, float64 on the card against the sequential engine on the CPU.
+        y_small = y_np[:N_SMALL]
+        fx_k, fx_c = (make_irregular(torch.float64, N_SMALL, dev) for dev in (DEVICE, "cpu"))
+        got = [logpdf(fx_k, y_small).reshape(1), *posterior_marginals(fx_k, y_small)]
+        want = [logpdf(fx_c, y_small, engine="sequential").reshape(1),
+                *gpost.marginals(gpost.posterior(fx_c, y_small)(fx_c.x, NOISE),
+                                 engine="sequential")]
+        r_seq = max(rel_max(g.cpu(), w) for g, w in zip(got, want))
+        rec["f64_20k_rel_vs_sequential"] = r_seq
+        smoke.check(r_seq <= 1e-9, f"irregular float64 N={N_SMALL} lml and posterior marginals "
+                    f"vs the sequential engine rel={r_seq:.3e} (tol 1e-9)")
+
+        # The gradient on the general schedule's forward mode (k = 3).
+        vg = {name: value_and_grad_fwd_lgssm(make_irregular_fn(dtypes[name], N_MAIN, DEVICE),
+                                             y_dev[name]) for name in dtypes}
+        (v32g, g32), (v64g, g64) = vg["float32"](p0), vg["float64"](p0)
+        r_vg = max(rel(v32g.item(), v64g.item()),
+                   ((g32.double() - g64).abs().max() / g64.abs().max()).item())
+        rec.update({"vg_f32": [v32g.item(), g32.tolist()], "vg_f64": [v64g.item(), g64.tolist()],
+                    "vg_f32_vs_f64_rel": r_vg})
+        smoke.check(finite(g32, g64) and r_vg <= 1e-3,
+                    f"irregular vg(p0) float32 vs float64 rel={r_vg:.3e} (tol 1e-3), "
+                    f"grad {g64.tolist()}")
+        vg_small = value_and_grad_fwd_lgssm(make_irregular_fn(torch.float64, N_SMALL, DEVICE),
+                                            y_small)
+        _, g_k = vg_small(p0)
+        p = p0.detach().cpu().requires_grad_()
+        s2, sc, noise = torch.exp(p)
+        (g_s,) = torch.autograd.grad(logpdf(make_irregular(torch.float64, N_SMALL, "cpu", s2=s2,
+                                                           sc=sc, noise=noise), y_small,
+                                            engine="sequential"), p)
+        r_g = ((g_k.cpu() - g_s).abs().max() / g_s.abs().max()).item()
+        rec["vg_20k_rel_vs_sequential"] = r_g
+        smoke.check(r_g <= 1e-6, f"irregular float64 N={N_SMALL} vg gradient vs the sequential "
+                    f"engine's autograd rel={r_g:.3e} (tol 1e-6)")
+
+        # The D = 6 model on the matrix path (for the record; gated on the
+        # sequential engine at N_D6_SMALL).
+        y6 = y_np[:N_D6]
+        d6 = {name: make_d6(dtypes[name], N_D6, DEVICE) for name in dtypes}
+        kernels.reset_launch_counts()
+        lml6 = {name: logpdf_with_missings(d6[name], y_dev[name][:N_D6]).item() for name in dtypes}
+        lat6 = {name: tlgssm.latent_marginals(d6[name]) for name in dtypes}
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        r6 = rel(lml6["float32"], lml6["float64"])
+        rec["d6"] = {"lml": lml6, "lml_f32_vs_f64_rel": r6,
+                     "latent_f32_vs_f64_rel": [rel_max(lat6["float32"].mean.double(),
+                                                       lat6["float64"].mean),
+                                               rel_max(lat6["float32"].cov.double(),
+                                                       lat6["float64"].cov)]}
+        smoke.check(all(n == 0 for n in counts.values()) and math.isfinite(lml6["float64"])
+                    and finite(lat6["float64"].mean, lat6["float64"].cov),
+                    f"D = 6 at N={N_D6}: the matrix path (no kernel launched), finite; float32 "
+                    f"vs float64 lml rel={r6:.3e}, latent {rec['d6']['latent_f32_vs_f64_rel']}")
+        # The matrix path adds the reference's jitter (1e-10 in float64) to
+        # each combine's covariance (block._minv), so it is held to the same
+        # path on the CPU (held to the reference there by
+        # tests/test_torch_general.py); its distance to the sequential
+        # engine is recorded.
+        small_k, small_c = (make_d6(torch.float64, N_D6_SMALL, dev) for dev in (DEVICE, "cpu"))
+        y6s = torch.as_tensor(y_np[:N_D6_SMALL])
+
+        def d6_small(model, y, engine):
+            lat = tlgssm.latent_marginals(model, engine=engine)
+            return [logpdf_with_missings(model, y, engine=engine).reshape(1), lat.mean, lat.cov]
+
+        got = d6_small(small_k, y6s.to(DEVICE), None)
+        r6b = max(rel_max(g.cpu(), w) for g, w in zip(got, d6_small(small_c, y6s, "block")))
+        r6s = max(rel_max(g.cpu(), w) for g, w in zip(got, d6_small(small_c, y6s, "sequential")))
+        rec["d6"].update({"f64_small_rel_vs_cpu_matrix_path": r6b,
+                          "f64_small_rel_vs_sequential": r6s})
+        smoke.check(r6b <= 1e-10, f"D = 6 float64 N={N_D6_SMALL} lml and latent marginals on the "
+                    f"card vs the CPU's matrix path rel={r6b:.3e} (tol 1e-10); vs the "
+                    f"sequential engine rel={r6s:.3e}")
+
+        # Times (CUDA events, median of batches) and where the time goes.
+        for name, dtype in dtypes.items():
+            fx = fx32 if name == "float32" else make_irregular(dtype, N_MAIN, DEVICE)
+            y = y_dev[name]
+            y6n = y_dev[name][:N_D6]
+            calls = {
+                "irregular_logpdf": (lambda: logpdf(fx, y), 5, 10),
+                "irregular_filter": (lambda: filter_states(fx, y), 5, 5),
+                "irregular_posterior_marginals": (lambda: posterior_marginals(fx, y), 5, 5),
+                "irregular_posterior_new_times": (lambda: new_times(fx, y), 3, 3),
+                # One call, no warm-up: vg ran above (each call is ~20 s).
+                "irregular_value_and_grad": (lambda: vg[name](p0), 1, 1),
+                "d6_logpdf": (lambda: logpdf_with_missings(d6[name], y6n), 3, 3),
+                "d6_latent_marginals": (lambda: tlgssm.latent_marginals(d6[name]), 3, 3),
+            }
+            for cname, (call, batches, reps) in calls.items():
+                with torch.no_grad():
+                    ms = events_ms(call, reps=reps, batches=batches,
+                                   warm_up=cname != "irregular_value_and_grad")
+                rec.setdefault("ms", {}).setdefault(name, {})[cname] = ms[0]
+                print(f"  {name} {cname}: {ms[0]!r} ms (range {ms[1]!r}..{ms[2]!r}, "
+                      f"{batches} batches of {reps})", flush=True)
+            for cname, call, shorts in (
+                    ("irregular_logpdf", lambda: logpdf(fx, y), VALUE_KERNELS),
+                    ("irregular_posterior_new_times", lambda: new_times(fx, y),
+                     POSTERIOR_KERNELS)):
+                summary = call_profile(call, shorts, calls=3)
+                summary["host_stage_ms"] = irregular_stages(cname, fx, y)
+                rec.setdefault("profile", {}).setdefault(name, {})[cname] = summary
+                print(f"  {name} {cname} profile: {json.dumps(summary)}", flush=True)
+                smoke.check(summary["device_busy_us"] > 0
+                            and all(us > 0 for us in summary["kernel_us"].values()),
+                            f"{name} {cname}: the profiler saw the streamed kernels")
+
     smoke.phase("1. versions and card", phase_versions)
     smoke.phase("2. build", phase_build)
     smoke.phase("3. value kernels vs plain versions at N=1M", phase_compare)
@@ -1119,6 +1491,8 @@ def main():
     smoke.phase("10. posterior path", phase_posterior)
     smoke.phase("11. timing of the posterior path", phase_timing_states)
     smoke.phase("12. profile of posterior marginals at N=1M", phase_profile_posterior)
+    smoke.phase("13. streamed kernels vs plain versions at N=1M", phase_compare_streamed)
+    smoke.phase("14. irregular times and D = 6", phase_irregular)
 
     print("== detail", json.dumps(smoke.record, default=str))
     if smoke.failures:

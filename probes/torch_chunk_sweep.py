@@ -1,9 +1,10 @@
 """Chunk counts and thread-block shapes of the port's chunked kernels on one
 CUDA card: K1 (phase1_aggregate), K3 (phase3_lml), K4 (phase1_jvp), K6
 (phase3_jvp_lml), K7 (phase3_states), K8 (affine_phase1) and K10
-(affine_phase3_states); and the cluster and thread-block shapes of the
-three scans K2 (phase2_starts), K5 (phase2_jvp_starts) and K9
-(affine_phase2_starts).
+(affine_phase3_states); the cluster and thread-block shapes of the three
+scans K2 (phase2_starts), K5 (phase2_jvp_starts) and K9
+(affine_phase2_starts); and the steps the streamed forms of K1, K3 and K7
+(`<name>_streamed`, per-step transition rows) load ahead.
 
     python3 probes/torch_chunk_sweep.py [--parent DIR] [--only NAME ...]
     python3 probes/torch_chunk_sweep.py --sass [--only NAME ...]
@@ -15,8 +16,9 @@ K4 and K6: kPhase1JvpChunks and kPhase1JvpWarps; K5: kPhase2JvpCluster,
 kPhase2JvpWarps, kPhase2JvpFold and kPhase2JvpSharedWarpsF32 / F64; K7:
 kPhase3StatesChunks and kPhase3StatesWarps; K8: kAffineChunks and
 kAffinePrefetch; K9: kAffineScanCluster, kAffineScanWarps and
-kAffineScanFold; K10: kAffinePhase3Warps and kAffinePrefetch), one nvcc per
-variant, all started together; checks that every variant gives the default
+kAffineScanFold; K10: kAffinePhase3Warps and kAffinePrefetch; the streamed
+forms: kTransPrefetch in lanes.cuh), one nvcc per variant, all started
+together; checks that every variant gives the default
 build's output (each row relative to its largest entry: 1e-10 in float64;
 in float32 only 1e-2, since the order of the combines, which the chunk
 count sets, moves rows of these synthetic aggregates by about 1e-3); and
@@ -46,6 +48,7 @@ x warp-iterations) / (schedulers x clock).
 
 import argparse
 import ctypes
+import functools
 import json
 import re
 import shutil
@@ -77,8 +80,16 @@ L_MAIN, B_MAIN, D, K_TANGENTS = 489, 2048, 3, 3
 # 2048 in one round; the smaller shapes take two or four). K5 also: the
 # levels that take the left pair from shuffles ("shfl") or from shared memory
 # ("smem"), in both dtypes (the default build: shuffles in float, shared
-# memory in double).
+# memory in double). The streamed forms of K1, K3 and K7 (the same entries
+# and kernels, on per-step rows): the steps each loads ahead (U).
+_PREFETCH = [("U1", {}), ("U2", {"kTransPrefetch": 2}), ("U3", {"kTransPrefetch": 3})]
 SWEEP = {
+    "phase1_aggregate_streamed": ("block_phases.cu", "PHASE1_AGGREGATE_CHUNKS",
+                                  ("kPhase1AggregateChunks", "kTransPrefetch"), _PREFETCH),
+    "phase3_lml_streamed": ("block_phases.cu", "PHASE1_AGGREGATE_CHUNKS",
+                            ("kPhase1AggregateChunks", "kTransPrefetch"), _PREFETCH),
+    "phase3_states_streamed": ("block_states.cu", "PHASE3_STATES_CHUNKS",
+                               ("kPhase3StatesChunks", "kTransPrefetch"), _PREFETCH),
     "phase1_aggregate": ("block_phases.cu", "PHASE1_AGGREGATE_CHUNKS",
                          ("kPhase1AggregateChunks", "kPhase1AggregateWarps"),
                          [("C16_W8", {}), ("C16_W16", {"kPhase1AggregateWarps": 16}),
@@ -139,12 +150,23 @@ SWEEP = {
 }
 
 
-def rewrite(text, consts):
+def rewrite(texts, consts):
+    """{file name: text} with each `constexpr int name = value;` of consts
+    rewritten in the one file that defines it."""
+    texts = dict(texts)
     for name, value in consts.items():
-        text, n = re.subn(rf"constexpr int {name} = \d+;", f"constexpr int {name} = {value};", text)
-        if n != 1:
-            raise RuntimeError(f"constant {name} not found once in the source")
-    return text
+        pattern = rf"constexpr int {name} = \d+;"
+        where = [f for f, text in texts.items() if len(re.findall(pattern, text)) == 1]
+        if len(where) != 1:
+            raise RuntimeError(f"constant {name} not found once in the sources")
+        texts[where[0]] = re.sub(pattern, f"constexpr int {name} = {value};", texts[where[0]])
+    return texts
+
+
+def entry_name(kname):
+    """The C entry and kernel a sweep name runs: a streamed form runs its
+    kernel's."""
+    return kname.removesuffix("_streamed")
 
 
 def source_constant(text, name):
@@ -201,9 +223,9 @@ def build_all(jobs, kernels):
     for i, (label, csrc, source, consts) in enumerate(jobs):
         work = out_dir / f"v{i}"
         work.mkdir()
-        for header in csrc.glob("*.cuh"):
-            shutil.copy(header, work / header.name)
-        (work / source).write_text(rewrite((csrc / source).read_text(), consts))
+        files = [source, *(header.name for header in csrc.glob("*.cuh"))]
+        for name, text in rewrite({f: (csrc / f).read_text() for f in files}, consts).items():
+            (work / name).write_text(text)
         lib = work / "lib.so"
         cmd = [nvcc, *kernels.NVCC_FLAGS, "-shared", "-o", str(lib), str(work / source)]
         procs[label] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
@@ -278,17 +300,17 @@ def main():
             parent_csrc = args.parent / "temporalgps_torch" / "csrc"
             jobs.append((label, parent_csrc, source, {}))
             parent_py = (args.parent / "temporalgps_torch" / "ops" / "kernels.py").read_text()
-            signature[label] = entry_args(parent_py, kname)
+            signature[label] = entry_args(parent_py, entry_name(kname))
             chunk_arg[label] = source_constant((parent_csrc / source).read_text(), c_const)
         for label, consts in variants:
             jobs.append((f"{kname} {label}", csrc, source, consts))
-            signature[f"{kname} {label}"] = entry_args(own_py, kname)
+            signature[f"{kname} {label}"] = entry_args(own_py, entry_name(kname))
             chunk_arg[f"{kname} {label}"] = consts.get(
                 c_const, getattr(kernels, py_const) if py_const else None)
     kernels.BUILD_DIR.mkdir(exist_ok=True)
     out_dir, built = build_all(jobs, kernels)
     for label, (_, log) in built.items():
-        wanted = f"{label.split()[0]}_kernel"
+        wanted = f"{entry_name(label.split()[0])}_kernel"
         keep, lines = False, []
         for line in log:
             if "Compiling entry" in line:  # the D = 3 instances, not a longer kernel name
@@ -343,15 +365,19 @@ def main():
         KJ, KT = (1 + k) * kernels.elem_rows(D), kernels.affine_rows(D)
         # kernel: (n_ptr, C) -> (pointers, ints before the chunk count, the
         # output compared); n_ptr tells a build's entry with run aggregates
-        # (C of them) from one without.
+        # (C of them) from one without, and K1's, K3's and K7's entries with
+        # a transition-row pointer (None: the constant form; the streamed
+        # forms take the affine maps below as their rows) from those without.
+        trans = lambda n, base, rows_: [rows_] * (n > base)
         calls_of = {
-            "phase1_aggregate": lambda n, C: (
-                [y, s, packed, out := empty(kernels.elem_rows(D), B)]
-                + [empty(C, kernels.elem_rows(D), B)] * (n == 5), [L, B, D], out),
+            "phase1_aggregate": lambda n, C, rows_=None: (
+                [y, s, packed, *trans(n, 5, rows_), out := empty(kernels.elem_rows(D), B)]
+                + [empty(C, kernels.elem_rows(D), B)] * (n >= 5), [L, B, D], out),
             "phase2_starts": lambda n, C: (
                 [agg, prior, out := empty(kernels.state_rows(D), B)], [B, D], out),
-            "phase3_lml": lambda n, C: (
-                [y, s, packed, starts] + [runs] * (n == 6) + [out := empty(B)], [L, B, D], out),
+            "phase3_lml": lambda n, C, rows_=None: (
+                [y, s, packed, *trans(n, 6, rows_), starts] + [runs] * (n >= 6)
+                + [out := empty(B)], [L, B, D], out),
             "phase1_jvp": lambda n, C: (
                 [y, s, rows, out := empty(KJ, B)] + [empty(C, KJ, B)] * (n == 5),
                 [L, B, D, k], out),
@@ -362,8 +388,9 @@ def main():
             "phase3_jvp_lml": lambda n, C: (
                 [y, s, rows, jstarts] + [jruns] * (n == 6) + [out := empty(1 + k, B)],
                 [L, B, D, k], out),
-            "phase3_states": lambda n, C: (
-                [y, s, packed, starts, out := empty(kernels.state_rows(D), L, B)], [L, B, D], out),
+            "phase3_states": lambda n, C, rows_=None: (
+                [y, s, packed, *trans(n, 5, rows_), starts,
+                 out := empty(kernels.state_rows(D), L, B)], [L, B, D], out),
             "affine_phase1": lambda n, C: (
                 [params, out := empty(KT, B)] + [empty(C, KT, B)] * (n == 3), [L, B, D], out),
             "affine_phase3_states": lambda n, C: (
@@ -372,11 +399,13 @@ def main():
         }
         stream = lambda: ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
+        for name in ("phase1_aggregate", "phase3_lml", "phase3_states"):
+            calls_of[f"{name}_streamed"] = functools.partial(calls_of[name], rows_=params)
         calls, outs = {}, {}
         for label, (lib_path, _) in built.items():
             kname = label.split()[0]
             lib = ctypes.CDLL(str(lib_path))
-            fn = getattr(lib, f"tgps_{kname}_{suffix}")
+            fn = getattr(lib, f"tgps_{entry_name(kname)}_{suffix}")
             n_ptr, n_int = signature[label]
             ptrs, ints, out = calls_of[kname](n_ptr, chunk_arg[label])
             if n_int > len(ints):
@@ -385,7 +414,7 @@ def main():
             fn.restype = ctypes.c_int
 
             def call(fn=fn, ptrs=ptrs, ints=ints, label=label):
-                err = fn(*[t.data_ptr() for t in ptrs], *ints, stream())
+                err = fn(*[None if t is None else t.data_ptr() for t in ptrs], *ints, stream())
                 if err:
                     raise RuntimeError(f"{label}: launch failed with CUDA error {err}")
 
@@ -424,7 +453,7 @@ def main():
                     batch.append(start.elapsed_time(end) / 10)
                 times[label].append(statistics.median(batch))
         for label, ts in times.items():
-            device_ms = profiled_ms(calls[label], label.split()[0])
+            device_ms = profiled_ms(calls[label], entry_name(label.split()[0]))
             results[f"{suffix} {label}"] = {"events_ms": ts, "profiler_ms": device_ms}
             print(f"  {suffix} {label}: {' '.join(repr(t) for t in ts)} ms, "
                   f"profiler {device_ms!r} ms")

@@ -35,6 +35,15 @@
 // in run order across the cluster. K6 (block_phases_jvp.cu) does the same
 // with a tangent.
 //
+// K1 and K3 come in two forms, one template each over a transition policy
+// of lanes.cuh: ConstantTrans, the time-invariant packed parameters (a
+// RegularSpacing model), and StreamedTrans, each step's (A, a, Q) read from
+// (KT, L, B) rows (irregular times), one coalesced warp access a row, the
+// next step's row loaded before the current one is used. The same fold,
+// replay, grid and chunk count serve both; the entry points take a null
+// rows pointer for the constant form. Streamed, each step reads KT = 21
+// more values at D = 3, so both kernels are bound by bytes on paper.
+//
 // K2 is a scan of B aggregates of K values: 270 KB in float32 at B = 2048,
 // a bytes bound of 0.1 us, and a dependent chain of combines whatever the
 // schedule. Its time is that chain's depth, and the trips to memory inside
@@ -57,7 +66,8 @@
 namespace tgps {
 
 constexpr int kLaneThreads = 32;  // lanes a warp; a lane takes one block
-// K1 and K3 (which replays K1's chunks): chunks of every block's steps, one
+// K1 and K3 (which replays K1's chunks), in both transition policies of
+// lanes.cuh (constant, or streamed from per-step rows): chunks of every block's steps, one
 // per warp, and warps per thread block; a cluster of C / W thread blocks
 // holds a block's C warps. ops/kernels.py passes its PHASE1_AGGREGATE_CHUNKS
 // at both launches; the two must agree.
@@ -100,12 +110,12 @@ constexpr int phase1_aggregate_shared_bytes() {
 // block go through its shared memory, those across thread blocks through
 // the cluster's (warp 0 of rank z reads rank z + span's slot). Warp 0 of
 // rank 0 ends with the block's aggregate.
-template <typename T, int D>
+template <typename T, int D, typename Trans>
 __global__ void __cluster_dims__(1, 1, kPhase1AggregateCluster)
 __launch_bounds__(kLaneThreads * kPhase1AggregateWarps)
 phase1_aggregate_kernel(const T* __restrict__ y, const T* __restrict__ s,
-                        const T* __restrict__ params, T* __restrict__ out,
-                        T* __restrict__ chunk_out, int L, int B) {
+                        const T* __restrict__ params, const T* __restrict__ rows,
+                        T* __restrict__ out, T* __restrict__ chunk_out, int L, int B) {
   constexpr int C = kPhase1AggregateChunks;
   constexpr int W = kPhase1AggregateWarps;
   constexpr int kSlotStride = (W > 1 ? W / 2 : 1) * kLaneThreads;  // row stride of the slots
@@ -116,12 +126,12 @@ phase1_aggregate_kernel(const T* __restrict__ y, const T* __restrict__ s,
   const int lane = threadIdx.x % kLaneThreads;
   const int w = threadIdx.x / kLaneThreads;
   const int b = blockIdx.x * kLaneThreads + lane;
-  const Params<T, D> p = load_params<T, D>(params);
   const int Lc = (L + C - 1) / C;
   const int lo = min((z * W + w) * Lc, L);
   const int hi = b < B ? min(lo + Lc, L) : lo;  // a lane past the last block folds nothing
   const int col = min(b, B - 1);
-  Elem<T, D> acc = fold_steps(p, y + col, s + col, lo, hi, B);
+  Trans trans(params, rows, L, B, col);
+  Elem<T, D> acc = fold_steps<T, D>(trans, y + col, s + col, lo, hi, B);
   if (b < B)
     store_elem(acc, chunk_out + static_cast<long long>(z * W + w) * Dims<D>::kElem * B + b, B);
 #pragma unroll 1
@@ -209,12 +219,13 @@ phase2_starts_kernel(const T* __restrict__ comps, const T* __restrict__ prior,
 // chunk order, 0 .. C-1, from its own shared memory and the other ranks',
 // and writes the block's lml. An empty chunk and a lane past the last block
 // add zero but meet both cluster barriers.
-template <typename T, int D>
+template <typename T, int D, typename Trans>
 __global__ void __cluster_dims__(1, 1, kPhase1AggregateCluster)
 __launch_bounds__(kLaneThreads * kPhase1AggregateWarps)
 phase3_lml_kernel(const T* __restrict__ y, const T* __restrict__ s,
-                  const T* __restrict__ params, const T* __restrict__ starts,
-                  const T* __restrict__ chunk_aggs, T* __restrict__ lml, int L, int B) {
+                  const T* __restrict__ params, const T* __restrict__ rows,
+                  const T* __restrict__ starts, const T* __restrict__ chunk_aggs,
+                  T* __restrict__ lml, int L, int B) {
   constexpr int C = kPhase1AggregateChunks;
   constexpr int W = kPhase1AggregateWarps;
   __shared__ T partials[W * kLaneThreads];  // one partial sum a thread
@@ -239,15 +250,15 @@ phase3_lml_kernel(const T* __restrict__ y, const T* __restrict__ s,
     const long long chunk_stride = static_cast<long long>(Dims<D>::kElem) * B;
 #pragma unroll 1
     for (int i = 0; i < c; ++i) apply_elem(m, P, load_elem<T, D>(chunk_aggs + i * chunk_stride + b, B));
-    const Params<T, D> p = load_params<T, D>(params);
-    for (int l = lo; l < hi; ++l) {
+    Trans trans(params, rows, L, B, b);
+    for_steps(trans, lo, hi, [&](int l, const Params<T, D>& p) {
       const T s_l = s_next, y_l = y_next;
       if (l + 1 < hi) {
         s_next = s[static_cast<long long>(l + 1) * B + b];
         y_next = y[static_cast<long long>(l + 1) * B + b];
       }
       acc += kalman_step(m, P, p, s_l, y_l);
-    }
+    });
   }
   partials[w * kLaneThreads + lane] = acc;
   cluster.sync();
@@ -263,28 +274,41 @@ phase3_lml_kernel(const T* __restrict__ y, const T* __restrict__ s,
 
 inline int lane_grid(int B) { return (B + kLaneThreads - 1) / kLaneThreads; }
 
-template <typename T, int D>
-int launch_phase1_d(const T* y, const T* s, const T* params, T* out, T* chunk_out, int L, int B,
-                    cudaStream_t stream) {
+template <typename T, int D, typename Trans>
+int launch_phase1_t(const T* y, const T* s, const T* params, const T* rows, T* out,
+                    T* chunk_out, int L, int B, cudaStream_t stream) {
   const int bytes = phase1_aggregate_shared_bytes<T, D>();
   const cudaError_t err = cudaFuncSetAttribute(
-      phase1_aggregate_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      phase1_aggregate_kernel<T, D, Trans>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(lane_grid(B), 1, kPhase1AggregateCluster);
-  phase1_aggregate_kernel<T, D><<<grid, kLaneThreads * kPhase1AggregateWarps, bytes, stream>>>(
-      y, s, params, out, chunk_out, L, B);
+  phase1_aggregate_kernel<T, D, Trans>
+      <<<grid, kLaneThreads * kPhase1AggregateWarps, bytes, stream>>>(y, s, params, rows, out,
+                                                                      chunk_out, L, B);
   return static_cast<int>(cudaGetLastError());
 }
 
+// rows: the (KT, L, B) transition rows of the streamed form, or null for
+// the constant one.
+template <typename T, int D>
+int launch_phase1_d(const T* y, const T* s, const T* params, const T* rows, T* out,
+                    T* chunk_out, int L, int B, cudaStream_t stream) {
+  if (rows != nullptr)
+    return launch_phase1_t<T, D, StreamedTrans<T, D>>(y, s, params, rows, out, chunk_out, L, B,
+                                                      stream);
+  return launch_phase1_t<T, D, ConstantTrans<T, D>>(y, s, params, rows, out, chunk_out, L, B,
+                                                    stream);
+}
+
 template <typename T>
-int launch_phase1(const T* y, const T* s, const T* params, T* out, T* chunk_out, int L, int B,
-                  int D, int chunks, cudaStream_t stream) {
+int launch_phase1(const T* y, const T* s, const T* params, const T* rows, T* out, T* chunk_out,
+                  int L, int B, int D, int chunks, cudaStream_t stream) {
   if (L < 1 || B < 1 || chunks != kPhase1AggregateChunks)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (D) {
-    case 1: return launch_phase1_d<T, 1>(y, s, params, out, chunk_out, L, B, stream);
-    case 2: return launch_phase1_d<T, 2>(y, s, params, out, chunk_out, L, B, stream);
-    case 3: return launch_phase1_d<T, 3>(y, s, params, out, chunk_out, L, B, stream);
+    case 1: return launch_phase1_d<T, 1>(y, s, params, rows, out, chunk_out, L, B, stream);
+    case 2: return launch_phase1_d<T, 2>(y, s, params, rows, out, chunk_out, L, B, stream);
+    case 3: return launch_phase1_d<T, 3>(y, s, params, rows, out, chunk_out, L, B, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -302,17 +326,29 @@ int launch_phase2(const T* comps, const T* prior, T* starts, int B, int D, cudaS
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_phase3(const T* y, const T* s, const T* params, const T* starts, const T* chunk_aggs,
-                  T* lml, int L, int B, int D, int chunks, cudaStream_t stream) {
-  if (L < 1 || B < 1 || chunks != kPhase1AggregateChunks)
-    return static_cast<int>(cudaErrorInvalidValue);
+template <typename T, int D>
+void launch_phase3_d(const T* y, const T* s, const T* params, const T* rows, const T* starts,
+                     const T* chunk_aggs, T* lml, int L, int B, cudaStream_t stream) {
   const dim3 grid(lane_grid(B), 1, kPhase1AggregateCluster);
   constexpr int threads = kLaneThreads * kPhase1AggregateWarps;
+  if (rows != nullptr)
+    phase3_lml_kernel<T, D, StreamedTrans<T, D>><<<grid, threads, 0, stream>>>(
+        y, s, params, rows, starts, chunk_aggs, lml, L, B);
+  else
+    phase3_lml_kernel<T, D, ConstantTrans<T, D>><<<grid, threads, 0, stream>>>(
+        y, s, params, rows, starts, chunk_aggs, lml, L, B);
+}
+
+template <typename T>
+int launch_phase3(const T* y, const T* s, const T* params, const T* rows, const T* starts,
+                  const T* chunk_aggs, T* lml, int L, int B, int D, int chunks,
+                  cudaStream_t stream) {
+  if (L < 1 || B < 1 || chunks != kPhase1AggregateChunks)
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (D) {
-    case 1: phase3_lml_kernel<T, 1><<<grid, threads, 0, stream>>>(y, s, params, starts, chunk_aggs, lml, L, B); break;
-    case 2: phase3_lml_kernel<T, 2><<<grid, threads, 0, stream>>>(y, s, params, starts, chunk_aggs, lml, L, B); break;
-    case 3: phase3_lml_kernel<T, 3><<<grid, threads, 0, stream>>>(y, s, params, starts, chunk_aggs, lml, L, B); break;
+    case 1: launch_phase3_d<T, 1>(y, s, params, rows, starts, chunk_aggs, lml, L, B, stream); break;
+    case 2: launch_phase3_d<T, 2>(y, s, params, rows, starts, chunk_aggs, lml, L, B, stream); break;
+    case 3: launch_phase3_d<T, 3>(y, s, params, rows, starts, chunk_aggs, lml, L, B, stream); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
@@ -322,16 +358,17 @@ int launch_phase3(const T* y, const T* s, const T* params, const T* starts, cons
 
 extern "C" {
 
-int tgps_phase1_aggregate_f32(const float* y, const float* s, const float* params, float* out,
-                              float* chunk_out, int L, int B, int D, int chunks, void* stream) {
-  return tgps::launch_phase1<float>(y, s, params, out, chunk_out, L, B, D, chunks,
+int tgps_phase1_aggregate_f32(const float* y, const float* s, const float* params,
+                              const float* rows, float* out, float* chunk_out, int L, int B,
+                              int D, int chunks, void* stream) {
+  return tgps::launch_phase1<float>(y, s, params, rows, out, chunk_out, L, B, D, chunks,
                                     static_cast<cudaStream_t>(stream));
 }
 
 int tgps_phase1_aggregate_f64(const double* y, const double* s, const double* params,
-                              double* out, double* chunk_out, int L, int B, int D, int chunks,
-                              void* stream) {
-  return tgps::launch_phase1<double>(y, s, params, out, chunk_out, L, B, D, chunks,
+                              const double* rows, double* out, double* chunk_out, int L, int B,
+                              int D, int chunks, void* stream) {
+  return tgps::launch_phase1<double>(y, s, params, rows, out, chunk_out, L, B, D, chunks,
                                      static_cast<cudaStream_t>(stream));
 }
 
@@ -345,18 +382,18 @@ int tgps_phase2_starts_f64(const double* comps, const double* prior, double* sta
   return tgps::launch_phase2<double>(comps, prior, starts, B, D, static_cast<cudaStream_t>(stream));
 }
 
-int tgps_phase3_lml_f32(const float* y, const float* s, const float* params, const float* starts,
-                        const float* chunk_aggs, float* lml, int L, int B, int D, int chunks,
-                        void* stream) {
-  return tgps::launch_phase3<float>(y, s, params, starts, chunk_aggs, lml, L, B, D, chunks,
+int tgps_phase3_lml_f32(const float* y, const float* s, const float* params, const float* rows,
+                        const float* starts, const float* chunk_aggs, float* lml, int L, int B,
+                        int D, int chunks, void* stream) {
+  return tgps::launch_phase3<float>(y, s, params, rows, starts, chunk_aggs, lml, L, B, D, chunks,
                                     static_cast<cudaStream_t>(stream));
 }
 
 int tgps_phase3_lml_f64(const double* y, const double* s, const double* params,
-                        const double* starts, const double* chunk_aggs, double* lml, int L,
-                        int B, int D, int chunks, void* stream) {
-  return tgps::launch_phase3<double>(y, s, params, starts, chunk_aggs, lml, L, B, D, chunks,
-                                     static_cast<cudaStream_t>(stream));
+                        const double* rows, const double* starts, const double* chunk_aggs,
+                        double* lml, int L, int B, int D, int chunks, void* stream) {
+  return tgps::launch_phase3<double>(y, s, params, rows, starts, chunk_aggs, lml, L, B, D,
+                                     chunks, static_cast<cudaStream_t>(stream));
 }
 
 const char* tgps_error_string(int code) {

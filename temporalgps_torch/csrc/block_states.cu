@@ -29,6 +29,10 @@
 // start, storing the state after every step. The serial chain becomes
 // ceil(L / C) fold steps, at most C - 1 combines and ceil(L / C) replay steps.
 //
+// K7's streamed form (per-step (A, a, Q) read from (KT, L, B) rows, the
+// StreamedTrans policy of lanes.cuh; a null rows pointer is the constant
+// form) runs the same fold and replay, reading each step's row twice.
+//
 // K10 is bound by bytes: it reads KT and writes SD values a step and does
 // about 135 flops with them at D = 3. One thread a block ran an L-step serial
 // replay with one step of 21 rows in flight a thread, waiting one trip to
@@ -120,12 +124,12 @@ constexpr int phase3_states_shared_bytes() {
 // over its chunk and stores the state after every step. An empty chunk
 // stays the identity; a lane past the last block folds and replays nothing
 // but meets every barrier.
-template <typename T, int D>
+template <typename T, int D, typename Trans>
 __global__ void __cluster_dims__(1, 1, kPhase3StatesCluster)
 __launch_bounds__(kStateThreads * kPhase3StatesWarps)
 phase3_states_kernel(const T* __restrict__ y, const T* __restrict__ s,
-                     const T* __restrict__ params, const T* __restrict__ starts,
-                     T* __restrict__ out, int L, int B) {
+                     const T* __restrict__ params, const T* __restrict__ rows,
+                     const T* __restrict__ starts, T* __restrict__ out, int L, int B) {
   constexpr int C = kPhase3StatesChunks;
   constexpr int W = kPhase3StatesWarps;
   constexpr int kSlotStride = W * kStateThreads;  // row stride of the aggregates
@@ -139,12 +143,12 @@ phase3_states_kernel(const T* __restrict__ y, const T* __restrict__ s,
   const int b = blockIdx.x * kStateThreads + lane;
   const int col = min(b, B - 1);
   const long long LB = static_cast<long long>(L) * B;
-  const Params<T, D> p = load_params<T, D>(params);
+  Trans trans(params, rows, L, B, col);
   const int Lc = (L + C - 1) / C;
   const int lo = min(c * Lc, L);
   const int hi = b < B ? min(lo + Lc, L) : lo;  // a lane past the last block does nothing
 
-  const Elem<T, D> agg = fold_steps(p, y + col, s + col, lo, c < C - 1 ? hi : lo, B);
+  const Elem<T, D> agg = fold_steps<T, D>(trans, y + col, s + col, lo, c < C - 1 ? hi : lo, B);
   store_elem(agg, aggs + w * kStateThreads + lane, kSlotStride);
 
   Elem<T, D> state;
@@ -162,11 +166,11 @@ phase3_states_kernel(const T* __restrict__ y, const T* __restrict__ s,
 
   Vec<T, D> m = state.b;
   Mat<T, D> P = state.C;
-  for (int l = lo; l < hi; ++l) {
+  for_steps(trans, lo, hi, [&](int l, const Params<T, D>& p) {
     const long long i = static_cast<long long>(l) * B + b;
     kalman_step(m, P, p, s[i], y[i]);
     store_state(m, P, out + i, LB);
-  }
+  });
 }
 
 // Warp w of a thread block folds steps [w*Lc, min((w+1)*Lc, L)), Lc =
@@ -334,28 +338,41 @@ affine_phase3_states_kernel(const T* __restrict__ params, const T* __restrict__ 
 
 inline int state_grid(int B) { return (B + kStateThreads - 1) / kStateThreads; }
 
-template <typename T, int D>
-int launch_phase3_states_d(const T* y, const T* s, const T* params, const T* starts, T* out,
-                           int L, int B, cudaStream_t stream) {
+template <typename T, int D, typename Trans>
+int launch_phase3_states_t(const T* y, const T* s, const T* params, const T* rows,
+                           const T* starts, T* out, int L, int B, cudaStream_t stream) {
   const int bytes = phase3_states_shared_bytes<T, D>();
   const cudaError_t err = cudaFuncSetAttribute(
-      phase3_states_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      phase3_states_kernel<T, D, Trans>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(state_grid(B), 1, kPhase3StatesCluster);
-  phase3_states_kernel<T, D><<<grid, kStateThreads * kPhase3StatesWarps, bytes, stream>>>(
-      y, s, params, starts, out, L, B);
+  phase3_states_kernel<T, D, Trans><<<grid, kStateThreads * kPhase3StatesWarps, bytes, stream>>>(
+      y, s, params, rows, starts, out, L, B);
   return static_cast<int>(cudaGetLastError());
 }
 
+// rows: the (KT, L, B) transition rows of the streamed form, or null for
+// the constant one.
+template <typename T, int D>
+int launch_phase3_states_d(const T* y, const T* s, const T* params, const T* rows,
+                           const T* starts, T* out, int L, int B, cudaStream_t stream) {
+  if (rows != nullptr)
+    return launch_phase3_states_t<T, D, StreamedTrans<T, D>>(y, s, params, rows, starts, out, L,
+                                                             B, stream);
+  return launch_phase3_states_t<T, D, ConstantTrans<T, D>>(y, s, params, rows, starts, out, L,
+                                                           B, stream);
+}
+
 template <typename T>
-int launch_phase3_states(const T* y, const T* s, const T* params, const T* starts, T* out,
-                         int L, int B, int D, int chunks, cudaStream_t stream) {
+int launch_phase3_states(const T* y, const T* s, const T* params, const T* rows,
+                         const T* starts, T* out, int L, int B, int D, int chunks,
+                         cudaStream_t stream) {
   if (L < 1 || B < 1 || chunks != kPhase3StatesChunks)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (D) {
-    case 1: return launch_phase3_states_d<T, 1>(y, s, params, starts, out, L, B, stream);
-    case 2: return launch_phase3_states_d<T, 2>(y, s, params, starts, out, L, B, stream);
-    case 3: return launch_phase3_states_d<T, 3>(y, s, params, starts, out, L, B, stream);
+    case 1: return launch_phase3_states_d<T, 1>(y, s, params, rows, starts, out, L, B, stream);
+    case 2: return launch_phase3_states_d<T, 2>(y, s, params, rows, starts, out, L, B, stream);
+    case 3: return launch_phase3_states_d<T, 3>(y, s, params, rows, starts, out, L, B, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -408,16 +425,16 @@ int launch_affine_phase3(const T* params, const T* starts, const T* chunk_aggs, 
 extern "C" {
 
 int tgps_phase3_states_f32(const float* y, const float* s, const float* params,
-                           const float* starts, float* out, int L, int B, int D, int chunks,
-                           void* stream) {
-  return tgps::launch_phase3_states<float>(y, s, params, starts, out, L, B, D, chunks,
+                           const float* rows, const float* starts, float* out, int L, int B,
+                           int D, int chunks, void* stream) {
+  return tgps::launch_phase3_states<float>(y, s, params, rows, starts, out, L, B, D, chunks,
                                            static_cast<cudaStream_t>(stream));
 }
 
 int tgps_phase3_states_f64(const double* y, const double* s, const double* params,
-                           const double* starts, double* out, int L, int B, int D, int chunks,
-                           void* stream) {
-  return tgps::launch_phase3_states<double>(y, s, params, starts, out, L, B, D, chunks,
+                           const double* rows, const double* starts, double* out, int L, int B,
+                           int D, int chunks, void* stream) {
+  return tgps::launch_phase3_states<double>(y, s, params, rows, starts, out, L, B, D, chunks,
                                             static_cast<cudaStream_t>(stream));
 }
 

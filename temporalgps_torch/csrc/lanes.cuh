@@ -481,20 +481,6 @@ __device__ __forceinline__ T kalman_step(Vec<T, D>& m, Mat<T, D>& P, const Param
   return lml;
 }
 
-// Left fold of steps [lo, hi) of one block from the identity element; y and
-// s point at the block's column of the (L, B) streams (an empty run stays the
-// identity). K1 and K7 fold one chunk of a block's steps each with this.
-template <typename T, int D>
-__device__ __forceinline__ Elem<T, D> fold_steps(const Params<T, D>& p, const T* y, const T* s,
-                                                 int lo, int hi, int B) {
-  Elem<T, D> acc = identity_elem<T, D>();
-  for (int l = lo; l < hi; ++l) {
-    const long long i = static_cast<long long>(l) * B;
-    acc = combine(acc, step_element(p, s[i], y[i]));
-  }
-  return acc;
-}
-
 // ---------------------------------------------------------------------------
 // Tangents. Every *_jvp returns the primal (the same operations, in the same
 // order, as the function above it) and its directional derivative along one
@@ -745,6 +731,91 @@ template <typename T, int D>
 __device__ __forceinline__ void affine_step(Vec<T, D>& m, Mat<T, D>& P, const Affine<T, D>& e) {
   m = vadd(mv(e.A, m), e.b);
   P = madd(sym(mmT(mm(e.A, P), e.A)), e.C);
+}
+
+// ---------------------------------------------------------------------------
+// Transition policies of K1, K3 and K7: where each step's (A, a, Q) comes
+// from. fold_steps and the replays walk a run of steps [lo, hi) with
+// for_steps, which hands each step its Params:
+//   ConstantTrans  the packed time-invariant (A, a, Q, H, h), loaded once;
+//   StreamedTrans  H and h from the packed row, (A, a, Q) of step l from the
+//                  (KT, L, B) rows (row r of step l of block b at
+//                  r*L*B + l*B + b, a coalesced warp access a row), each
+//                  step's row loaded kAhead steps before it is used, from a
+//                  ring of kAhead register sets (as K8's ahead[U]).
+// ---------------------------------------------------------------------------
+
+// Steps a streamed kernel loads ahead of the one it uses
+// (probes/torch_chunk_sweep.py rebuilds with 1 to 3).
+constexpr int kTransPrefetch = 1;
+
+template <typename T, int D>
+struct ConstantTrans {
+  static constexpr int kAhead = 1;
+  Params<T, D> p;
+  __device__ __forceinline__ ConstantTrans(const T* params, const T* /*rows*/, int /*L*/,
+                                           int /*B*/, int /*col*/)
+      : p(load_params<T, D>(params)) {}
+  __device__ __forceinline__ void start(int /*lo*/, int /*hi*/) {}
+  __device__ __forceinline__ const Params<T, D>& step(int /*u*/, int /*l*/, int /*hi*/) {
+    return p;
+  }
+};
+
+template <typename T, int D>
+struct StreamedTrans {
+  static constexpr int kAhead = kTransPrefetch;
+  Params<T, D> p;  // H and h from the packed row; A, a, Q of the current step
+  Affine<T, D> ahead[kAhead];
+  const T* rows;  // row 0 of step 0 of block col
+  long long LB;
+  int B;
+  __device__ __forceinline__ StreamedTrans(const T* params, const T* rows_, int L, int B_,
+                                           int col)
+      : p(load_params<T, D>(params)), rows(rows_ + col),
+        LB(static_cast<long long>(L) * B_), B(B_) {}
+  // Steps lo .. lo + kAhead - 1 (those below hi) into slots 0 .. kAhead - 1.
+  __device__ __forceinline__ void start(int lo, int hi) {
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u)
+      if (lo + u < hi) ahead[u] = load_affine<T, D>(rows + static_cast<long long>(lo + u) * B, LB);
+  }
+  // Step l's Params from slot u, which then loads step l + kAhead.
+  __device__ __forceinline__ const Params<T, D>& step(int u, int l, int hi) {
+    p.A = ahead[u].A;
+    p.a = ahead[u].b;
+    p.Q = ahead[u].C;
+    if (l + kAhead < hi)
+      ahead[u] = load_affine<T, D>(rows + static_cast<long long>(l + kAhead) * B, LB);
+    return p;
+  }
+};
+
+// f(l, params of step l) for l = lo .. hi - 1 in order.
+template <typename Trans, typename F>
+__device__ __forceinline__ void for_steps(Trans& trans, int lo, int hi, F&& f) {
+  trans.start(lo, hi);
+  for (int l0 = lo; l0 < hi; l0 += Trans::kAhead) {
+#pragma unroll
+    for (int u = 0; u < Trans::kAhead; ++u) {
+      const int l = l0 + u;
+      if (l < hi) f(l, trans.step(u, l, hi));
+    }
+  }
+}
+
+// Left fold of steps [lo, hi) of one block from the identity element; y and
+// s point at the block's column of the (L, B) streams (an empty run stays the
+// identity). K1 and K7 fold one chunk of a block's steps each with this.
+template <typename T, int D, typename Trans>
+__device__ __forceinline__ Elem<T, D> fold_steps(Trans& trans, const T* y, const T* s, int lo,
+                                                 int hi, int B) {
+  Elem<T, D> acc = identity_elem<T, D>();
+  for_steps(trans, lo, hi, [&](int l, const Params<T, D>& p) {
+    const long long i = static_cast<long long>(l) * B;
+    acc = combine(acc, step_element(p, s[i], y[i]));
+  });
+  return acc;
 }
 
 }  // namespace tgps

@@ -182,8 +182,9 @@ def build_lgssm(fx: FiniteLTISDE) -> LGSSM:
 
 def logpdf(fx: FiniteLTISDE, y, *, engine=None, **engine_kwargs):
     """Log marginal likelihood of y under fx; NaNs in y are missing
-    observations. `engine=None` picks the fused block engine for a supported
-    model on a CUDA device and the sequential engine otherwise;
+    observations. `engine=None` picks the block engine for a model on a CUDA
+    device (its kernels, constant or streamed; the matrix path for D > 3)
+    and the sequential engine otherwise;
     `engine_kwargs` (`fused`, `n_blocks`) go to models.lgssm.logpdf."""
     model = build_lgssm(fx)
     y = torch.as_tensor(y, dtype=model.dtype, device=model.device)

@@ -12,10 +12,12 @@ merged model, and the prediction indices are read out.
 
 Routes: on the card, the posterior at the training inputs of a
 RegularSpacing model runs on K1, K2, K7 and the marginals on K8-K10. At new
-inputs the merged times are irregular, so the model has per-step
-transitions, which the port's block filter does not take yet (ROADMAP Queue
-1 item 4b): the posterior runs on the sequential engine and its marginals
-on K8-K10. The dense posterior covariance is refused, as in the reference.
+inputs (or irregular training times) the merged times are irregular, so
+the model has per-step transitions: its filter runs on the streamed forms
+of K1 and K7 (each step's (A, a, Q) read from a row stream) with K2, and
+its marginals on K8-K10. Models of more than three states take the block
+engine's plain matrix path. The dense posterior covariance is refused, as
+in the reference.
 """
 
 import dataclasses

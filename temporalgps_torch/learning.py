@@ -6,7 +6,9 @@ Parameters are a tensor or a pytree (dict, list, tuple) of tensors.
 
 `value_and_grad_fwd_lgssm` is the training path: the primal filter and the k
 tangent filters share one pass through the block engine's forward-mode
-kernels (ops/block.logpdf_fwd_grad). It needs the derivative of every model
+kernels (ops/block.logpdf_fwd_grad), for Fill models with D <= 3; other
+models take the forward mode of the general block schedule. It needs the
+derivative of every model
 leaf along every parameter. `LGSSM` and `Fill` are not pytrees that
 torch.func knows, so the model is unpacked: one torch.func.jacfwd over a
 function that returns the leaves (A, a, Q, H, h, s, m0, P0) of
@@ -160,17 +162,17 @@ def value_and_grad_fwd_lgssm(model_fn, y, *, n_blocks=None, fallback=None):
     pass of the forward-mode kernels (ops/block.logpdf_fwd_grad): about
     (1+k) primal filters, no residuals.
 
-    model_fn: flat parameter tensor -> LGSSM with Fill parameters, scalar
-    emissions and D <= 3 (the Matern learning configuration). NaNs in y are
-    missing observations.
+    model_fn: flat parameter tensor -> forward-ordered scalar-emission LGSSM.
+    NaNs in y are missing observations. Fill parameters with D <= 3 (the
+    Matern learning configuration on RegularSpacing) run K4-K6.
 
     A model the kernels do not take (`block._fwd_grad_supported`: per-step
-    parameters such as irregular times, per-step noise) goes to
+    parameters such as irregular times, per-step noise, D > 3) goes to
     `value_and_grad_fwd` of `fallback` (p -> logpdf) where the caller gave
-    one. Without one, a model on the CPU runs the block engine's plain
-    schedule where that engine takes it and the sequential engine otherwise;
-    a model on the card raises NotImplementedError, because the plain
-    schedules are no path for the card (ROADMAP Queue 1 item 4b).
+    one, and otherwise of the block engine's plain general schedule (the
+    lane path for D <= 3, the matrix path beyond), on the model's device, as
+    the reference runs a vmapped JVP of its XLA schedule there. The route is
+    chosen by `_fwd_grad_supported` before anything runs.
 
     Returns fn: params -> (value, grad), grad with params' dtype and device."""
     y_cache = {}
@@ -184,9 +186,8 @@ def value_and_grad_fwd_lgssm(model_fn, y, *, n_blocks=None, fallback=None):
 
     def plain_logpdf(p):
         model = model_fn(p)
-        engine = (dict(engine="block", fused=False, n_blocks=n_blocks)
-                  if block._pallas_supported(model) else dict(engine="sequential"))
-        return logpdf_with_missings(model, y_on(model), **engine)
+        return logpdf_with_missings(model, y_on(model), engine="block", fused=False,
+                                    n_blocks=n_blocks)
 
     def vg(params):
         flat = torch.as_tensor(params).detach()
@@ -194,13 +195,6 @@ def value_and_grad_fwd_lgssm(model_fn, y, *, n_blocks=None, fallback=None):
         if block._fwd_grad_supported(model, tangents):
             value, grad = block.logpdf_fwd_grad(model, y_on(model), tangents, n_blocks=n_blocks)
             return value, grad.to(flat)
-        if fallback is None and model.device.type != "cpu":
-            raise NotImplementedError(
-                "value_and_grad_fwd_lgssm on the card takes Fill-parameter "
-                "scalar-emission models with D <= 3 and time-invariant noise; the "
-                "general block schedule for other models is ROADMAP Queue 1 item "
-                "4b. Pass fallback=, or build the model with device='cpu'."
-            )
         return value_and_grad_fwd(fallback or plain_logpdf)(flat)
 
     return vg

@@ -7,7 +7,8 @@ Engines ported:
     truth, for any model the compiler builds (Fill or per-step parameters)
     and for both orderings.
   * "block"      — the block-parallel schedules of ops/block.py on the
-    hand-written kernels (CUDA) or their plain versions (CPU).
+    hand-written kernels (CUDA) or their plain versions (CPU); models the
+    kernels do not take (D > 3) run its plain matrix path on either.
 
 The RTS smoother is, as in the reference, another LGSSM: reverse-ordered,
 with inverted dynamics, whose x0 is the last filtering state. Step order per
@@ -53,33 +54,28 @@ class LGSSM:
 
 
 def _resolve_engine(engine, model=None):
-    """`None` picks "block" for a model on a CUDA device that the fused
-    kernels take, and "sequential" everywhere else (the reference picks
+    """`None` picks "block" for any forward-ordered model on a CUDA device
+    (the kernels for D <= 3, constant or per-step transitions; the matrix
+    path beyond), and "sequential" everywhere else (the reference picks
     "block" on the TPU). The filtering functions (logpdf, filter_, posterior)
     use it."""
     if engine is not None:
         return engine
-    if model is not None and model.device.type == "cuda":
-        from ..ops import block
-
-        if block._pallas_supported(model):
-            return "block"
+    if model is not None and model.device.type == "cuda" and model.trans.forward:
+        return "block"
     return "sequential"
 
 
 def _resolve_engine_affine(engine, model=None):
     """`_resolve_engine` for the data-free functions (marginals,
     marginals_diag, latent_marginals): their block schedule, the affine
-    prefix on K8-K10, takes both orderings and per-step parameters, so
-    `None` picks "block" for any model on a CUDA device with D <= 3 (the
+    prefix (K8-K10 for D <= 3, the matrix path beyond), takes both
+    orderings, so `None` picks "block" for any model on a CUDA device (the
     reverse-ordered posterior among them), "sequential" elsewhere."""
     if engine is not None:
         return engine
     if model is not None and model.device.type == "cuda":
-        from ..ops import block
-
-        if block._marginals_supported(model):
-            return "block"
+        return "block"
     return "sequential"
 
 

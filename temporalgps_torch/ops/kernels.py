@@ -28,6 +28,14 @@ the aggregates of the runs of steps their warps fold, (C, rows, B), run c
 first: K3 (phase3_lml), K6 (phase3_jvp_lml) and K10 (affine_phase3_states)
 start their runs from them.
 
+K1, K3 and K7 have a second, streamed form for per-step transitions
+(irregular times): `phase1_aggregate_streamed`, `phase3_lml_streamed` and
+`phase3_states_streamed` take the (A, a, Q) of every step as (KT, L, B)
+rows, the affine layout, padded with identity steps, and H and h from the
+packed row, whose transition slots they do not read. The same kernels run
+both forms (csrc/lanes.cuh, ConstantTrans and StreamedTrans), on the same
+schedules; their plain versions take the rows as `trans_rows=`.
+
 Each wrapper runs the plain version when its tensors are on the CPU, and
 launches its kernel when they are on a CUDA device; there is no other route.
 It counts its kernel launches in `<wrapper>.launches`.
@@ -41,6 +49,7 @@ loaded with ctypes.
 import ctypes
 import functools
 import hashlib
+import itertools
 import operator
 import os
 import shutil
@@ -165,13 +174,15 @@ def build() -> Path:
 
 _ENTRY_ARGS = {
     # pointers, then ints, then the stream
-    "phase1_aggregate": (5, 4),  # y, s, params, out, chunk_out; L, B, D, chunks
+    # K1, K3 and K7 take the (KT, L, B) transition rows of their streamed
+    # forms after the packed parameters, or a null pointer for the constant ones.
+    "phase1_aggregate": (6, 4),  # y, s, params, rows, out, chunk_out; L, B, D, chunks
     "phase2_starts": (3, 2),     # comps, prior, starts; B, D
-    "phase3_lml": (6, 4),        # y, s, params, starts, chunk_aggs, lml; L, B, D, chunks
+    "phase3_lml": (7, 4),        # y, s, params, rows, starts, chunk_aggs, lml; L, B, D, chunks
     "phase1_jvp": (5, 5),         # y, s, rows, out, chunk_out; L, B, D, k, chunks
     "phase2_jvp_starts": (3, 3),  # comps, priors, starts; B, D, k
     "phase3_jvp_lml": (6, 5),     # y, s, rows, starts, chunk_aggs, lml; L, B, D, k, chunks
-    "phase3_states": (5, 4),         # y, s, params, starts, out; L, B, D, chunks
+    "phase3_states": (6, 4),         # y, s, params, rows, starts, out; L, B, D, chunks
     "affine_phase1": (3, 4),         # params, out, chunk_out; L, B, D, chunks
     "affine_phase2_starts": (3, 2),  # agg, prior, starts; B, D
     "affine_phase3_states": (4, 4),  # params, starts, chunk_aggs, out; L, B, D, chunks
@@ -192,14 +203,15 @@ def _library():
 
 
 def _launch(name, tensors, ints):
-    """Call the C entry `name` for the tensors' dtype on the current stream;
-    raise if the launch reports an error."""
+    """Call the C entry `name` for the tensors' dtype on the current stream
+    (a None tensor is a null pointer); raise if the launch reports an
+    error."""
     lib = _library()
     fn = getattr(lib, f"tgps_{name}_{_DTYPE_SUFFIX[tensors[0].dtype]}")
     device = tensors[0].device
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*[t.data_ptr() for t in tensors], *ints, stream)
+        err = fn(*[None if t is None else t.data_ptr() for t in tensors], *ints, stream)
     if err != 0:
         msg = lib.tgps_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} ({msg})")
@@ -383,30 +395,50 @@ def _chunk_tree(aggs, combine):
     return aggs[0]
 
 
-def _chunk_aggregates(y_blocked, s_blocked, packed, D, chunks):
+def _steps(y_blocked, s_blocked, packed, D, runs, trans_rows):
+    """((y, s, A, a, Q) of every step of `runs` runs side by side as lanes,
+    the emission (H, h)): the transition the packed constant, or with
+    `trans_rows` (KT, L, B) each step's own row (the streamed kernels'
+    input; a lane past its run's last step reads zeros, which its caller
+    discards)."""
+    A, a, Q, H, h = _unpack_params(packed, D)
+    if trans_rows is not None:
+        _check_trans_rows(trans_rows, D, y_blocked)
+    ys = _chunk_lanes(y_blocked, runs, 0.0).unbind(0)
+    ss = _chunk_lanes(s_blocked, runs, 1.0).unbind(0)
+    if trans_rows is None:
+        trans = itertools.repeat((A, a, Q))
+    else:
+        trans = (_affine_rows_to_tuple(r.unbind(0), D)
+                 for r in _chunk_lanes(trans_rows, runs, 0.0).unbind(1))
+    return [(y_l, s_l, *t) for y_l, s_l, t in zip(ys, ss, trans)], (H, h)
+
+
+def _chunk_aggregates(y_blocked, s_blocked, packed, D, chunks, trans_rows=None):
     """The kernels' chunk folds (K1, K7): each block's L steps in `chunks`
     runs of ceil(L / chunks), each folded from the identity element (the runs
     side by side, as lanes) -> one element tree of (B,) components a run."""
     L, B = y_blocked.shape
-    A, a, Q, H, h = _unpack_params(packed, D)
+    steps, (H, h) = _steps(y_blocked, s_blocked, packed, D, chunks, trans_rows)
     carry = _identity_elem((chunks * B,), D, y_blocked)
-    steps = zip(_chunk_lanes(y_blocked, chunks, 0.0).unbind(0),
-                _chunk_lanes(s_blocked, chunks, 1.0).unbind(0))
-    for l, (y_l, s_l) in enumerate(steps):
+    for l, (y_l, s_l, A, a, Q) in enumerate(steps):
         new = lanes.combine(carry, lanes.step_element(A, a, Q, H, h, s_l, y_l, 1.0, 0.0))
         carry = _fold_step(carry, new, _chunk_step_exists(l, L, B, chunks, y_blocked))
     return _unchunk(carry, chunks)
 
 
-def phase1_aggregate_plain(y_blocked, s_blocked, packed, D, chunks=None):
+def phase1_aggregate_plain(y_blocked, s_blocked, packed, D, chunks=None, trans_rows=None):
     """(L, B) streams -> ((K, B) block aggregates, (runs, K, B) run
     aggregates): for each block, the left fold of its L step elements from
     the identity element, and the folds of its runs.
 
     chunks=None folds each block's L steps in one run. With `chunks` (a
     power of two; K1's is PHASE1_AGGREGATE_CHUNKS) it takes K1's schedule:
-    `_chunk_aggregates`, then the run aggregates combined by `_chunk_tree`."""
-    aggs = _chunk_aggregates(y_blocked, s_blocked, packed, D, chunks or 1)
+    `_chunk_aggregates`, then the run aggregates combined by `_chunk_tree`.
+    `trans_rows`, (KT, L, B) rows A, a, Q of every step, replaces the
+    packed transition (K1's streamed form; serially, the reference's lane
+    path `_phase1_aggregates_lanes`)."""
+    aggs = _chunk_aggregates(y_blocked, s_blocked, packed, D, chunks or 1, trans_rows)
     rows = lambda e: torch.stack(_elem_tuple_to_rows(e))
     return rows(_chunk_tree(aggs, lanes.combine)), torch.stack([rows(run) for run in aggs])
 
@@ -468,7 +500,8 @@ def _run_starts(starts, D, aggs):
     return _tree_map(lambda *runs: torch.cat(runs), *run_starts)
 
 
-def phase3_lml_plain(y_blocked, s_blocked, packed, starts, D, chunk_aggs=None):
+def phase3_lml_plain(y_blocked, s_blocked, packed, starts, D, chunk_aggs=None,
+                     trans_rows=None):
     """Per-block log marginal likelihood (B,): the Kalman recursion of each
     block from its start state.
 
@@ -478,15 +511,15 @@ def phase3_lml_plain(y_blocked, s_blocked, packed, starts, D, chunk_aggs=None):
     schedule: the steps split into runs of ceil(L / runs); run c's start by
     `_run_starts`; every run replayed from its start, side by side as lanes,
     a run past its last step adding nothing; and the runs' sums added in run
-    order."""
+    order. `trans_rows` as in `phase1_aggregate_plain` (K3's streamed form;
+    serially, the reference's `_phase3_lml_lanes`)."""
     L, B = y_blocked.shape
     n = 1 if chunk_aggs is None else chunk_aggs.shape[0]
-    A, a, Q, H, h = _unpack_params(packed, D)
+    steps, (H, h) = _steps(y_blocked, s_blocked, packed, D, n, trans_rows)
     aggs = [] if chunk_aggs is None else chunk_aggs[:-1]
     m, P = _run_starts(starts, D, [_elem_rows_to_tuple(agg.unbind(0), D) for agg in aggs])
     acc = y_blocked.new_zeros(n * B)
-    for l, (y_l, s_l) in enumerate(zip(_chunk_lanes(y_blocked, n, 0.0).unbind(0),
-                                       _chunk_lanes(s_blocked, n, 1.0).unbind(0))):
+    for l, (y_l, s_l, A, a, Q) in enumerate(steps):
         m, P, lml = lanes.kalman_step(m, P, A, a, Q, H, h, s_l, y_l)
         exists = _chunk_step_exists(l, L, B, n, y_blocked)
         acc = acc + (lml if exists is None else torch.where(exists, lml, 0.0))
@@ -643,7 +676,8 @@ def phase3_jvp_lml_plain(y_blocked, s_blocked, packed_rows, starts, D, k, chunk_
 # Plain state-emitting versions: smoothing and prediction
 # ---------------------------------------------------------------------------
 
-def phase3_states_plain(y_blocked, s_blocked, packed, starts, D, chunks=None):
+def phase3_states_plain(y_blocked, s_blocked, packed, starts, D, chunks=None,
+                        trans_rows=None):
     """(L, B) streams and (SD, B) start states -> (SD, L, B): the Kalman
     recursion of each block from its start state, keeping the filtering
     state after every step.
@@ -652,15 +686,16 @@ def phase3_states_plain(y_blocked, s_blocked, packed, starts, D, chunks=None):
     `chunks` (K7's is PHASE3_STATES_CHUNKS) it takes K7's schedule: the steps
     split into `chunks` runs of ceil(L / chunks); the runs' aggregates by
     `_chunk_aggregates`; run c's start by `_run_starts`; and every run
-    replayed from its start, side by side as lanes."""
+    replayed from its start, side by side as lanes. `trans_rows` as in
+    `phase1_aggregate_plain` (K7's streamed form)."""
     L, B = y_blocked.shape
     n = chunks or 1
-    A, a, Q, H, h = _unpack_params(packed, D)
-    aggs = _chunk_aggregates(y_blocked, s_blocked, packed, D, n)[:-1] if n > 1 else []
+    steps, (H, h) = _steps(y_blocked, s_blocked, packed, D, n, trans_rows)
+    aggs = (_chunk_aggregates(y_blocked, s_blocked, packed, D, n, trans_rows)[:-1]
+            if n > 1 else [])
     m, P = _run_starts(starts, D, aggs)
     out = []
-    for y_l, s_l in zip(_chunk_lanes(y_blocked, n, 0.0).unbind(0),
-                        _chunk_lanes(s_blocked, n, 1.0).unbind(0)):
+    for y_l, s_l, A, a, Q in steps:
         m, P, _ = lanes.kalman_step(m, P, A, a, Q, H, h, s_l, y_l)
         out.append(torch.stack(_state_tuple_to_rows(m, P)))
     return _runs_to_steps(out, n, L)
@@ -744,19 +779,54 @@ def phase1_aggregate(y_blocked, s_blocked, packed, D):
     where the serial plain version runs)."""
     if _route(y_blocked, s_blocked, packed) == "cpu":
         return phase1_aggregate_plain(y_blocked, s_blocked, packed, D)
-    _check_kernel_args(D, y_blocked, s_blocked, packed)
+    out = _launch_phase1(y_blocked, s_blocked, packed, None, D)
+    phase1_aggregate.launches += 1
+    return out
+
+
+phase1_aggregate.launches = 0
+
+
+def _check_trans_rows(trans_rows, D, y_blocked):
+    _check_shape("trans_rows", trans_rows, (affine_rows(D), *y_blocked.shape))
+
+
+def _launch_phase1(y_blocked, s_blocked, packed, trans_rows, D):
+    """K1 on the packed constants (trans_rows None) or on per-step rows."""
+    _check_kernel_args(D, y_blocked, s_blocked, packed,
+                       *(() if trans_rows is None else (trans_rows,)))
     _check_streams(y_blocked, s_blocked)
     _check_shape("packed params", packed, (param_len(D),))
     L, B = y_blocked.shape
     out = torch.empty((elem_rows(D), B), dtype=y_blocked.dtype, device=y_blocked.device)
     chunk_out = out.new_empty((PHASE1_AGGREGATE_CHUNKS, *out.shape))
-    _launch("phase1_aggregate", (y_blocked, s_blocked, packed, out, chunk_out),
+    _launch("phase1_aggregate", (y_blocked, s_blocked, packed, trans_rows, out, chunk_out),
             (L, B, D, PHASE1_AGGREGATE_CHUNKS))
-    phase1_aggregate.launches += 1
     return out, chunk_out
 
 
-phase1_aggregate.launches = 0
+# K1's streamed form. K1 reading each step's (A, a, Q) from (KT, L, B) rows
+# (row r of step l of block b at r*L*B + l*B + b, so a warp reads 32
+# neighbouring addresses a row), with H and h from the packed row, whose
+# transition slots it does not read: the models of irregular times. The
+# same schedule, grid and cluster as K1 (csrc/lanes.cuh `StreamedTrans`,
+# the next step's row loaded before the current step is folded). Bound by
+# bytes on paper: KT + 2 values read a step against K1's 738 flops at
+# D = 3 (`phase1_aggregate_plain(..., chunks=C, trans_rows=...)` is the same
+# schedule).
+def phase1_aggregate_streamed(y_blocked, s_blocked, packed, D, trans_rows):
+    """(L, B) streams, the (PK,) emission row and (KT, L, B) transition rows
+    -> K1's pair, ((K, B), (PHASE1_AGGREGATE_CHUNKS, K, B)); one run on the
+    CPU, where the serial plain version runs."""
+    if _route(y_blocked, s_blocked, packed, trans_rows) == "cpu":
+        return phase1_aggregate_plain(y_blocked, s_blocked, packed, D, trans_rows=trans_rows)
+    _check_trans_rows(trans_rows, D, y_blocked)
+    out = _launch_phase1(y_blocked, s_blocked, packed, trans_rows, D)
+    phase1_aggregate_streamed.launches += 1
+    return out
+
+
+phase1_aggregate_streamed.launches = 0
 
 
 # K2. Replaces temporalgps_tpu/ops/pallas_kernels.py phase2_starts
@@ -808,20 +878,49 @@ def phase3_lml(y_blocked, s_blocked, packed, starts, D, chunk_aggs):
     `phase1_aggregate` -> (B,) per-block lml."""
     if _route(y_blocked, s_blocked, packed, starts, chunk_aggs) == "cpu":
         return phase3_lml_plain(y_blocked, s_blocked, packed, starts, D, chunk_aggs)
-    _check_kernel_args(D, y_blocked, s_blocked, packed, starts, chunk_aggs)
+    out = _launch_phase3(y_blocked, s_blocked, packed, None, starts, D, chunk_aggs)
+    phase3_lml.launches += 1
+    return out
+
+
+phase3_lml.launches = 0
+
+
+def _launch_phase3(y_blocked, s_blocked, packed, trans_rows, starts, D, chunk_aggs):
+    """K3 on the packed constants (trans_rows None) or on per-step rows."""
+    _check_kernel_args(D, y_blocked, s_blocked, packed, starts, chunk_aggs,
+                       *(() if trans_rows is None else (trans_rows,)))
     _check_streams(y_blocked, s_blocked)
     _check_shape("packed params", packed, (param_len(D),))
     L, B = y_blocked.shape
     _check_shape("starts", starts, (state_rows(D), B))
     _check_shape("chunk_aggs", chunk_aggs, (PHASE1_AGGREGATE_CHUNKS, elem_rows(D), B))
     out = torch.empty((B,), dtype=y_blocked.dtype, device=y_blocked.device)
-    _launch("phase3_lml", (y_blocked, s_blocked, packed, starts, chunk_aggs, out),
+    _launch("phase3_lml", (y_blocked, s_blocked, packed, trans_rows, starts, chunk_aggs, out),
             (L, B, D, PHASE1_AGGREGATE_CHUNKS))
-    phase3_lml.launches += 1
     return out
 
 
-phase3_lml.launches = 0
+# K3's streamed form: K3's replay of K1's runs with each step's (A, a, Q)
+# read from the rows as K1's streamed form reads them (the run's first row
+# loaded after its start chain, each next one before the current step).
+# KT + 2 values read a step against 215 flops at D = 3: bound by bytes
+# (`phase3_lml_plain(..., chunk_aggs=..., trans_rows=...)` is the same
+# schedule).
+def phase3_lml_streamed(y_blocked, s_blocked, packed, starts, D, chunk_aggs, trans_rows):
+    """(L, B) streams, the emission row, (SD, B) start states, the run
+    aggregates of `phase1_aggregate_streamed` and the (KT, L, B) transition
+    rows -> (B,) per-block lml."""
+    if _route(y_blocked, s_blocked, packed, starts, chunk_aggs, trans_rows) == "cpu":
+        return phase3_lml_plain(y_blocked, s_blocked, packed, starts, D, chunk_aggs,
+                                trans_rows=trans_rows)
+    _check_trans_rows(trans_rows, D, y_blocked)
+    out = _launch_phase3(y_blocked, s_blocked, packed, trans_rows, starts, D, chunk_aggs)
+    phase3_lml_streamed.launches += 1
+    return out
+
+
+phase3_lml_streamed.launches = 0
 
 
 def _check_tangent_count(k):
@@ -962,19 +1061,47 @@ def phase3_states(y_blocked, s_blocked, packed, starts, D):
     states after every step."""
     if _route(y_blocked, s_blocked, packed, starts) == "cpu":
         return phase3_states_plain(y_blocked, s_blocked, packed, starts, D)
-    _check_kernel_args(D, y_blocked, s_blocked, packed, starts)
-    _check_streams(y_blocked, s_blocked)
-    _check_shape("packed params", packed, (param_len(D),))
-    L, B = y_blocked.shape
-    _check_shape("starts", starts, (state_rows(D), B))
-    out = torch.empty((state_rows(D), L, B), dtype=y_blocked.dtype, device=y_blocked.device)
-    _launch("phase3_states", (y_blocked, s_blocked, packed, starts, out),
-            (L, B, D, PHASE3_STATES_CHUNKS))
+    out = _launch_phase3_states(y_blocked, s_blocked, packed, None, starts, D)
     phase3_states.launches += 1
     return out
 
 
 phase3_states.launches = 0
+
+
+def _launch_phase3_states(y_blocked, s_blocked, packed, trans_rows, starts, D):
+    """K7 on the packed constants (trans_rows None) or on per-step rows."""
+    _check_kernel_args(D, y_blocked, s_blocked, packed, starts,
+                       *(() if trans_rows is None else (trans_rows,)))
+    _check_streams(y_blocked, s_blocked)
+    _check_shape("packed params", packed, (param_len(D),))
+    L, B = y_blocked.shape
+    _check_shape("starts", starts, (state_rows(D), B))
+    out = torch.empty((state_rows(D), L, B), dtype=y_blocked.dtype, device=y_blocked.device)
+    _launch("phase3_states", (y_blocked, s_blocked, packed, trans_rows, starts, out),
+            (L, B, D, PHASE3_STATES_CHUNKS))
+    return out
+
+
+# K7's streamed form: K7's fold and replay of each chunk with each step's
+# (A, a, Q) read from the rows (twice a step: once to fold, once to replay).
+# 2 KT + 2 values read and SD written a step against 209 + 738 flops at
+# D = 3: bound by bytes (`phase3_states_plain(..., chunks=C,
+# trans_rows=...)` is the same schedule).
+def phase3_states_streamed(y_blocked, s_blocked, packed, starts, D, trans_rows):
+    """(L, B) streams, the emission row, (SD, B) start states and the
+    (KT, L, B) transition rows -> (SD, L, B) filtering states after every
+    step."""
+    if _route(y_blocked, s_blocked, packed, starts, trans_rows) == "cpu":
+        return phase3_states_plain(y_blocked, s_blocked, packed, starts, D,
+                                   trans_rows=trans_rows)
+    _check_trans_rows(trans_rows, D, y_blocked)
+    out = _launch_phase3_states(y_blocked, s_blocked, packed, trans_rows, starts, D)
+    phase3_states_streamed.launches += 1
+    return out
+
+
+phase3_states_streamed.launches = 0
 
 
 # K8. Replaces temporalgps_tpu/ops/pallas_kernels.py affine_phase1
@@ -1067,7 +1194,8 @@ affine_phase3_states.launches = 0
 
 WRAPPERS = (phase1_aggregate, phase2_starts, phase3_lml,
             phase1_jvp, phase2_jvp_starts, phase3_jvp_lml,
-            phase3_states, affine_phase1, affine_phase2_starts, affine_phase3_states)
+            phase3_states, affine_phase1, affine_phase2_starts, affine_phase3_states,
+            phase1_aggregate_streamed, phase3_lml_streamed, phase3_states_streamed)
 
 
 def reset_launch_counts():

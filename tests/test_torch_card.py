@@ -14,6 +14,9 @@ import torch
 
 import temporalgps_torch as tt
 from temporalgps_torch.gp import GP, ArrayStorage, Matern52, build_lgssm, to_sde
+from temporalgps_torch.gp import posterior as tpost
+from temporalgps_torch.models import lgssm as tlgssm
+from temporalgps_torch.models import missings as tmissings
 from temporalgps_torch.ops import kernels as tk
 
 torch.set_num_threads(1)
@@ -84,6 +87,112 @@ def test_kernels_match_plain_versions_on_card(cuda_device, D, dtype, rtol, L, B)
     for got, want in ((via_k1, p3), (via_k_runs, p3), (via_k2, p3), (k3, via_k_runs)):
         assert bool(torch.isfinite(got).all())
         assert (got - want).abs().max().item() <= rtol * want.abs().max().item()
+
+
+def _trans_rows(rng, D, dtype, device, L, B):
+    """Per-step transitions (KT, L, B) of K1's, K3's and K7's streamed forms:
+    stable A, small a, PSD Q, and identity rows on the padding steps at the
+    end of the last block (as _streams_with_gaps marks them)."""
+    F = np.eye(D) * 0.9 + 0.02 * rng.standard_normal((L, B, D, D))
+    G = 0.3 * rng.standard_normal((L, B, D, D))
+    rows = np.concatenate([F.reshape(L, B, D * D), 0.05 * rng.standard_normal((L, B, D)),
+                           np.einsum("lbij,lbkj->lbik", G, G).reshape(L, B, D * D)], axis=-1)
+    rows[max(L - 2, 0):, B - 1] = np.concatenate([np.eye(D).ravel(), np.zeros(D + D * D)])
+    return torch.as_tensor(rows.transpose(2, 0, 1), dtype=dtype, device=device).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L, B", CHUNK_SHAPES)
+@pytest.mark.parametrize("D", [1, 2, 3])
+@pytest.mark.parametrize("dtype, rtol", [(torch.float64, 1e-10), (torch.float32, 1e-4)])
+def test_streamed_kernels_match_plain_versions_on_card(cuda_device, D, dtype, rtol, L, B):
+    """The streamed forms of K1, K3 and K7 (per-step (A, a, Q) rows)
+    against their plain versions in their chunk order on the same inputs:
+    K1's block and run aggregates held on the per-block lml downstream, K3
+    fed K1's run aggregates, K7's states row by row. A missing step,
+    padding steps with identity rows, and the shapes of CHUNK_SHAPES."""
+    rng = np.random.default_rng(10 + D)
+    y_t, s_t, packed, m0, P0 = _value_inputs(rng, D, dtype, cuda_device, L, B)
+    rows = _trans_rows(rng, D, dtype, cuda_device, L, B)
+    p1, p_runs = tk.phase1_aggregate_plain(y_t, s_t, packed, D, chunks=tk.PHASE1_AGGREGATE_CHUNKS,
+                                           trans_rows=rows)
+    p2 = tk.phase2_starts_plain(p1, m0, P0, D)
+    p3 = tk.phase3_lml_plain(y_t, s_t, packed, p2, D, p_runs, trans_rows=rows)
+    p7 = tk.phase3_states_plain(y_t, s_t, packed, p2, D, chunks=tk.PHASE3_STATES_CHUNKS,
+                                trans_rows=rows)
+    tk.reset_launch_counts()
+    k1, k_runs = tk.phase1_aggregate_streamed(y_t, s_t, packed, D, rows)
+    k3 = tk.phase3_lml_streamed(y_t, s_t, packed, p2, D, k_runs, rows)
+    k7 = tk.phase3_states_streamed(y_t, s_t, packed, p2, D, rows)
+    torch.cuda.synchronize()
+    counts = tk.launch_counts()
+    assert (counts["phase1_aggregate_streamed"], counts["phase3_lml_streamed"],
+            counts["phase3_states_streamed"]) == (1, 1, 1)
+    assert counts["phase1_aggregate"] == counts["phase3_lml"] == counts["phase3_states"] == 0
+    via_k1 = tk.phase3_lml_plain(y_t, s_t, packed, tk.phase2_starts_plain(k1, m0, P0, D), D,
+                                 p_runs, trans_rows=rows)
+    via_k_runs = tk.phase3_lml_plain(y_t, s_t, packed, p2, D, k_runs, trans_rows=rows)
+    for got, want in ((via_k1, p3), (via_k_runs, p3), (k3, via_k_runs)):
+        assert bool(torch.isfinite(got).all())
+        assert (got - want).abs().max().item() <= rtol * want.abs().max().item()
+    assert k7.shape == p7.shape and bool(torch.isfinite(k7).all())
+    scale = p7.abs().amax(dim=(1, 2), keepdim=True).clamp_min(1e-30)
+    assert ((k7 - p7).abs() / scale).max().item() <= rtol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, rtol", [(torch.float64, 1e-10), (torch.float32, 1e-3)])
+def test_irregular_times_run_the_streamed_kernels_on_card(cuda_device, monkeypatch, dtype, rtol):
+    """An irregular-times model on the card: logpdf runs streamed K1, K2,
+    streamed K3; filter_ and the posterior streamed K1, K2, streamed K7, and
+    the posterior marginals K8-K10 after them; no sequential step runs.
+    Each matches the float64 CPU port (the lane path and the plain
+    versions): 1e-10 in float64, 1e-3 in float32 (relative to the largest
+    entry)."""
+    N = 5000
+    rng = np.random.default_rng(5)
+    times = np.cumsum(rng.uniform(0.5e-3, 1.5e-3, N))
+    y = rng.standard_normal(N)
+    y[123] = np.nan
+
+    def no_sequential(*args, **kwargs):
+        raise AssertionError("the sequential engine ran on the card")
+
+    def run(dt, device):
+        fx = to_sde(GP((1.3 * Matern52()).stretch(0.7)), ArrayStorage(dt), device=device)(
+            torch.as_tensor(times, device=device), 0.1)
+        model = build_lgssm(fx)
+        model_f, y_f, _ = tmissings.transform_model_and_obs(
+            model, torch.as_tensor(y, dtype=dt, device=device))
+        engine = dict(engine="block") if device == "cpu" else {}
+        tk.reset_launch_counts()
+        lml = tt.logpdf(fx, y, **engine)
+        lml_counts = tk.launch_counts()
+        tk.reset_launch_counts()
+        xf = tlgssm.filter_(model_f, y_f, **engine)
+        filter_counts = tk.launch_counts()
+        tk.reset_launch_counts()
+        m, v = tpost.marginals(tpost.posterior(fx, y)(fx.x, 0.1), **engine)
+        post_counts = tk.launch_counts()
+        return (lml, xf.mean, xf.cov, m, v), (lml_counts, filter_counts, post_counts)
+
+    want, _ = run(torch.float64, "cpu")
+    monkeypatch.setattr(tlgssm, "_logpdf_sequential", no_sequential)
+    monkeypatch.setattr(tlgssm, "_iteration", no_sequential)
+    got, (lml_counts, filter_counts, post_counts) = run(dtype, "cuda")
+    torch.cuda.synchronize()
+    streamed = ("phase1_aggregate_streamed", "phase2_starts")
+    assert all(lml_counts[n] == 1 for n in streamed + ("phase3_lml_streamed",))
+    assert all(filter_counts[n] == 1 for n in streamed + ("phase3_states_streamed",))
+    assert all(post_counts[n] == 1 for n in streamed + (
+        "phase3_states_streamed", "affine_phase1", "affine_phase2_starts",
+        "affine_phase3_states"))
+    for counts in (lml_counts, filter_counts, post_counts):
+        assert counts["phase1_aggregate"] == counts["phase3_lml"] == counts["phase3_states"] == 0
+    for g, w in zip(got, want):
+        g = g.double().cpu()
+        assert bool(torch.isfinite(g).all())
+        assert (g - w).abs().max().item() <= rtol * w.abs().max().item()
 
 
 def _jvp_inputs(rng, D, k, dtype, device, L, B):
@@ -179,16 +288,19 @@ def test_phase2_kernel_takes_any_block_count(cuda_device, scan, D, dtype, rtol, 
 _VALUE_RUNS = (tk.PHASE1_AGGREGATE_CHUNKS, tk.elem_rows(2), 4)
 _JVP_RUNS = (tk.PHASE1_JVP_CHUNKS, 2 * tk.elem_rows(2), 4)
 _AFFINE_RUNS = (tk.AFFINE_PHASE1_CHUNKS, tk.affine_rows(2), 4)
+# K1, K3 and K7 take the transition rows of their streamed forms after the
+# packed parameters (the chunk count is checked before the form is chosen).
+_TRANS_ROWS = (tk.affine_rows(2), 5, 4)
 _CHUNKED_LAUNCHES = {
-    "phase1_aggregate": ([(5, 4), (5, 4), (tk.param_len(2),), (tk.elem_rows(2), 4), _VALUE_RUNS],
-                         (5, 4, 2), tk.PHASE1_AGGREGATE_CHUNKS),
-    "phase3_lml": ([(5, 4), (5, 4), (tk.param_len(2),), (tk.state_rows(2), 4), _VALUE_RUNS, (4,)],
-                   (5, 4, 2), tk.PHASE1_AGGREGATE_CHUNKS),
+    "phase1_aggregate": ([(5, 4), (5, 4), (tk.param_len(2),), _TRANS_ROWS, (tk.elem_rows(2), 4),
+                          _VALUE_RUNS], (5, 4, 2), tk.PHASE1_AGGREGATE_CHUNKS),
+    "phase3_lml": ([(5, 4), (5, 4), (tk.param_len(2),), _TRANS_ROWS, (tk.state_rows(2), 4),
+                    _VALUE_RUNS, (4,)], (5, 4, 2), tk.PHASE1_AGGREGATE_CHUNKS),
     "phase1_jvp": ([(5, 4), (5, 4), (2, tk.param_s_len(2)), (2 * tk.elem_rows(2), 4), _JVP_RUNS],
                    (5, 4, 2, 1), tk.PHASE1_JVP_CHUNKS),
     "phase3_jvp_lml": ([(5, 4), (5, 4), (2, tk.param_s_len(2)), (2 * tk.state_rows(2), 4),
                         _JVP_RUNS, (2, 4)], (5, 4, 2, 1), tk.PHASE1_JVP_CHUNKS),
-    "phase3_states": ([(5, 4), (5, 4), (tk.param_len(2),), (tk.state_rows(2), 4),
+    "phase3_states": ([(5, 4), (5, 4), (tk.param_len(2),), _TRANS_ROWS, (tk.state_rows(2), 4),
                        (tk.state_rows(2), 5, 4)], (5, 4, 2), tk.PHASE3_STATES_CHUNKS),
     "affine_phase1": ([(tk.affine_rows(2), 5, 4), (tk.affine_rows(2), 4), _AFFINE_RUNS],
                       (5, 4, 2), tk.AFFINE_PHASE1_CHUNKS),
@@ -300,30 +412,35 @@ def test_value_and_grad_fwd_lgssm_takes_positive_parameters_on_the_default_devic
 def test_value_and_grad_fwd_lgssm_refuses_on_card_what_the_kernels_do_not_take(
         cuda_device, monkeypatch):
     """Irregular times give per-step parameters, which K4-K6 do not take: on
-    the card that is an error, not a run of a plain schedule; an explicit
-    `fallback` is the caller's own choice and is used."""
+    the card the gradient takes the general block schedule's forward mode
+    (the lane path), with no sequential step, and matches the CPU port; an
+    explicit `fallback` is the caller's own choice and is used."""
     N = 64
-    times = torch.linspace(0.0, 4.0, N, dtype=torch.float64, device=cuda_device) ** 1.5
+    times = torch.linspace(0.0, 4.0, N, dtype=torch.float64) ** 1.5
     y = np.random.default_rng(3).standard_normal(N)
 
-    def model_fn(p):
-        s2, sc, noise = torch.exp(p)
-        return build_lgssm(to_sde(GP((s2 * Matern52()).stretch(sc)))(times, noise))
+    def model_fn_on(device):
+        def model_fn(p):
+            s2, sc, noise = torch.exp(p)
+            return build_lgssm(to_sde(GP((s2 * Matern52()).stretch(sc)), device=device)(
+                times.to(device), noise))
 
-    def no_plain_phase(*args, **kwargs):
-        raise AssertionError("a plain phase ran on the card")
+        return model_fn
 
-    for plain in ("phase1_jvp_plain", "phase2_jvp_starts_plain", "phase3_jvp_lml_plain",
-                  "phase1_aggregate_plain", "phase2_starts_plain", "phase3_lml_plain"):
-        monkeypatch.setattr(tk, plain, no_plain_phase)
-    monkeypatch.setattr(tt.learning, "logpdf_with_missings", no_plain_phase)
+    def no_sequential(*args, **kwargs):
+        raise AssertionError("the sequential engine ran on the card")
+
+    monkeypatch.setattr(tlgssm, "_logpdf_sequential", no_sequential)
     p0 = tt.positive([1.1, 0.8, 0.4])
     tk.reset_launch_counts()
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4b"):
-        tt.value_and_grad_fwd_lgssm(model_fn, y)(p0)
-    assert all(n == 0 for n in tk.launch_counts().values())
+    value, grad = tt.value_and_grad_fwd_lgssm(model_fn_on(cuda_device), y)(p0)
+    assert tk.launch_counts()["phase1_jvp"] == 0
+    assert grad.device == p0.device and grad.shape == (3,)
+    v_cpu, g_cpu = tt.value_and_grad_fwd_lgssm(model_fn_on("cpu"), y)(p0.cpu())
+    assert abs(value.item() - v_cpu.item()) <= 1e-10 * abs(v_cpu.item())
+    assert (grad.cpu() - g_cpu).abs().max().item() <= 1e-8 * g_cpu.abs().max().item()
     value, grad = tt.value_and_grad_fwd_lgssm(
-        model_fn, y, fallback=lambda p: (p ** 2).sum())(p0)
+        model_fn_on(cuda_device), y, fallback=lambda p: (p ** 2).sum())(p0)
     assert torch.allclose(grad, 2 * p0) and torch.allclose(value, (p0 ** 2).sum())
 
 
@@ -459,13 +576,14 @@ def test_posterior_marginals_on_card_match_cpu(cuda_device):
 @pytest.mark.cuda
 def test_posterior_marginals_at_new_times_on_card(cuda_device):
     """At new times the merged model has per-step transitions: the posterior
-    runs on the sequential engine (no K1, K2, K7) and its marginals on
-    K8-K10; the result agrees with the CPU."""
+    runs on the streamed K1, K2 and the streamed K7 (not the constant K1 and
+    K7) and its marginals on K8-K10; the result agrees with the CPU."""
     x_pr = np.sort(np.random.default_rng(5).uniform(-0.5, 21.0, 300))
     tk.reset_launch_counts()
     m_card, v_card = _posterior_marginals(cuda_device, x_pr=x_pr, N=2000)
     counts = tk.launch_counts()
-    assert [counts[n] for n in _STATE_KERNELS] == [0, 0, 0, 1, 1, 1]
+    assert [counts[n] for n in _STATE_KERNELS] == [0, 1, 0, 1, 1, 1]
+    assert counts["phase1_aggregate_streamed"] == counts["phase3_states_streamed"] == 1
     m_cpu, v_cpu = _posterior_marginals("cpu", x_pr=x_pr, N=2000)
     np.testing.assert_allclose(m_card, m_cpu, rtol=1e-9, atol=1e-9 * np.abs(m_cpu).max())
     np.testing.assert_allclose(v_card, v_cpu, rtol=1e-9)

@@ -217,7 +217,8 @@ def test_wrappers_on_cpu_run_the_plain_versions():
     assert tk.launch_counts() == dict.fromkeys(
         ("phase1_aggregate", "phase2_starts", "phase3_lml",
          "phase1_jvp", "phase2_jvp_starts", "phase3_jvp_lml",
-         "phase3_states", "affine_phase1", "affine_phase2_starts", "affine_phase3_states"), 0)
+         "phase3_states", "affine_phase1", "affine_phase2_starts", "affine_phase3_states",
+         "phase1_aggregate_streamed", "phase3_lml_streamed", "phase3_states_streamed"), 0)
 
 
 def test_wrappers_refuse_devices_without_a_kernel():

@@ -98,8 +98,11 @@ def test_irregular_times_run_sequential_and_block_refuses():
                    engine="sequential")
     fx = _torch_fx("Matern32", torch.float64, x=torch.from_numpy(times))
     np.testing.assert_allclose(tt.logpdf(fx, y).item(), ref, rtol=1e-10)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.logpdf(fx, y, engine="block")
+    # The general block schedule takes per-step transitions: the lane path
+    # and the streamed kernels' plain versions.
+    for fused in (False, True):
+        np.testing.assert_allclose(tt.logpdf(fx, y, engine="block", fused=fused).item(), ref,
+                                   rtol=1e-10)
 
 
 def test_engine_resolution_on_cpu_is_sequential():

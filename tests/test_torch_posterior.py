@@ -211,14 +211,20 @@ def test_posterior_covariance_is_refused():
 
 
 def test_routes_the_port_does_not_take_raise():
-    """Per-step transitions on the blocked filter (item 4b), engines not
-    ported, and grid inputs (item 7) raise NotImplementedError."""
+    """Engines not ported and grid inputs (item 7) raise
+    NotImplementedError; per-step transitions, refused by the blocked
+    filter before the general block schedule, now match the sequential
+    engine there."""
     _, tf, x_tr, noise_tr, y, *_ = _gp_setup("Matern32", seed=3)
     model = build_lgssm(tf(x_tr, noise_tr))
     y_f = torch.nan_to_num(torch.as_tensor(y))
-    for fn in (tlgssm.posterior, tlgssm.filter_):
-        with pytest.raises(NotImplementedError, match="item 4b"):
-            fn(model, y_f, engine="block")
+    xf, xf_seq = (tlgssm.filter_(model, y_f, engine=e) for e in ("block", "sequential"))
+    _close(xf.mean, xf_seq.mean, rtol=1e-10)
+    _close(xf.cov, xf_seq.cov, rtol=1e-10)
+    post, post_seq = (tlgssm.posterior(model, y_f, engine=e) for e in ("block", "sequential"))
+    for got, want in ((post.trans.As, post_seq.trans.As), (post.trans.offs, post_seq.trans.offs),
+                      (post.trans.Qs, post_seq.trans.Qs)):
+        _close(got, want, rtol=1e-10)
     with pytest.raises(NotImplementedError, match="item 10"):
         tlgssm.marginals_diag(model, engine="lti")
     with pytest.raises(NotImplementedError, match="item 7"):
