@@ -37,7 +37,13 @@ Phases; any failure exits non-zero without the final result line:
      K4-K6 are also held, with the same gate, at two ragged shapes of
      B = 96 blocks: L = 37 (not a multiple of the chunk count) and L = 1
      (fewer steps than chunks), with a missing step and padding steps; K5
-     alone at B = 1 and 5000 on aggregates that the plain K4 makes.
+     alone at B = 1 and 5000 on aggregates that the plain K4 makes; and
+     K4-K6 on what sum-c2's vg(p0) hands them (phase 15: k = 5 tangents,
+     the same (L, B)). At sum-c2's inputs float32 is held to the float64
+     plain version of the same inputs: within 1e-4, or F32_SPREAD times
+     the float32 plain version's own distance from it where larger (a
+     Sum's stretch tangents are rows that float32 arithmetic conditions
+     worse than 1e-4); the same in phases 9 and 13.
   5. The lml path, through the public entry points:
        to_sde(GP((s2*Matern52()).stretch(sc)), ArrayStorage(float32))(
            RegularSpacing(0, 1e-3, 1_000_000), 0.1) -> logpdf
@@ -46,7 +52,11 @@ Phases; any failure exits non-zero without the final result line:
      blocked schedule; the float64 kernel path within 1e-10 of it and, at
      N = 20k, within 1e-9 of the port's sequential engine (on the CPU); the
      gradient through the fused autograd.Function must match the plain
-     schedule's (1e-10) and the sequential engine's (1e-6). Where the time
+     schedule's (1e-10) and the sequential engine's (1e-6). One reverse-mode
+     gradient at N = 1M in float32 (torch.autograd.grad through the
+     Function, whose backward re-runs the plain blocked schedule): its CUDA
+     event time and peak memory, finite, its distance to the forward-mode
+     gradient recorded. Where the time
      of one logpdf call at N = 1M goes: torch.profiler over 10 calls
      (device busy by kernel, idle share), float32 and float64.
   6. The training path, through the public entry points:
@@ -86,6 +96,9 @@ Phases; any failure exits non-zero without the final result line:
      of them. K7 is also held at phase 4's two ragged shapes (a missing step
      and padding steps), K8-K10 at the same shapes on time-varying maps, and
      K9 alone at B = 1 and 5000 on aggregates that the plain K8 makes.
+     K8-K10 also on the rows (F, b, 0) from a zero covariance that
+     sum-c2's rand hands them (phase 15): the prior's (N = 1M) and the
+     posterior's at the training inputs (2M merged steps, L = 977).
  10. The posterior path, through the public entry points:
        marginals(posterior(fx, y)(x, 0.1))   (temporalgps_torch.gp.posterior)
      for the reference's bench config c1 (GP(Matern32()), float32,
@@ -113,7 +126,10 @@ Phases; any failure exits non-zero without the final result line:
      their plain versions in their chunk order at irregular-c2's shapes
      (D = 3, N = 1M, B = 2048, L = 489) and at phase 4's two ragged shapes
      (the first L*B transitions of irregular-c2, identity rows on the padding
-     steps), float64 and float32, gated as in phase 3 (K1's block and run
+     steps), and at what sum-c2's posterior hands them (phase 15): the
+     merged model's filter and the reverse model's logpdf, at the training
+     inputs (2M merged steps, L = 977) and at the new times (1.1M, L =
+     538); float64 and float32, gated as in phase 3 (K1's block and run
      aggregates on the lml partials downstream, K3 fed K1's runs, K7's
      states row by row); each timed as in phase 7 with its bound.
  14. irregular-c2 through the public entry points: c2's model and noise on
@@ -133,13 +149,49 @@ Phases; any failure exits non-zero without the final result line:
      of the CPU's matrix path. Every call timed by CUDA events (median of
      batches); torch.profiler and host stages of the irregular logpdf and
      the new-times posterior.
+ 15. sum-c2 through the public entry points: c2's inputs (N = 1M, one NaN)
+     under 0.5 * Matern12().stretch(2.0) + Matern32().stretch(0.5) (a Sum,
+     D = 3), float32 and float64. This slice's main path, each call with
+     the counts set to 0 before it and read after it, held to exactly the
+     launches COMPOSITE_LAUNCHES names: logpdf (K1-K3); vg(p0) with k = 5
+     hyperparameters (K4-K6); posterior marginals at the training inputs
+     (K1, K2, K7, K8-K10); the prior rand (K8-K10 on zero process-noise
+     rows); the posterior rand at the training inputs (the merged times:
+     streamed K1, K2, streamed K7, then K8-K10); the posterior logpdf at the
+     training inputs and at 100k new times (that filter, then the reverse
+     model's streamed K1, K2, streamed K3). The kernels line's launches are
+     the float32 run's totals. Gates: finite values, positive variances,
+     the same draw from the same seed; float32 within 1e-3 of float64,
+     relative to the largest entry: lml, value, posterior logpdfs,
+     posterior marginals, the prior and the posterior sample (on the same
+     host normals, rand_with_eps; the posterior sample also within 1e-3
+     of the float32 problem, its model and data as float32 stores them,
+     solved in float64, and within twice that problem's distance from
+     float64 where larger than 1e-3: a Sum's reversal is sensitive to the
+     rounding of its transitions), the gradient as in phase 6; float64 on
+     the card against the CPU port (the block engine's plain versions) at
+     N = 20k within 1e-10 (the gradient 1e-8, and the posterior samples at
+     two seeds of normals 1e-8: the sample takes the square root of the
+     reverse model's Q, at the merged times' zero steps a difference of
+     equal covariances), with the witness recorded beside them: the CPU's
+     sequential-engine posterior (a Cholesky solve, where the block engine
+     takes the adjugate) sampled on the same normals.
+     Beside it at N = 1M: the Product Matern12() * Matern32() (D = 2),
+     logpdf and rand; sum-c2 with the mean function 0.3 sin(t) (its per-step
+     h moved into y), logpdf and posterior marginals; the D = 5 sum
+     Matern52() + Matern32() at N = 100k on the matrix path (no kernel).
+     Every call timed by CUDA events (median of 5 batches, 3 for the new
+     times); each of sum-c2's seven calls under torch.profiler (device busy
+     by kernel, idle share).
 
 The third line from the end is the card's name and power limit, the second
-{"kernels": [...]} with the float32 (main path) numbers of all thirteen
-kernels (the ten and the streamed forms of K1, K3, K7), the last
+{"kernels": [...]} with the float32 numbers of all thirteen kernels (the
+ten and the streamed forms of K1, K3, K7; launches from phase 15's main
+path, the rest from phases 7, 11 and 13), the last
 {"ok": true, "device": {...}}.
 """
 
+import dataclasses
 import json
 import math
 import os
@@ -211,6 +263,42 @@ N_D6, N_D6_SMALL, D6_STRETCH = 100_000, 2_000, 3.0
 N_C1 = 10_000
 N_TRAIN_NEW, N_PRED_NEW = 2_000, 500
 KERNEL_RTOL = {"float64": 1e-10, "float32": 1e-4}
+# Where float32 arithmetic conditions a kernel's rows worse than KERNEL_RTOL
+# (sum-c2's stretch tangents), a float32 kernel is held to the float64 plain
+# version within this many times the float32 plain version's own distance:
+# two float32 associations of the same rows (the kernel's and its plain
+# version's) land apart by up to about twice their errors (1.9 between the
+# serial and chunked plain schedules of sum-c2's tangent rows).
+F32_SPREAD = 4.0
+# sum-c2: c2's inputs under the kernel (s1 * Matern12()).stretch(st1) +
+# (s2 * Matern32()).stretch(st2), D = 3, at SUM_HYPER = (s1, st1, s2, st2,
+# noise): 0.5 * Matern12().stretch(2.0) + Matern32().stretch(0.5), noise 0.1.
+# Beside it the Product Matern12() * Matern32() (D = 2), sum-c2 with the mean
+# function 0.3 sin(t), and the D = 5 sum Matern52() + Matern32() at N_D5 on
+# the matrix path.
+SUM_HYPER = (0.5, 2.0, 1.0, 0.5, 0.1)
+N_D5 = 100_000
+# The calls of sum-c2's main path and the launches each must show: the
+# filter (K1-K3), the forward-mode gradient (K4-K6), posterior marginals at
+# the training inputs (K1, K2, K7, K8-K10), the prior rand (K8-K10 on zero
+# process-noise rows), the posterior rand at the training inputs (the merged
+# times are per step: streamed K1, K2, streamed K7, then K8-K10) and the
+# posterior logpdf (that filter, then the reverse model's: streamed K1, K2,
+# streamed K3).
+COMPOSITE_LAUNCHES = {
+    "logpdf": {"phase1_aggregate": 1, "phase2_starts": 1, "phase3_lml": 1},
+    "value_and_grad": {"phase1_jvp": 1, "phase2_jvp_starts": 1, "phase3_jvp_lml": 1},
+    "posterior_marginals": {"phase1_aggregate": 1, "phase2_starts": 1, "phase3_states": 1,
+                            "affine_phase1": 1, "affine_phase2_starts": 1,
+                            "affine_phase3_states": 1},
+    "prior_rand": {"affine_phase1": 1, "affine_phase2_starts": 1, "affine_phase3_states": 1},
+    "posterior_rand": {"phase1_aggregate_streamed": 1, "phase2_starts": 1,
+                       "phase3_states_streamed": 1, "affine_phase1": 1,
+                       "affine_phase2_starts": 1, "affine_phase3_states": 1},
+    "posterior_logpdf": {"phase1_aggregate_streamed": 2, "phase2_starts": 2,
+                         "phase3_states_streamed": 1, "phase3_lml_streamed": 1},
+}
+COMPOSITE_LAUNCHES["posterior_logpdf_new_times"] = COMPOSITE_LAUNCHES["posterior_logpdf"]
 
 # Ragged (L, B) of the chunked kernels (K1, K3, K4, K6, K7, K8, K10) beside
 # the main shapes: L not a multiple of the chunk counts, and fewer steps than
@@ -372,9 +460,10 @@ def main():
     sys.path.insert(0, HERE)
     import numpy as np
 
-    from temporalgps_torch import (RegularSpacing, fit, learning, logpdf, marginals,
+    from temporalgps_torch import (RegularSpacing, fit, learning, logpdf, marginals, rand,
                                    value_and_grad_fwd_lgssm)
-    from temporalgps_torch.gp import GP, ArrayStorage, Matern32, Matern52, to_sde
+    from temporalgps_torch.gp import (GP, ArrayStorage, CustomMean, Matern12, Matern32,
+                                      Matern52, to_sde)
     from temporalgps_torch.gp import posterior as gpost
     from temporalgps_torch.gp.lti_sde import build_lgssm
     from temporalgps_torch.models.missings import (logpdf_with_missings,
@@ -382,6 +471,7 @@ def main():
                                                    replace_observation_noise_cov,
                                                    transform_model_and_obs)
     from temporalgps_torch.ops import block, kernels
+    from temporalgps_torch.utils.fill import is_fill
     from temporalgps_torch.utils.psd import symmetrize
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -408,6 +498,22 @@ def main():
             return build_lgssm(make_fx(dtype, N, device, s2=s2, sc=sc, noise=noise))
 
         return model_fn
+
+    def make_sum(dtype, N, device, hyper=SUM_HYPER, mean=None):
+        """sum-c2 on c2's inputs; `hyper` (s1, st1, s2, st2, noise) may be
+        tensors, for a gradient."""
+        s1, st1, s2, st2, noise = hyper
+        kern = (s1 * Matern12()).stretch(st1) + (s2 * Matern32()).stretch(st2)
+        gp = GP(kern) if mean is None else GP(kern, mean)
+        return to_sde(gp, ArrayStorage(dtype), device=device)(RegularSpacing(0.0, 1e-3, N), noise)
+
+    def make_sum_fn(dtype, N, device):
+        def model_fn(p):
+            return build_lgssm(make_sum(dtype, N, device, hyper=tuple(torch.exp(p))))
+
+        return model_fn
+
+    p0_sum = torch.log(torch.tensor(SUM_HYPER, dtype=torch.float64, device=DEVICE))
 
     def events_ms(fn, reps, batches, warm_up=True):
         """Median and range over `batches` of the ms per call, each batch
@@ -472,22 +578,47 @@ def main():
         return y_main, s_main, packed, m0, symmetrize(P0)
 
     def record_comparison(kname, name, k_out, p_out, partials, want, label="lml-partials",
-                          shape=None, part=None):
+                          shape=None, part=None, truth=None, plain=None):
         """`partials` (downstream of the kernel) against `want`, row by row
         relative to each row's largest entry; recorded under the dtype's
-        name, or beside it for a ragged (L, B) `shape` or for a `part` of
-        the kernel's output other than its main one."""
+        name, or beside it for a ragged (L, B) `shape`, for the inputs of
+        another call (`shape` a label: sum-c2's) or for a `part` of the
+        kernel's output other than its main one. Given `truth` (the plain
+        version's rows on the same inputs in float64), a float32 comparison
+        is held to it instead: `partials` within KERNEL_RTOL of it, or
+        within F32_SPREAD times the distance of `plain` (the float32 plain
+        version's rows) from it where that is larger; the kernel about as
+        accurate as its plain version where float32 arithmetic conditions
+        the rows worse than KERNEL_RTOL (a Sum's stretch tangents)."""
         finite = bool(torch.isfinite(k_out).all())
         max_abs = (k_out - p_out).abs().max().item()
-        scale = want.abs().amax(dim=-1, keepdim=True)
-        r = ((partials - want).abs() / scale).max().item()
-        key = name if shape is None else f"{name}_L{shape[0]}_B{shape[1]}"
+
+        def rows_rel(a, b):
+            # (A row that is zero throughout, as a sample's covariance rows
+            # are, is held to zero.)
+            scale = b.abs().amax(dim=-1, keepdim=True).clamp_min(torch.finfo(b.dtype).tiny)
+            return ((a - b).abs() / scale).amax(dim=-1)
+
+        r = rows_rel(partials, want).max().item()
+        key = (name if shape is None else f"{name}_{shape}" if isinstance(shape, str)
+               else f"{name}_L{shape[0]}_B{shape[1]}")
         key = key if part is None else f"{key}_{part}"
-        smoke.record.setdefault(kname, {})[key] = {"max_abs_err": max_abs,
-                                                   f"{label.replace('-', '_')}_rel": r}
-        smoke.check(finite and r <= KERNEL_RTOL[name],
-                    f"{kname} {key}: finite={finite} max_abs_err={max_abs:.3e} "
-                    f"{label} rel={r:.3e} (tol {KERNEL_RTOL[name]:g})")
+        entry = smoke.record.setdefault(kname, {})[key] = {
+            "max_abs_err": max_abs, f"{label.replace('-', '_')}_rel": r}
+        tol = KERNEL_RTOL[name]
+        if truth is None:
+            smoke.check(finite and r <= tol,
+                        f"{kname} {key}: finite={finite} max_abs_err={max_abs:.3e} "
+                        f"{label} rel={r:.3e} (tol {tol:g})")
+            return
+        r_k = rows_rel(partials.double(), truth).max().item()
+        r_p = rows_rel(plain.double(), truth).max().item()
+        bound = max(tol, F32_SPREAD * r_p)
+        entry.update(kernel_vs_f64_rel=r_k, plain_vs_f64_rel=r_p)
+        smoke.check(finite and r_k <= bound,
+                    f"{kname} {key}: finite={finite} {label} rel to the float64 plain version "
+                    f"{r_k:.3e}, the float32 plain version's {r_p:.3e} (tol {bound:.3e}: {tol:g} "
+                    f"or {F32_SPREAD} times the plain version's; kernel vs plain {r:.3e})")
 
     def ragged_streams(name, L, B):
         """(L, B) y and s on the card: a missing step, and padding steps at
@@ -548,23 +679,31 @@ def main():
                 compare_phase2(name, packed, m0, P0, shape)
 
     # ---- 4. forward-mode kernels against their plain versions ------------
-    def jvp_inputs(name):
-        """The streams, parameter rows and priors that vg(p0) hands K4-K6."""
+    def jvp_inputs(name, model_fn=None, p=None):
+        """The streams, parameter rows and priors that vg(p) hands K4-K6
+        (c2's model and p0 unless given)."""
         dtype = dtypes[name]
         model, tangents = learning._model_and_tangents(
-            make_model_fn(dtype, N_MAIN, DEVICE), p0)
+            model_fn or make_model_fn(dtype, N_MAIN, DEVICE), p0 if p is None else p)
         model_f, y, _comp = transform_model_and_obs(model, y_dev[name])
         y_main, s_main, _ = block._blocked_streams(
             y, model_f.emis.s, block._pallas_blocks(N_MAIN))
         rows, priors = block._tangent_rows(model, tangents)
         return y_main, s_main, rows, priors
 
-    def compare_jvp(name, y_main, s_main, rows, priors, shape=None):
-        """K4-K6 against their plain versions (K4's and K6's in their chunk
-        order) on the same inputs, each held on the lml rows downstream: K4's
-        block aggregates and run aggregates, K5's starts, and K6 fed K4's run
-        aggregates."""
+    def compare_jvp(name, y_main, s_main, rows, priors, shape=None, k=k, wide=False):
+        """K4-K6 with k tangents against their plain versions (K4's and K6's
+        in their chunk order) on the same inputs, each held on the lml rows
+        downstream: K4's block aggregates and run aggregates, K5's starts,
+        and K6 fed K4's run aggregates; with `wide`, against the plain rows
+        of the same inputs in float64 (record_comparison's `truth`)."""
         C = kernels.PHASE1_JVP_CHUNKS
+        truth = None
+        if wide:
+            wy, ws, wrows, wpriors = (t.double() for t in (y_main, s_main, rows, priors))
+            w1, w_runs = kernels.phase1_jvp_plain(wy, ws, wrows, D, k, chunks=C)
+            truth = kernels.phase3_jvp_lml_plain(
+                wy, ws, wrows, kernels.phase2_jvp_starts_plain(w1, wpriors, D, k), D, k, w_runs)
         p1, p_runs = kernels.phase1_jvp_plain(y_main, s_main, rows, D, k, chunks=C)
         p2 = kernels.phase2_jvp_starts_plain(p1, priors, D, k)
         p3 = kernels.phase3_jvp_lml_plain(y_main, s_main, rows, p2, D, k, p_runs)
@@ -576,11 +715,11 @@ def main():
             y_main, s_main, rows, kernels.phase2_jvp_starts_plain(k1, priors, D, k), D, k, p_runs)
         via_k_runs = kernels.phase3_jvp_lml_plain(y_main, s_main, rows, p2, D, k, k_runs)
         via_k2 = kernels.phase3_jvp_lml_plain(y_main, s_main, rows, k2, D, k, p_runs)
-        record_comparison("phase1_jvp", name, k1, p1, via_k1, p3, shape=shape)
-        record_comparison("phase1_jvp", name, k_runs, p_runs, via_k_runs, p3, shape=shape,
-                          part="runs")
-        record_comparison("phase2_jvp_starts", name, k2, p2, via_k2, p3, shape=shape)
-        record_comparison("phase3_jvp_lml", name, k3, via_k_runs, k3, via_k_runs, shape=shape)
+        ref = dict(shape=shape, truth=truth, plain=p3)
+        record_comparison("phase1_jvp", name, k1, p1, via_k1, p3, **ref)
+        record_comparison("phase1_jvp", name, k_runs, p_runs, via_k_runs, p3, part="runs", **ref)
+        record_comparison("phase2_jvp_starts", name, k2, p2, via_k2, p3, **ref)
+        record_comparison("phase3_jvp_lml", name, k3, via_k_runs, k3, via_k_runs, **ref)
 
     def compare_phase2_jvp(name, rows, priors, shape):
         """K5 alone on the aggregates that the plain K4 makes from (L, B)
@@ -604,6 +743,11 @@ def main():
                 compare_jvp(name, *ragged_streams(name, *shape), rows, priors, shape=shape)
             for shape in PHASE2_SHAPES:
                 compare_phase2_jvp(name, rows, priors, shape)
+            # sum-c2's vg(p0): the same (L, B), k = 5 tangents; float32
+            # against the float64 plain rows of the same inputs.
+            inputs = jvp_inputs(name, make_sum_fn(dtypes[name], N_MAIN, DEVICE), p0_sum)
+            print(f"  {name} sum-c2: L={L} B={B} D={D} k={len(p0_sum)}")
+            compare_jvp(name, *inputs, shape="sum-c2", k=len(p0_sum), wide=name == "float32")
 
     # ---- 5. lml path -----------------------------------------------------
     def phase_main_path():
@@ -650,6 +794,29 @@ def main():
         smoke.record["main_path"]["grad_rel_vs_sequential"] = r_gseq
         smoke.check(r_plain <= 1e-10, f"grad fused vs plain rel={r_plain:.3e} (tol 1e-10)")
         smoke.check(r_gseq <= 1e-6, f"grad fused vs sequential rel={r_gseq:.3e} (tol 1e-6)")
+
+        # The reverse-mode gradient at N = 1M in float32: _LogpdfFused's
+        # backward re-runs the plain blocked schedule under autograd. One
+        # call, CUDA events, and the peak memory above what was allocated.
+        p = p0.detach().clone().requires_grad_()
+        s2, sc, noise = torch.exp(p)
+        fx_g = make_fx(torch.float32, N_MAIN, DEVICE, s2=s2, sc=sc, noise=noise)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        (g_rev,) = torch.autograd.grad(logpdf(fx_g, y_dev["float32"]), p)
+        end.record()
+        end.synchronize()
+        rev = {"ms": start.elapsed_time(end),
+               "peak_bytes": torch.cuda.max_memory_allocated() - base, "grad": g_rev.tolist()}
+        _, g_fwd = value_and_grad_fwd_lgssm(make_model_fn(torch.float32, N_MAIN, DEVICE),
+                                            y_dev["float32"])(p0)
+        rev["rel_vs_forward_mode"] = ((g_rev - g_fwd).abs().max() / g_fwd.abs().max()).item()
+        smoke.record["main_path"]["reverse_mode_grad_1M_f32"] = rev
+        print(f"  reverse-mode gradient N={N_MAIN} float32: {json.dumps(rev)}", flush=True)
+        smoke.check(finite(g_rev), "reverse-mode gradient at N=1M float32 finite")
 
         for name, dtype in dtypes.items():
             fx_p, y_p = make_fx(dtype, N_MAIN, DEVICE), y_dev[name]
@@ -919,10 +1086,10 @@ def main():
         return to_sde(GP(Matern32()), ArrayStorage(dtype), device=device)(
             RegularSpacing(0.0, 1e-3, N_C1), NOISE)
 
-    def posterior_marginals(fx, y):
+    def posterior_marginals(fx, y, engine=None):
         """The public call: the posterior's marginals at the training inputs
         with prediction noise 0.1."""
-        return gpost.marginals(gpost.posterior(fx, y)(fx.x, NOISE))
+        return gpost.marginals(gpost.posterior(fx, y)(fx.x, NOISE), engine=engine)
 
     def affine_inputs(name):
         """The affine rows, initial mean and covariance that the N = 1M
@@ -953,12 +1120,19 @@ def main():
         return to(rows.transpose(2, 0, 1)), to(0.1 * rng.standard_normal(D)), to(np.eye(D))
 
     # ---- 9. state-emitting kernels against their plain versions ---------
-    def compare_affine(name, params, m0, P0, shape=None):
+    def compare_affine(name, params, m0, P0, shape=None, wide=False):
         """K8-K10 against their plain versions (K8's and K10's in their chunk
         order) on the same inputs, each held on the state rows downstream:
         K8's block aggregates and run aggregates, K9's starts, and K10 fed
-        K8's run aggregates."""
+        K8's run aggregates; with `wide`, against the plain rows of the same
+        inputs in float64 (record_comparison's `truth`)."""
         rows = lambda t: t.reshape(D + D * D, -1)
+        truth = None
+        if wide:
+            wp, wm0, wP0 = (t.double() for t in (params, m0, P0))
+            w8, w_runs = kernels.affine_phase1_plain(wp, D, chunks=kernels.AFFINE_PHASE1_CHUNKS)
+            truth = rows(kernels.affine_phase3_states_plain(
+                wp, kernels.affine_phase2_starts_plain(w8, wm0, wP0, D), D, w_runs))
         p8, p_runs = kernels.affine_phase1_plain(params, D, chunks=kernels.AFFINE_PHASE1_CHUNKS)
         p9 = kernels.affine_phase2_starts_plain(p8, m0, P0, D)
         p10 = kernels.affine_phase3_states_plain(params, p9, D, p_runs)
@@ -970,14 +1144,14 @@ def main():
             params, kernels.affine_phase2_starts_plain(k8, m0, P0, D), D, p_runs)
         via_k_runs = kernels.affine_phase3_states_plain(params, p9, D, k_runs)
         via_k9 = kernels.affine_phase3_states_plain(params, k9, D, p_runs)
-        record_comparison("affine_phase1", name, k8, p8, rows(via_k8), rows(p10), "states",
-                          shape=shape)
+        ref = dict(shape=shape, truth=truth, plain=rows(p10))
+        record_comparison("affine_phase1", name, k8, p8, rows(via_k8), rows(p10), "states", **ref)
         record_comparison("affine_phase1", name, k_runs, p_runs, rows(via_k_runs), rows(p10),
-                          "states", shape=shape, part="runs")
+                          "states", part="runs", **ref)
         record_comparison("affine_phase2_starts", name, k9, p9, rows(via_k9), rows(p10),
-                          "states", shape=shape)
+                          "states", **ref)
         record_comparison("affine_phase3_states", name, k10, via_k_runs, rows(k10),
-                          rows(via_k_runs), "states", shape=shape)
+                          rows(via_k_runs), "states", **ref)
 
     def compare_affine_phase2(name, shape):
         """K9 alone on the aggregates that the plain K8 makes from (KT, L, B)
@@ -1023,6 +1197,17 @@ def main():
                 compare_affine(name, *ragged_affine(name, *shape), shape=shape)
             for shape in PHASE2_SHAPES:
                 compare_affine_phase2(name, shape)
+            # sum-c2's prior rand (N = 1M) and posterior rand at the training
+            # inputs (2M merged steps): the rows (F, b, 0) from a zero
+            # covariance; float32 against the float64 plain rows of the same
+            # inputs.
+            for label, model in (
+                    ("prior-rand", build_lgssm(make_sum(dtypes[name], N_MAIN, DEVICE))),
+                    ("posterior-rand", sum_c2_merged(name, "training")[1][0])):
+                params, x_init, zero = rand_rows(model, dtypes[name])
+                print(f"  {name} sum-c2 {label}: affine rows {tuple(params.shape)}")
+                compare_affine(name, params, x_init, zero, shape=f"sum-c2-{label}",
+                               wide=name == "float32")
 
     # ---- 10. posterior path ----------------------------------------------
     def phase_posterior():
@@ -1184,17 +1369,23 @@ def main():
 
         return model_fn
 
-    def streamed_inputs(name):
+    def streams_of(model, y):
         """The streams, emission row, (KT, L, B) transition rows and prior
-        that logpdf hands the streamed K1 and K3 for irregular-c2."""
-        dtype = dtypes[name]
-        model = build_lgssm(make_irregular(dtype, N_MAIN, DEVICE))
-        model, y, _comp = transform_model_and_obs(model, y_dev[name])
+        that the streamed K1, K3 and K7 take for a model of per-step
+        transitions and its observations: the missing ones filled in, a
+        reverse-ordered model through its forward view, as logpdf and the
+        posterior's filter hand them."""
+        model, y, _comp = transform_model_and_obs(model, y)
+        model, y = block._forward_view(model, y)
         A, a, Q, H, h, s, y, m0, P0 = block._fused_leaves(model, y)
-        B = block._pallas_blocks(N_MAIN)
+        B = block._pallas_blocks(len(model))
         y_main, s_main, _ = block._blocked_streams(y, s, B)
-        return (y_main, s_main, block._emission_params(H, h, dtype),
+        return (y_main, s_main, block._emission_params(H, h, model.dtype),
                 block._rows_blocked(A, a, Q, B), m0, symmetrize(P0))
+
+    def streamed_inputs(name):
+        """What logpdf hands the streamed K1 and K3 for irregular-c2."""
+        return streams_of(build_lgssm(make_irregular(dtypes[name], N_MAIN, DEVICE)), y_dev[name])
 
     def ragged_rows(name, L, B):
         """(KT, L, B) rows: the first L*B transitions of irregular-c2, with
@@ -1206,12 +1397,24 @@ def main():
         rows[:D * D, max(L - 2, 0):, B - 1] = ident[:, None]
         return rows
 
-    def compare_streamed(name, y, s, packed, rows, m0, P0, shape=None):
+    def compare_streamed(name, y, s, packed, rows, m0, P0, shape=None, wide=False):
         """The streamed K1, K3, K7 against their plain versions in their
         chunk order on the same inputs: K1's block and run aggregates held
         on the lml partials downstream, K3 fed K1's run aggregates, K7's
-        states row by row."""
+        states row by row; with `wide`, against the plain lml partials and
+        states of the same inputs in float64 (record_comparison's
+        `truth`)."""
         st_rows = lambda t: t.reshape(D + D * D, -1)
+        truth = (None, None)
+        if wide:
+            wy, ws, wpk, wrows, wm0, wP0 = (t.double() for t in (y, s, packed, rows, m0, P0))
+            w1, w_runs = kernels.phase1_aggregate_plain(
+                wy, ws, wpk, D, chunks=kernels.PHASE1_AGGREGATE_CHUNKS, trans_rows=wrows)
+            w2 = kernels.phase2_starts_plain(w1, wm0, wP0, D)
+            truth = (kernels.phase3_lml_plain(wy, ws, wpk, w2, D, w_runs, trans_rows=wrows),
+                     st_rows(kernels.phase3_states_plain(
+                         wy, ws, wpk, w2, D, chunks=kernels.PHASE3_STATES_CHUNKS,
+                         trans_rows=wrows)))
         p1, p_runs = kernels.phase1_aggregate_plain(
             y, s, packed, D, chunks=kernels.PHASE1_AGGREGATE_CHUNKS, trans_rows=rows)
         p2 = kernels.phase2_starts_plain(p1, m0, P0, D)
@@ -1225,13 +1428,13 @@ def main():
         via_k1 = kernels.phase3_lml_plain(
             y, s, packed, kernels.phase2_starts_plain(k1, m0, P0, D), D, p_runs, trans_rows=rows)
         via_k_runs = kernels.phase3_lml_plain(y, s, packed, p2, D, k_runs, trans_rows=rows)
-        record_comparison("phase1_aggregate_streamed", name, k1, p1, via_k1, p3, shape=shape)
+        lml = dict(shape=shape, truth=truth[0], plain=p3)
+        record_comparison("phase1_aggregate_streamed", name, k1, p1, via_k1, p3, **lml)
         record_comparison("phase1_aggregate_streamed", name, k_runs, p_runs, via_k_runs, p3,
-                          shape=shape, part="runs")
-        record_comparison("phase3_lml_streamed", name, k3, via_k_runs, k3, via_k_runs,
-                          shape=shape)
+                          part="runs", **lml)
+        record_comparison("phase3_lml_streamed", name, k3, via_k_runs, k3, via_k_runs, **lml)
         record_comparison("phase3_states_streamed", name, k7, p7, st_rows(k7), st_rows(p7),
-                          "states", shape=shape)
+                          "states", shape=shape, truth=truth[1], plain=st_rows(p7))
 
     # ---- 13. streamed kernels against their plain versions; their times ----
     def phase_compare_streamed():
@@ -1262,37 +1465,25 @@ def main():
                     lambda: kernels.phase3_states_plain(y_main, s_main, packed, starts, D,
                                                         chunks=C7, trans_rows=rows)),
             }, L, B)
+        # sum-c2's posterior at the training inputs (2M merged steps) and at
+        # the new times (1.1M): the merged model's filter and the reverse
+        # model's logpdf, as its main path hands them over; float32 against
+        # the float64 plain rows of the same inputs.
+        for name in dtypes:
+            for at in ("training", "new"):
+                for label, (model, y) in zip(("filter", "logpdf"), sum_c2_merged(name, at)):
+                    inputs = streams_of(model, y)
+                    print(f"  {name} sum-c2 {at} {label}: (L, B) {tuple(inputs[0].shape)}")
+                    compare_streamed(name, *inputs, shape=f"sum-c2-{at}-{label}",
+                                     wide=name == "float32")
 
     # ---- 14. irregular-c2 and the D = 6 model ----------------------------
     def make_d6(dtype, N, device):
-        """The D = 6 model: the block-diagonal LGSSM of Matern52() and
-        Matern52().stretch(D6_STRETCH) on the first N irregular times, noise
-        NOISE, assembled from two port models as the reference's Sum
-        compiles it (the port has no Sum yet, ROADMAP Queue 1 item 2)."""
-        from temporalgps_torch.models.emissions import ScalarEmissions
-        from temporalgps_torch.models.gauss_markov import GaussMarkov
-        from temporalgps_torch.models.lgssm import LGSSM
-        from temporalgps_torch.utils.fill import Fill
-        from temporalgps_torch.utils.gaussian import Gaussian
-
-        t = torch.as_tensor(times_np[:N], device=device)
-        parts = [build_lgssm(to_sde(GP(kern), ArrayStorage(dtype), device=device)(t, NOISE))
-                 for kern in (Matern52(), Matern52().stretch(D6_STRETCH))]
-
-        def diag(mats):
-            out = mats[0].new_zeros(*mats[0].shape[:-2], 6, 6)
-            out[..., :3, :3], out[..., 3:, 3:] = mats
-            return out
-
-        trans = GaussMarkov(
-            As=diag([m.trans.As for m in parts]), Qs=diag([m.trans.Qs for m in parts]),
-            offs=Fill(torch.cat([m.trans.offs.value for m in parts]), N),
-            x0=Gaussian(torch.cat([m.trans.x0.mean for m in parts]),
-                        diag([m.trans.x0.cov for m in parts])), forward=True)
-        emis = ScalarEmissions(H=Fill(torch.cat([m.emis.H.value for m in parts]), N),
-                               h=Fill(parts[0].emis.h.value + parts[1].emis.h.value, N),
-                               s=parts[0].emis.s)
-        return LGSSM(trans, emis)
+        """The D = 6 model: Matern52() + Matern52().stretch(D6_STRETCH) on the
+        first N irregular times, noise NOISE."""
+        kern = Matern52() + Matern52().stretch(D6_STRETCH)
+        return build_lgssm(to_sde(GP(kern), ArrayStorage(dtype), device=device)(
+            torch.as_tensor(times_np[:N], device=device), NOISE))
 
     def irregular_stages(cname, fx, y):
         """Host-clock ms of the stages of the irregular logpdf or of the
@@ -1479,6 +1670,303 @@ def main():
                             and all(us > 0 for us in summary["kernel_us"].values()),
                             f"{name} {cname}: the profiler saw the streamed kernels")
 
+    # ---- 15. sum-c2: composite models, sampling, the posterior's logpdf ----
+    def make_other(kind, dtype, N, device):
+        """The Product (D = 2), sum-c2 with its mean function, or the D = 5
+        sum, on c2's inputs."""
+        if kind == "product":
+            gp = GP(Matern12() * Matern32())
+        elif kind == "d5":
+            gp = GP(Matern52() + Matern32())
+        else:
+            return make_sum(dtype, N, device, mean=CustomMean(lambda t: 0.3 * torch.sin(t)))
+        return to_sde(gp, ArrayStorage(dtype), device=device)(RegularSpacing(0.0, 1e-3, N), NOISE)
+
+    x_new_sum = np.sort(np.random.default_rng(SEED + 3).uniform(0.0, 1e-3 * (N_MAIN - 1), N_NEW))
+    y_pr_np = np.random.default_rng(SEED + 4).standard_normal(N_MAIN)
+
+    def composite_calls(dtype, N, device, y, gen, engine=None):
+        """The public calls of sum-c2's main path at N on `device`, each a
+        function of nothing (COMPOSITE_LAUNCHES names them); `engine="block"`
+        runs the kernels' plain versions on the CPU."""
+        fx = make_sum(dtype, N, device)
+        vg = value_and_grad_fwd_lgssm(make_sum_fn(dtype, N, device), y)
+        fp = gpost.posterior(fx, y)
+        fxp_tr, fxp_new = fp(fx.x, NOISE), fp(x_new_sum[x_new_sum < 1e-3 * (N - 1)], NOISE)
+        y_pr = torch.as_tensor(y_pr_np[:N], dtype=dtype, device=device)
+        y_new = torch.as_tensor(y_pr_np[:len(fxp_new.x)], dtype=dtype, device=device)
+        p = p0_sum.to(device)
+        return {
+            "logpdf": lambda: logpdf(fx, y, engine=engine),
+            "value_and_grad": lambda: vg(p),
+            "posterior_marginals": lambda: posterior_marginals(fx, y, engine),
+            "prior_rand": lambda: rand(gen.manual_seed(SEED), fx, engine=engine),
+            "posterior_rand": lambda: gpost.rand(gen.manual_seed(SEED), fxp_tr, engine=engine),
+            "posterior_logpdf": lambda: gpost.logpdf(fxp_tr, y_pr, engine=engine),
+            "posterior_logpdf_new_times": lambda: gpost.logpdf(fxp_new, y_new, engine=engine),
+        }, fx, fxp_tr
+
+    def eps_for(model, dtype, device, seed=SEED + 5):
+        """Standard normals (eps_t, eps_e, x_init) for rand_with_eps, drawn
+        once on the host in float64."""
+        rng = np.random.default_rng(seed)
+        N_, D_ = len(model), model.latent_dim
+        return tuple(torch.as_tensor(a, dtype=dtype, device=device)
+                     for a in (rng.standard_normal((N_, D_)), rng.standard_normal(N_),
+                               rng.standard_normal(D_)))
+
+    def rand_rows(model, dtype):
+        """The (KT, L, B) rows (F, b, 0), the initial state and its zero
+        covariance that the block rand hands K8-K10 on eps_for's normals."""
+        eps_t, _eps_e, x_init = eps_for(model, dtype, DEVICE)
+        F, b = block._sample_maps(model, eps_t)
+        rows = block._rows_blocked(F, b, torch.zeros_like(F), block._blocks(model, None, True))
+        return rows, x_init, x_init.new_zeros(D, D)
+
+    def sum_c2_merged(name, at):
+        """sum-c2's posterior at N_MAIN at the training inputs or at the new
+        times, as its main path builds it: ((the merged forward model, its
+        observations), which the posterior's filter takes; (the
+        reverse-ordered posterior LGSSM, the observations its logpdf scores,
+        NaN at the training indices))."""
+        dtype = dtypes[name]
+        fx = make_sum(dtype, N_MAIN, DEVICE)
+        fp = gpost.posterior(fx, y_dev[name])
+        fxp = fp(fx.x if at == "training" else x_new_sum, NOISE)
+        x_sorted, noise_all, y_all, _tr_idx, _pr_idx = gpost._build_inference_data(fp, fxp.x)
+        post, idx = gpost._merged_posterior(fxp, None)
+        y_full = torch.full((len(post),), float("nan"), dtype=dtype, device=DEVICE)
+        y_full[idx] = torch.as_tensor(y_pr_np[:len(idx)], dtype=dtype, device=DEVICE)
+        return (build_lgssm(fp.prior(x_sorted, noise_all)), y_all), (post, y_full)
+
+    def sum_samples(fx, fxp, dtype, device, seed=SEED + 5, engine="block"):
+        """Prior and posterior (training inputs) samples of sum-c2 on the
+        same host normals, through rand_with_eps on `engine` (the block
+        engine: the kernels on the card, their plain versions on the CPU)."""
+        from temporalgps_torch.models import lgssm as tlgssm
+
+        prior = build_lgssm(fx)
+        post, idx = gpost._merged_posterior(fxp, engine)
+        return (tlgssm.rand_with_eps(prior, *eps_for(prior, dtype, device, seed), engine=engine),
+                tlgssm.rand_with_eps(post, *eps_for(post, dtype, device, seed),
+                                     engine=engine)[idx])
+
+    def widened(model):
+        """`model` with every leaf cast to float64, its values kept."""
+        wide = lambda leaf: (dataclasses.replace(leaf, value=leaf.value.double())
+                             if is_fill(leaf) else leaf.double())
+        t, e = model.trans, model.emis
+        x0 = dataclasses.replace(t.x0, mean=t.x0.mean.double(), cov=t.x0.cov.double())
+        return dataclasses.replace(
+            model, trans=dataclasses.replace(t, As=wide(t.As), offs=wide(t.offs),
+                                             Qs=wide(t.Qs), x0=x0),
+            emis=dataclasses.replace(e, H=wide(e.H), h=wide(e.h), s=wide(e.s)))
+
+    def float32_problem_sample(fxp):
+        """The posterior sample at the training inputs on eps_for's normals
+        of the float32 posterior `fxp`, its model and data as float32 stores
+        them, solved in float64: the float32 sample's reference with the
+        storage set apart (a Sum's reversal is sensitive to the rounding of
+        its transitions: the split of the observed sum between its
+        components)."""
+        from temporalgps_torch.models import lgssm as tlgssm
+
+        fp = fxp.f
+        x_sorted, noise_all, y_all, _tr_idx, pr_idx = gpost._build_inference_data(fp, fxp.x)
+        post = replace_observation_noise_cov(
+            posterior_with_missings(widened(build_lgssm(fp.prior(x_sorted, noise_all))),
+                                    y_all.double()),
+            gpost._pred_noise_full(pr_idx, len(x_sorted), fxp.noise, torch.float64, DEVICE))
+        return tlgssm.rand_with_eps(post, *eps_for(post, torch.float64, DEVICE),
+                                    engine="block")[torch.as_tensor(pr_idx, device=DEVICE)]
+
+    def phase_composite():
+        from temporalgps_torch.models import lgssm as tlgssm
+
+        rec = smoke.record["composite"] = {}
+        gen = torch.Generator(device=DEVICE)
+        outs, fxp_by = {}, {}
+        for name, dtype in dtypes.items():
+            calls, fx, fxp_tr = composite_calls(dtype, N_MAIN, DEVICE, y_dev[name], gen)
+            fxp_by[name] = fxp_tr
+            results, launches = {}, {}
+            for cname, call in calls.items():
+                kernels.reset_launch_counts()
+                results[cname] = call()
+                torch.cuda.synchronize()
+                counts = {kn: n for kn, n in kernels.launch_counts().items() if n}
+                launches[cname] = counts
+                smoke.check(counts == COMPOSITE_LAUNCHES[cname],
+                            f"sum-c2 {name} {cname}: launches {counts} "
+                            f"(want {COMPOSITE_LAUNCHES[cname]})")
+            rec.setdefault("launches", {})[name] = launches
+            if name == "float32":
+                # This slice's main path: the kernels line reads its launches.
+                total = {}
+                for counts in launches.values():
+                    for kn, n in counts.items():
+                        total[kn] = total.get(kn, 0) + n
+                smoke.record["launches"] = {kn: total.get(kn, 0) for kn in REPLACES}
+            vals = {c: results[c] for c in ("logpdf", "posterior_logpdf",
+                                             "posterior_logpdf_new_times")}
+            vals["value"], vals["grad"] = results["value_and_grad"]
+            vals["post_means"], vals["post_vars"] = results["posterior_marginals"]
+            vals["prior_sample"], vals["posterior_sample"] = sum_samples(fx, fxp_tr, dtype, DEVICE)
+            outs[name] = {key: t.double() for key, t in vals.items()}
+            for cname in ("prior_rand", "posterior_rand"):
+                draw = results[cname]
+                smoke.check(draw.shape == (N_MAIN,) and finite(draw)
+                            and torch.equal(draw, calls[cname]()),
+                            f"sum-c2 {name} {cname}: ({N_MAIN},), finite, the same draw from "
+                            f"the same seed")
+            smoke.check(all(finite(t) for t in outs[name].values())
+                        and bool((outs[name]["post_vars"] > 0).all()),
+                        f"sum-c2 {name}: finite values, positive posterior variances")
+        r32 = {key: rel_max(outs["float32"][key], outs["float64"][key]) for key in outs["float64"]}
+        rec["f32_vs_f64_rel"] = r32
+        # The posterior sample: the float32 problem (its model and data as
+        # float32 stores them) solved in float64 sets the storage apart. The
+        # float32 sample within 1e-3 of it, and within 1e-3 of the float64
+        # sample or twice that problem's own distance from it.
+        reference = float32_problem_sample(fxp_by["float32"])
+        storage = rel_max(reference, outs["float64"]["posterior_sample"])
+        arithmetic = rel_max(outs["float32"]["posterior_sample"], reference)
+        rec["posterior_sample_f32_storage_rel"] = storage
+        rec["posterior_sample_f32_arithmetic_rel"] = arithmetic
+        tol32 = {"posterior_sample": max(1e-3, 2 * storage)}
+        smoke.check(all(r <= tol32.get(key, 1e-3) for key, r in r32.items() if key != "grad")
+                    and arithmetic <= 1e-3,
+                    f"sum-c2 float32 vs float64, relative to the largest entry (tol 1e-3; the "
+                    f"posterior sample {tol32['posterior_sample']:.3e}, twice the distance of "
+                    f"the float32 problem solved in float64, {storage:.3e}; the float32 "
+                    f"sample from that, {arithmetic:.3e}, tol 1e-3): {json.dumps(r32)}")
+        # The gradient as phase 6 gates it: 1e-3 of each component, with a
+        # floor of 1e-6 of the largest one.
+        g32, g64 = outs["float32"]["grad"], outs["float64"]["grad"]
+        floor = 1e-6 * g64.abs().max().item()
+        excess = ((g32 - g64).abs() - (1e-3 * g64.abs() + floor)).max().item()
+        rec["grad_f32_rel_per_component"] = ((g32 - g64).abs() / g64.abs()).tolist()
+        smoke.check(excess <= 0.0,
+                    f"sum-c2 float32 grad vs float64: |g64|={g64.abs().tolist()} "
+                    f"rel={rec['grad_f32_rel_per_component']} (tol 1e-3 relative + "
+                    f"{floor:.3g} absolute)")
+
+        # float64 on the card against the CPU port (the block engine: its
+        # plain versions) at N_SMALL.
+        y_small = y_np[:N_SMALL]
+        got, want = ({}, {})
+        for device, out in ((DEVICE, got), ("cpu", want)):
+            calls, fx, fxp_tr = composite_calls(torch.float64, N_SMALL, device,
+                                                torch.as_tensor(y_small, device=device),
+                                                torch.Generator(device=device), "block")
+            out["logpdf"] = calls["logpdf"]().reshape(1)
+            value, out["grad"] = calls["value_and_grad"]()
+            out["value"] = value.reshape(1)
+            out["post_means"], out["post_vars"] = calls["posterior_marginals"]()
+            out["posterior_logpdf"] = calls["posterior_logpdf"]().reshape(1)
+            out["posterior_logpdf_new_times"] = calls["posterior_logpdf_new_times"]().reshape(1)
+            out["prior_sample"], out["posterior_sample"] = sum_samples(fx, fxp_tr, torch.float64,
+                                                                       device)
+            out["posterior_sample_seed2"] = sum_samples(fx, fxp_tr, torch.float64, device,
+                                                        seed=SEED + 6)[1]
+            if device == "cpu":
+                # The witness: the sequential engine's posterior (the
+                # reverse dynamics by a Cholesky solve, not the adjugate)
+                # sampled on the same normals.
+                witness = sum_samples(fx, fxp_tr, torch.float64, device, engine="sequential")[1]
+            for kind in ("product", "custom_mean"):
+                fx_o = make_other(kind, torch.float64, N_SMALL, device)
+                out[f"{kind}_logpdf"] = logpdf(fx_o, y_small, engine="block").reshape(1)
+            fx_m = make_other("custom_mean", torch.float64, N_SMALL, device)
+            out["custom_mean_post_means"], out["custom_mean_post_vars"] = \
+                posterior_marginals(fx_m, y_small, "block")
+            prod = build_lgssm(make_other("product", torch.float64, N_SMALL, device))
+            out["product_sample"] = tlgssm.rand_with_eps(prod, *eps_for(prod, torch.float64,
+                                                                        device), engine="block")
+        # The posterior samples are held at 1e-8: at the merged times' zero
+        # steps the reverse model's Q is a difference of equal covariances,
+        # which one rounding of the filtering states moves by ~1e-6 of
+        # itself, and the sample takes its square root. The witness reads
+        # how far two sound inversions of the same dynamics move the sample.
+        r_cpu = {key: rel_max(got[key].cpu(), want[key]) for key in want}
+        rec["f64_20k_rel_vs_cpu"] = r_cpu
+        rec["posterior_sample_witness_rel"] = rel_max(witness, want["posterior_sample"])
+        tol = {"grad": 1e-8, "posterior_sample": 1e-8, "posterior_sample_seed2": 1e-8}
+        smoke.check(all(r <= tol.get(key, 1e-10) for key, r in r_cpu.items()),
+                    f"float64 N={N_SMALL} card vs the CPU port (tol 1e-10, gradient and "
+                    f"posterior samples 1e-8): {json.dumps(r_cpu)}; the sequential engine's "
+                    f"posterior sample on the CPU against the block engine's: "
+                    f"{rec['posterior_sample_witness_rel']!r}")
+
+        # The Product and sum-c2 with its mean function at N_MAIN: routes,
+        # float32 against float64; the D = 5 sum at N_D5 on the matrix path.
+        other = {}
+        for kind, cname, expect in (
+                ("product", "logpdf", COMPOSITE_LAUNCHES["logpdf"]),
+                ("product", "prior_rand", COMPOSITE_LAUNCHES["prior_rand"]),
+                ("custom_mean", "logpdf", COMPOSITE_LAUNCHES["logpdf"]),
+                ("custom_mean", "posterior_marginals", COMPOSITE_LAUNCHES["posterior_marginals"]),
+                ("d5", "logpdf", {})):
+            N = N_D5 if kind == "d5" else N_MAIN
+            for name, dtype in dtypes.items():
+                fx = make_other(kind, dtype, N, DEVICE)
+                y = y_dev[name][:N]
+                call = {"logpdf": lambda: logpdf(fx, y),
+                        "prior_rand": lambda: rand(gen.manual_seed(SEED), fx),
+                        "posterior_marginals": lambda: posterior_marginals(fx, y)}[cname]
+                kernels.reset_launch_counts()
+                out = call()
+                torch.cuda.synchronize()
+                counts = {kn: n for kn, n in kernels.launch_counts().items() if n}
+                out = out if isinstance(out, tuple) else (out,)
+                other.setdefault(f"{kind}_{cname}", {})[name] = [t.double() for t in out]
+                smoke.check(counts == expect and all(finite(t) for t in out),
+                            f"{kind} {cname} {name} N={N}: finite, launches {counts} "
+                            f"(want {expect})")
+                with torch.no_grad():
+                    ms = events_ms(call, reps=1 if kind == "d5" else 5, batches=3)
+                rec.setdefault("ms", {}).setdefault(name, {})[f"{kind}_{cname}"] = ms[0]
+                print(f"  {name} {kind}_{cname}: {ms[0]!r} ms (range {ms[1]!r}..{ms[2]!r})",
+                      flush=True)
+        # (The rand draws of the two dtypes come from different normals.)
+        r_other = {key: max(rel_max(a, b) for a, b in zip(v["float32"], v["float64"]))
+                   for key, v in other.items() if not key.endswith("rand")}
+        rec["other_f32_vs_f64_rel"] = r_other
+        smoke.check(all(r_other[f"{kind}_logpdf"] <= 1e-3
+                        for kind in ("product", "custom_mean", "d5")),
+                    f"Product, mean function and D = 5 float32 vs float64 lml (tol 1e-3); all, "
+                    f"relative to the largest entry: {json.dumps(r_other)}")
+
+        # Times (CUDA events, median of 5 batches; the new times 3) and
+        # where the time goes.
+        for name, dtype in dtypes.items():
+            calls, fx, fxp_tr = composite_calls(dtype, N_MAIN, DEVICE, y_dev[name], gen)
+            for cname, call in calls.items():
+                batches, reps = ((3, 1) if cname == "posterior_logpdf_new_times"
+                                 else (5, 1) if cname.startswith("posterior") else (5, 10))
+                with torch.no_grad():
+                    ms = events_ms(call, reps=reps, batches=batches)
+                rec.setdefault("ms", {}).setdefault(name, {})[cname] = ms[0]
+                print(f"  {name} sum-c2 {cname}: {ms[0]!r} ms (range {ms[1]!r}..{ms[2]!r}, "
+                      f"{batches} batches of {reps})", flush=True)
+            # The profiler names a kernel's streamed form as the kernel (K1's,
+            # K7's and K3's kernels on another transition policy).
+            streamed = ("phase1_aggregate", "phase2_starts", "phase3_states", "phase3_lml")
+            for cname, shorts in (("logpdf", VALUE_KERNELS),
+                                  ("value_and_grad", JVP_KERNELS),
+                                  ("posterior_marginals", POSTERIOR_KERNELS),
+                                  ("prior_rand", STATE_KERNELS[1:]),
+                                  ("posterior_rand", streamed[:3] + STATE_KERNELS[1:]),
+                                  ("posterior_logpdf", streamed),
+                                  ("posterior_logpdf_new_times", streamed)):
+                summary = call_profile(calls[cname], shorts,
+                                       calls=3 if cname.startswith("posterior_") else 10)
+                rec.setdefault("profile", {}).setdefault(name, {})[cname] = summary
+                print(f"  {name} sum-c2 {cname} profile: {json.dumps(summary)}", flush=True)
+                smoke.check(summary["device_busy_us"] > 0
+                            and all(us > 0 for us in summary["kernel_us"].values()),
+                            f"{name} sum-c2 {cname}: the profiler saw its kernels")
+
     smoke.phase("1. versions and card", phase_versions)
     smoke.phase("2. build", phase_build)
     smoke.phase("3. value kernels vs plain versions at N=1M", phase_compare)
@@ -1493,6 +1981,7 @@ def main():
     smoke.phase("12. profile of posterior marginals at N=1M", phase_profile_posterior)
     smoke.phase("13. streamed kernels vs plain versions at N=1M", phase_compare_streamed)
     smoke.phase("14. irregular times and D = 6", phase_irregular)
+    smoke.phase("15. sum-c2: composite models, sampling, the posterior's logpdf", phase_composite)
 
     print("== detail", json.dumps(smoke.record, default=str))
     if smoke.failures:

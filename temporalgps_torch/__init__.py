@@ -12,10 +12,19 @@ card unless the caller asks for the CPU with `to_sde(..., device="cpu")`:
         RegularSpacing(0.0, 1e-3, N), 0.1)
     lml = logpdf(fx, y)
 
+Kernels compose: `0.5 * Matern12().stretch(2.0) + Matern32()` is a Sum
+(the direct sum of the two state spaces), `Matern12() * Matern32()` a
+Product; `GP(k, CustomMean(fn))` takes a mean function of the times.
+
 Prediction: `marginals(fx)` gives the prior's (means, variances), and
 `gp.posterior.marginals(posterior(fx, y)(x_new, noise))` the posterior's at
 the training or at new inputs, through the smoother as a reverse-ordered
 LGSSM (ops/block.py on K1, K2, K7 and the affine kernels K8-K10).
+Sampling: `rand(generator, fx)` draws from the prior and
+`gp.posterior.rand(generator, fxp)` from the posterior, with an explicit
+torch.Generator on the model's device (K8-K10); `gp.posterior.logpdf(fxp,
+y_new)` scores new data under the posterior (the reverse model's filter on
+K1, K2, K3).
 
 Hyperparameters are fitted on the lml and its forward-mode gradient, which
 runs the primal and k tangent filters through one pass of kernels
@@ -24,7 +33,7 @@ runs the primal and k tangent filters through one pass of kernels
 The JAX package temporalgps_tpu is the reference this port is held to.
 """
 
-from .gp.lti_sde import logpdf, marginals, mean, mean_and_var, var
+from .gp.lti_sde import logpdf, marginals, mean, mean_and_var, rand, var
 from .gp.posterior import posterior
 from .learning import (
     constrained,
@@ -39,6 +48,7 @@ from .utils.regular_spacing import RegularSpacing
 __all__ = [
     "RegularSpacing",
     "logpdf",
+    "rand",
     "posterior",
     "marginals",
     "mean",

@@ -7,6 +7,7 @@ import numpy as np
 import torch
 
 from .gp import kernels as K
+from .gp import means
 from .models.emissions import ScalarEmissions
 from .models.gauss_markov import GaussMarkov
 from .models.lgssm import LGSSM
@@ -53,8 +54,9 @@ _ATOMS = {"Matern12": K.Matern12, "Matern32": K.Matern32, "Matern52": K.Matern52
 
 def kernel_from_spec(spec):
     """The port's kernel from a nested spec of names and numpy scalars:
-    ("Matern12",), ("Matern32",), ("Matern52",), ("Scaled", child, sigma2) or
-    ("Stretched", child, s). Hyperparameters become Python floats."""
+    ("Matern12",), ("Matern32",), ("Matern52",), ("Scaled", child, sigma2),
+    ("Stretched", child, s), ("Sum", (child, ...)) or ("Product", (child,
+    ...)). Hyperparameters become Python floats."""
     name = spec[0]
     if name in _ATOMS:
         return _ATOMS[name]()
@@ -62,4 +64,17 @@ def kernel_from_spec(spec):
         return K.Scaled(kernel_from_spec(spec[1]), float(np.asarray(spec[2])))
     if name == "Stretched":
         return K.Stretched(kernel_from_spec(spec[1]), float(np.asarray(spec[2])))
-    raise NotImplementedError(f"kernel {name!r} is not ported yet (ROADMAP Queue 1 items 2 and 9)")
+    if name in ("Sum", "Product"):
+        return getattr(K, name)(tuple(kernel_from_spec(c) for c in spec[1]))
+    raise NotImplementedError(f"kernel {name!r} is not ported yet (ROADMAP Queue 1 item 9)")
+
+
+def mean_from_spec(spec):
+    """The port's mean function from ("ZeroMean",) or ("ConstMean", c), c a
+    numpy scalar. A CustomMean carries a callable, which a caller hands to
+    both packages itself."""
+    if spec[0] == "ZeroMean":
+        return means.ZeroMean()
+    if spec[0] == "ConstMean":
+        return means.ConstMean(float(np.asarray(spec[1])))
+    raise ValueError(f"no mean spec {spec[0]!r}")

@@ -3,9 +3,11 @@
 A `GP` wrapped by `to_sde` becomes an `LTISDE`; calling it on inputs with
 observation noise gives a `FiniteLTISDE`; `build_lgssm` compiles kernel and
 inputs into the `LGSSM` on which inference runs; `logpdf` and the prior
-`marginals` run on it. `RegularSpacing` inputs give
+`marginals` and `rand` run on it. `RegularSpacing` inputs give
 one shared (A, Q) wrapped in `Fill`s; an (N,) tensor of times gives
-per-step transitions.
+per-step transitions. A Sum kernel compiles to the direct sum of its
+children's chains (block-diagonal A, Q and x0 covariance, concatenated H,
+summed h); a CustomMean to a per-step emission offset h.
 
 The storage dtype and the device are explicit per model. The device is the
 CUDA card unless the caller asks for the CPU: `to_sde(f, ArrayStorage(
@@ -25,12 +27,13 @@ from ..models import missings
 from ..models.emissions import ScalarEmissions
 from ..models.gauss_markov import GaussMarkov
 from ..models.lgssm import LGSSM
-from ..utils.fill import Fill, is_fill
+from ..utils import psd
+from ..utils.fill import Fill, is_fill, tmaterialize
 from ..utils.gaussian import Gaussian
 from ..utils.psd import symmetrize
-from ..utils.regular_spacing import RegularSpacing, num_times
+from ..utils.regular_spacing import RegularSpacing, num_times, time_array
 from . import kernels as K
-from .means import ConstMean, ZeroMean
+from .means import ConstMean, ZeroMean, mean_vector
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,18 +127,44 @@ def broadcast_components(atoms: K.SDEAtoms, x, dtype, device):
     return As, offs, Qs, Hs, hs
 
 
-def _map_fill(fn, leaf):
-    return Fill(fn(leaf.value), leaf.N)
+def _combine_leaves(fn, leaves, N):
+    """fn over per-step leaves: a Fill when every leaf is one, else fn on the
+    leaves with a leading time axis (a Fill broadcast to it), for `fn`
+    batched over leading axes."""
+    if all(is_fill(leaf) for leaf in leaves):
+        return Fill(fn(*(leaf.value for leaf in leaves)), N)
+    return fn(*(tmaterialize(leaf) for leaf in leaves))
+
+
+def _block_diag(*mats):
+    return psd.block_diag(list(mats))
+
+
+def _concat(*vecs):
+    return torch.cat(vecs, dim=-1)
 
 
 def lgssm_components(kernel, x, dtype, device):
     """Recursive kernel compiler -> (As, offs, Qs, (Hs, hs), x0). The
-    emission leaves Hs, hs are always Fills."""
+    emission leaves Hs, hs are Fills; a Sum's transition leaves are per step
+    when any child's are."""
+    N = num_times(x)
+    if isinstance(kernel, K.Sum):
+        parts = [lgssm_components(c, x, dtype, device) for c in kernel.kernels]
+        leaves = lambda i: [p[i] for p in parts]
+        As = _combine_leaves(_block_diag, leaves(0), N)
+        offs = _combine_leaves(_concat, leaves(1), N)
+        Qs = _combine_leaves(_block_diag, leaves(2), N)
+        Hs = _combine_leaves(_concat, [p[3][0] for p in parts], N)
+        hs = _combine_leaves(lambda *hs: sum(hs), [p[3][1] for p in parts], N)
+        x0 = Gaussian(torch.cat([p[4].mean for p in parts], dim=-1),
+                      psd.block_diag([p[4].cov for p in parts]))
+        return As, offs, Qs, (Hs, hs), x0
     if isinstance(kernel, K.Scaled):
         As, offs, Qs, (Hs, hs), x0 = lgssm_components(kernel.kernel, x, dtype, device)
         sigma = torch.sqrt(torch.as_tensor(kernel.sigma2, dtype=dtype, device=device))
-        return As, offs, Qs, (_map_fill(lambda H: sigma * H, Hs),
-                              _map_fill(lambda h: sigma * h, hs)), x0
+        return As, offs, Qs, (_combine_leaves(lambda H: sigma * H, [Hs], N),
+                              _combine_leaves(lambda h: sigma * h, [hs], N)), x0
     if isinstance(kernel, K.Stretched):
         # The stretch is applied to the times in the storage dtype, before
         # the float64 discretisation, as in the reference.
@@ -157,23 +186,24 @@ def lgssm_components(kernel, x, dtype, device):
     return As, offs, Qs, (Hs, hs), x0
 
 
-def _add_mean_to_hs(hs, mean_fn, dtype, device):
-    """Fold the GP mean into the emission offsets."""
+def _add_mean_to_hs(hs, mean_fn, x, dtype, device):
+    """Fold the GP mean into the emission offsets: a constant one stays a
+    Fill, a CustomMean gives an (N,) h, the function evaluated on the times
+    (in their own dtype, then cast to the storage dtype)."""
     if isinstance(mean_fn, ZeroMean):
         return hs
     if isinstance(mean_fn, ConstMean):
         c = torch.as_tensor(mean_fn.c, dtype=dtype, device=device)
-        return _map_fill(lambda h: h + c, hs)
-    raise NotImplementedError(
-        f"{type(mean_fn).__name__} is not ported yet (ROADMAP Queue 1 item 2)"
-    )
+        return _combine_leaves(lambda h: h + c, [hs], num_times(x))
+    m = mean_vector(mean_fn, time_array(x, device)).to(dtype)
+    return tmaterialize(hs) + m
 
 
 def build_lgssm(fx: FiniteLTISDE) -> LGSSM:
     f = fx.f
     dtype = _storage_dtype(f.storage)
     As, offs, Qs, (Hs, hs), x0 = lgssm_components(f.f.kernel, fx.x, dtype, f.device)
-    hs = _add_mean_to_hs(hs, f.f.mean, dtype, f.device)
+    hs = _add_mean_to_hs(hs, f.f.mean, fx.x, dtype, f.device)
     return LGSSM(
         GaussMarkov(As=As, offs=offs, Qs=Qs, x0=x0, forward=True),
         ScalarEmissions(H=Hs, h=hs, s=fx.noise),
@@ -189,6 +219,26 @@ def logpdf(fx: FiniteLTISDE, y, *, engine=None, **engine_kwargs):
     model = build_lgssm(fx)
     y = torch.as_tensor(y, dtype=model.dtype, device=model.device)
     return missings.logpdf_with_missings(model, y, engine=engine, **engine_kwargs)
+
+
+def rand(generator, fx: FiniteLTISDE, n=None, *, engine=None):
+    """A joint prior sample of the observations, noise included; `n` draws
+    stacked on a leading axis. The normals come from `generator`, a
+    torch.Generator on the model's device (the reference takes a key).
+    `engine=None` runs the affine block schedule (K8-K10 with zero process
+    noise rows) for a model on a CUDA device, the sequential engine
+    otherwise."""
+    model = build_lgssm(fx)
+    if n is None:
+        return lgssm_mod.rand(generator, model, engine=engine)
+    return torch.stack([lgssm_mod.rand(generator, model, engine=engine) for _ in range(n)])
+
+
+def cov(fx: FiniteLTISDE):
+    """The dense prior covariance of the observations, O(N^2), as the
+    reference's: the kernel's gram at the times plus the noise."""
+    t = time_array(fx.x, fx.f.device).to(_storage_dtype(fx.f.storage))
+    return K.gram(fx.f.f.kernel, t) + torch.diag(tmaterialize(fx.noise))
 
 
 def marginals(fx: FiniteLTISDE, *, engine=None):

@@ -18,6 +18,14 @@ of K1 and K7 (each step's (A, a, Q) read from a row stream) with K2, and
 its marginals on K8-K10. Models of more than three states take the block
 engine's plain matrix path. The dense posterior covariance is refused, as
 in the reference.
+
+Sampling and scoring new data (`rand`, `logpdf`) always merge, as the
+reference does, even at the training inputs (each time then appears twice:
+a step of dt = 0 with A = I and Q = 0). `rand` samples the reverse-ordered
+posterior LGSSM over the merged times on K8-K10 and reads out the
+prediction indices; `logpdf` scores y at the prediction indices with NaN at
+the training ones, the reverse model's filter on the streamed K1, K2 and
+the streamed K3.
 """
 
 import dataclasses
@@ -120,6 +128,18 @@ def _posterior_model(fp, x_sorted, noise_all, y_all, noise_pred_full, *, engine=
     return missings_mod.replace_observation_noise_cov(post, noise_pred_full)
 
 
+def _merged_posterior(fxp: FinitePosteriorLTISDE, engine):
+    """(posterior LGSSM over the merged times, with the prediction noise at
+    the prediction indices and zero at the training ones; the prediction
+    indices as a tensor on its device)."""
+    fp = fxp.f
+    x_sorted, noise_all, y_all, _tr_idx, pr_idx = _build_inference_data(fp, fxp.x)
+    noise_pred = _pred_noise_full(pr_idx, len(x_sorted), fxp.noise,
+                                  _storage_dtype(fp.prior.storage), y_all.device)
+    post = _posterior_model(fp, x_sorted, noise_all, y_all, noise_pred, engine=engine)
+    return post, torch.as_tensor(pr_idx, device=y_all.device)
+
+
 def marginals(fxp: FinitePosteriorLTISDE, *, engine=None):
     """Posterior marginal (means, variances) at fxp.x, including the
     prediction noise fxp.noise."""
@@ -128,12 +148,8 @@ def marginals(fxp: FinitePosteriorLTISDE, *, engine=None):
         noise_pred = _noise_array(fxp.noise, num_times(fxp.x))
         post = _posterior_model(fp, fp.x, fp.noise, fp.y, noise_pred, engine=engine)
         return lgssm_mod.marginals_diag(post, engine=engine)
-    x_sorted, noise_all, y_all, _tr_idx, pr_idx = _build_inference_data(fp, fxp.x)
-    noise_pred = _pred_noise_full(pr_idx, len(x_sorted), fxp.noise,
-                                  _storage_dtype(fp.prior.storage), y_all.device)
-    post = _posterior_model(fp, x_sorted, noise_all, y_all, noise_pred, engine=engine)
+    post, idx = _merged_posterior(fxp, engine)
     m, v = lgssm_mod.marginals_diag(post, engine=engine)
-    idx = torch.as_tensor(pr_idx, device=m.device)
     return m[idx], v[idx]
 
 
@@ -147,6 +163,24 @@ def mean(fxp, *, engine=None):
 
 def var(fxp, *, engine=None):
     return marginals(fxp, engine=engine)[1]
+
+
+def rand(generator, fxp: FinitePosteriorLTISDE, *, engine=None):
+    """A joint posterior sample at fxp.x, the prediction noise included;
+    the normals from `generator`, a torch.Generator on the model's
+    device."""
+    post, idx = _merged_posterior(fxp, engine)
+    return lgssm_mod.rand(generator, post, engine=engine)[idx]
+
+
+def logpdf(fxp: FinitePosteriorLTISDE, y_pr, *, engine=None):
+    """The posterior predictive log density of y_pr at fxp.x (NaN =
+    missing): the reverse-ordered posterior LGSSM's lml of y_pr at the
+    prediction indices, the training ones missing."""
+    post, idx = _merged_posterior(fxp, engine)
+    y_full = torch.full((len(post),), float("nan"), dtype=post.dtype, device=post.device)
+    y_full[idx] = torch.as_tensor(y_pr, dtype=post.dtype, device=post.device)
+    return missings_mod.logpdf_with_missings(post, y_full, engine=engine)
 
 
 def cov(fxp: FinitePosteriorLTISDE):

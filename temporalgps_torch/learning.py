@@ -202,8 +202,8 @@ def value_and_grad_fwd_lgssm(model_fn, y, *, n_blocks=None, fallback=None):
 
 def value_and_grad_fisher(model_fn, y, *, n_blocks=None, engine="parallel"):
     """The closed-form Fisher/EM-identity gradient of the reference; it needs
-    ops/fisher.py and the smoother, which are not ported yet."""
+    ops/fisher.py, which is not ported yet."""
     raise NotImplementedError(
         "value_and_grad_fisher is not ported yet (ROADMAP Queue 1 item 10: "
-        "ops/fisher.py, after the smoother of item 6)"
+        "ops/fisher.py)"
     )

@@ -29,3 +29,9 @@ def step_predict_marginals(x: Gaussian, e: ScalarEmissions):
     """Observation-space predictive (mean, variance), batched over leading
     axes of x and of the emission's leaves."""
     return lgc.predict_marginals_scalar(x, e.H, e.h, e.s)
+
+
+def step_conditional_rand(eps, x_point, e: ScalarEmissions):
+    """A sample of the scalar observation given the state x_point and the
+    standard normal eps, batched over leading axes."""
+    return lgc.conditional_rand_scalar(eps, x_point, e.H, e.h, e.s)

@@ -1,6 +1,6 @@
 """LGSSM — model container and its inference functions
 (temporalgps_tpu/models/lgssm.py): logpdf, filter_, posterior, marginals,
-marginals_diag, latent_marginals.
+marginals_diag, latent_marginals, rand.
 
 Engines ported:
   * "sequential" — a Python loop over time of ops/lgc steps; the ground
@@ -27,7 +27,7 @@ from ..config import POSTERIOR_JITTER
 from ..ops import lgc
 from ..utils import psd
 from ..utils.fill import is_fill
-from ..utils.gaussian import Gaussian
+from ..utils.gaussian import Gaussian, gaussian_rand
 from . import emissions as em
 from .gauss_markov import GaussMarkov
 
@@ -54,24 +54,15 @@ class LGSSM:
 
 
 def _resolve_engine(engine, model=None):
-    """`None` picks "block" for any forward-ordered model on a CUDA device
-    (the kernels for D <= 3, constant or per-step transitions; the matrix
-    path beyond), and "sequential" everywhere else (the reference picks
-    "block" on the TPU). The filtering functions (logpdf, filter_, posterior)
-    use it."""
-    if engine is not None:
-        return engine
-    if model is not None and model.device.type == "cuda" and model.trans.forward:
-        return "block"
-    return "sequential"
-
-
-def _resolve_engine_affine(engine, model=None):
-    """`_resolve_engine` for the data-free functions (marginals,
-    marginals_diag, latent_marginals): their block schedule, the affine
-    prefix (K8-K10 for D <= 3, the matrix path beyond), takes both
-    orderings, so `None` picks "block" for any model on a CUDA device (the
-    reverse-ordered posterior among them), "sequential" elsewhere."""
+    """`None` picks "block" for any model on a CUDA device (the kernels for
+    D <= 3, constant or per-step transitions; the matrix path beyond), and
+    "sequential" everywhere else (the reference picks "block" on the TPU).
+    Either ordering: the reverse-ordered posterior's data-free functions
+    (marginals, rand) run the affine prefix, and its `logpdf` the filter of
+    its iteration view, where the reference's filtering functions fall back
+    to their sequential scan, a Python loop of N steps in the port. Its own
+    `posterior` is the exception: `posterior` passes no model for a
+    reverse-ordered one, so `None` picks "sequential" there."""
     if engine is not None:
         return engine
     if model is not None and model.device.type == "cuda":
@@ -105,9 +96,9 @@ def _obs(model, y):
 # ---------------------------------------------------------------------------
 
 def logpdf(model: LGSSM, y, *, engine=None, fused=None, n_blocks=None):
-    """Log marginal likelihood via the Kalman filter. For engine="block",
-    `fused=False` runs the plain PyTorch blocked schedule instead of the
-    kernels, and `n_blocks` overrides the block count."""
+    """Log marginal likelihood via the Kalman filter, either ordering. For
+    engine="block", `fused=False` runs the plain PyTorch blocked schedule
+    instead of the kernels, and `n_blocks` overrides the block count."""
     engine = _resolve_engine(engine, model)
     _check_engine(engine)
     y = _obs(model, y)
@@ -161,8 +152,10 @@ def _invert_dynamics(first: Gaussian, second: Gaussian, A):
 def posterior(model: LGSSM, y, *, engine=None, n_blocks=None) -> LGSSM:
     """The smoother as an LGSSM of the opposite ordering: filter, emitting
     the inverted dynamics of every step; its x0 is the last filtering
-    distribution and its emissions are the model's."""
-    engine = _resolve_engine(engine, model)
+    distribution and its emissions are the model's. `None` picks
+    "sequential" for a reverse-ordered model on any device: the block
+    posterior takes forward-ordered models only (ROADMAP Queue 1 item 10)."""
+    engine = _resolve_engine(engine, model if model.trans.forward else None)
     _check_engine(engine)
     y = _obs(model, y)
     if engine == "block":
@@ -172,16 +165,25 @@ def posterior(model: LGSSM, y, *, engine=None, n_blocks=None) -> LGSSM:
     forward = model.trans.forward
     dyn = []
     x = model.trans.x0
+    # Each step's prediction and its inversion in float64, whatever the
+    # model's dtype (as the block engine's reversal): Q_rev is a difference
+    # of nearly equal covariances, which float32 cannot form.
+    wide = lambda *ts: [t.to(torch.float64) for t in ts]
+    narrow = lambda g: Gaussian(g.mean.to(model.dtype), g.cov.to(model.dtype))
     for A, a, Q, e, yt in _iteration(model, y):
+        A64, a64, Q64 = wide(A, a, Q)
         if forward:
-            xp = lgc.predict(x, A, a, Q)
-            dyn.append(_invert_dynamics(x, xp, A))
-            x, _ = _update(xp, e, yt)
+            x64 = Gaussian(*wide(x.mean, x.cov))
+            xp64 = lgc.predict(x64, A64, a64, Q64)
+            dyn.append(_invert_dynamics(x64, xp64, A64))
+            x, _ = _update(narrow(xp64), e, yt)
         else:
             xf, _ = _update(x, e, yt)
-            x = lgc.predict(xf, A, a, Q)
-            dyn.append(_invert_dynamics(x, xf, A))
-    As, offs, Qs = (_stack([d[i] for d in dyn], forward) for i in range(3))
+            xf64 = Gaussian(*wide(xf.mean, xf.cov))
+            x64 = lgc.predict(xf64, A64, a64, Q64)
+            dyn.append(_invert_dynamics(x64, xf64, A64))
+            x = narrow(x64)
+    As, offs, Qs = (_stack([d[i] for d in dyn], forward).to(model.dtype) for i in range(3))
     trans = GaussMarkov(As=As, offs=offs, Qs=Qs, x0=x, forward=not forward)
     return LGSSM(trans, model.emis)
 
@@ -198,7 +200,7 @@ def marginals(model: LGSSM, *, engine=None, n_blocks=None) -> Gaussian:
 
 def marginals_diag(model: LGSSM, *, engine=None, n_blocks=None):
     """Observation-space marginal (means, variances), each (N,)."""
-    engine = _resolve_engine_affine(engine, model)
+    engine = _resolve_engine(engine, model)
     _check_engine(engine)
     if engine == "block":
         from ..ops import block
@@ -211,7 +213,7 @@ def marginals_diag(model: LGSSM, *, engine=None, n_blocks=None):
 
 def latent_marginals(model: LGSSM, *, engine=None, n_blocks=None) -> Gaussian:
     """Marginals of the latent chain itself, a stacked Gaussian."""
-    engine = _resolve_engine_affine(engine, model)
+    engine = _resolve_engine(engine, model)
     _check_engine(engine)
     if engine == "block":
         from ..ops import block
@@ -270,13 +272,60 @@ def _stack_gaussians(xs, forward):
 
 
 def _logpdf_sequential(model: LGSSM, y):
-    if not model.trans.forward:
-        raise NotImplementedError(
-            "logpdf of a reverse-ordered model is not ported yet (ROADMAP Queue 1 item 6)"
-        )
+    """Forward: predict, then update; reverse: update (emit), then
+    transition."""
+    forward = model.trans.forward
     x = model.trans.x0
     lmls = []
     for A, a, Q, e, yt in _iteration(model, y):
-        x, lml = _update(lgc.predict(x, A, a, Q), e, yt)
+        if forward:
+            x, lml = _update(lgc.predict(x, A, a, Q), e, yt)
+        else:
+            xf, lml = _update(x, e, yt)
+            x = lgc.predict(xf, A, a, Q)
         lmls.append(lml)
     return torch.stack(lmls).sum()
+
+
+# ---------------------------------------------------------------------------
+# Sampling
+# ---------------------------------------------------------------------------
+
+def rand(generator, model: LGSSM, *, engine=None):
+    """A joint sample of the observations. All normals are drawn up front
+    from `generator` (a torch.Generator on the model's device), in the
+    reference's order: the initial state, then eps_t (N, D) for the
+    transitions, then eps_e (N,) for the emissions; `rand_with_eps` runs the
+    chain on them."""
+    N, D = len(model), model.latent_dim
+    x_init = gaussian_rand(generator, model.trans.x0)
+    normal = lambda *shape: torch.randn(shape, generator=generator, dtype=model.dtype,
+                                        device=model.device)
+    eps_t = normal(N, D)
+    eps_e = normal(N)
+    return rand_with_eps(model, eps_t, eps_e, x_init, engine=engine)
+
+
+def rand_with_eps(model: LGSSM, eps_t, eps_e, x_init, *, engine=None, n_blocks=None):
+    """The joint sample the standard normals eps_t (N, D), eps_e (N,) and
+    the initial state x_init give, each indexed by time. engine="block" runs
+    the affine block schedule (ops/block.rand_with_eps: K8-K10 for D <= 3);
+    "sequential" the reference's steps: forward, transition then emit;
+    reverse, emit then transition (eps_t of step 0 unused)."""
+    engine = _resolve_engine(engine, model)
+    _check_engine(engine)
+    if engine == "block":
+        from ..ops import block
+
+        return block.rand_with_eps(model, eps_t, eps_e, x_init, n_blocks=n_blocks)
+    forward = model.trans.forward
+    x = x_init
+    ys = []
+    for A, a, Q, e, et, ee in _iteration(model, eps_t, eps_e):
+        if forward:
+            x = lgc.conditional_rand(et, x, A, a, Q)
+            ys.append(em.step_conditional_rand(ee, x, e))
+        else:
+            ys.append(em.step_conditional_rand(ee, x, e))
+            x = lgc.conditional_rand(et, x, A, a, Q)
+    return _stack(ys, forward)

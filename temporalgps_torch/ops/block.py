@@ -18,7 +18,7 @@ The series is padded to B*L with steps that observe nothing (identity
 transitions with zero noise, s = LARGE_VAR, y = 0), whose lml is the
 closed-form constant the compensation removes.
 
-Forward-ordered scalar-emission models take one of three routes:
+Scalar-emission models take one of three routes:
 
   Fill (A, a, Q, H, h), D <= 3   K1-K3 on the constant packed parameters;
   per-step (A, a, Q), D <= 3     K1 and K3 reading each step's (A, a, Q) from
@@ -28,14 +28,20 @@ Forward-ordered scalar-emission models take one of three routes:
                                  serially (the reference's
                                  `_phase1_aggregates_lanes`,
                                  `_phase3_lml_lanes`);
-  D > 3, or per-step H or h      the matrix path: the same three phases in
+  D > 3, or per-step H           the matrix path: the same three phases in
                                  batched (B, D, D) tensor ops, on the card
                                  too (the reference's XLA schedule has no
                                  Pallas kernel either).
 
-The kernels run for a model on a CUDA device, at `_pallas_blocks` blocks;
-the plain schedules at `_default_blocks`. Reverse-ordered models raise (the
-reference falls back to its associative engine, ROADMAP items 6 and 10).
+A per-step emission offset h (a CustomMean) moves into the observations,
+y - h_t, before the streams are cut (`_kernel_emission`): the innovation
+y - H m - h is the same function, and the kernels read one h. A
+reverse-ordered model (the smoother's posterior) is filtered as the
+forward-ordered model of its iteration view (`_forward_view`): flipped y and
+emissions, and the shifted transitions as per-step rows, so its `logpdf`
+runs the streamed K1, K2, the streamed K3 (the reference falls back to its
+associative engine there). The kernels run for a model on a CUDA device, at
+`_pallas_blocks` blocks; the plain schedules at `_default_blocks`.
 
 Smoothing and prediction reuse phases 1 and 2 with a third phase that keeps
 the filtering state after every step (K7 phase3_states, streamed or not;
@@ -45,7 +51,9 @@ dynamics step by step into a reverse-ordered LGSSM (plain tensor ops on
 of a chain (the posterior's, or the prior's) are a prefix composition of
 affine-Gaussian maps on the same three-phase schedule (K8 affine_phase1, K9
 affine_phase2_starts, K10 affine_phase3_states, D <= 3, both orderings;
-the matrix `affine_prefix_states` for D > 3).
+the matrix `affine_prefix_states` for D > 3). A joint sample is the same
+prefix on the maps (F, c + chol(Q) eps_t) with zero covariance rows
+(`rand_with_eps`).
 
 The reverse-mode gradient is a torch.autograd.Function whose backward re-runs
 the plain PyTorch blocked schedule under autograd (the reference's custom_vjp
@@ -62,15 +70,17 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from ..config import LARGE_VAR, POSTERIOR_JITTER
+from ..config import LARGE_VAR, POSTERIOR_JITTER, RAND_JITTER
 from ..models.emissions import ScalarEmissions
 from ..models.gauss_markov import GaussMarkov
 from ..models.lgssm import LGSSM
 from ..models.missings import fill_in_missings, volume_compensation
+from ..utils import psd
 from ..utils.fill import is_fill, tmaterialize
 from ..utils.gaussian import Gaussian
 from ..utils.psd import symmetrize
 from . import kernels, lanes
+from .lgc import conditional_rand_scalar
 
 
 
@@ -124,41 +134,30 @@ _LOG2PI = math.log(2.0 * math.pi)
 _PHASE2_FUSED_MAX_B = 2048
 
 
-def _supports(model) -> bool:
-    return model.trans.forward
-
-
 def _pallas_supported(model) -> bool:
     """The models the constant-parameter kernels take (the reference's
-    Pallas scope): Fill parameters, scalar emissions, D <= 3."""
+    Pallas scope): forward-ordered, Fill transitions, scalar emissions with a
+    Fill H, D <= 3 (a per-step h moves into y)."""
     t = model.trans
     return (
-        _streamed_supported(model)
+        t.forward
+        and _streamed_supported(model)
         and all(is_fill(leaf) for leaf in (t.As, t.offs, t.Qs))
     )
 
 
 def _streamed_supported(model) -> bool:
-    """The models the filtering kernels take in one of their two forms:
-    forward-ordered, scalar emissions with Fill H and h, D <= 3; (A, a, Q)
-    Fill or per step."""
+    """The models the filtering kernels take in one of their two forms, once
+    in forward order (`_forward_view`): scalar emissions with a Fill H,
+    D <= 3; (A, a, Q) Fill or per step; h Fill or per step (it moves into
+    y, `_kernel_emission`)."""
     e = model.emis
-    return (
-        _supports(model)
-        and isinstance(e, ScalarEmissions)
-        and model.latent_dim <= 3
-        and is_fill(e.H) and is_fill(e.h)
-    )
+    return isinstance(e, ScalarEmissions) and model.latent_dim <= 3 and is_fill(e.H)
 
 
 def _check_general_model(model):
     """Raise NotImplementedError for a model no block schedule of the port
     takes."""
-    if not _supports(model):
-        raise NotImplementedError(
-            "reverse-ordered models need the associative engine "
-            "(ROADMAP Queue 1 items 6 and 10)"
-        )
     if not isinstance(model.emis, ScalarEmissions):
         raise NotImplementedError(
             "vector emissions (Dense, Large, Bottleneck) are not ported yet "
@@ -288,6 +287,32 @@ class _LogpdfFused(torch.autograd.Function):
         return (None, *(next(grads) if n else None for n in needs))
 
 
+def _forward_view(model, y=None):
+    """(model, y) of a forward-ordered model as they are; a reverse-ordered
+    model as the forward-ordered model of its iteration view, which filters
+    the same steps in the same order: its transitions shifted by one
+    (`_iteration_view`, per-step), its emissions and y flipped, the same x0.
+    Step i of the view is step N-1-i of the model."""
+    if model.trans.forward:
+        return model, y
+    F, c, Q = _iteration_view(model)
+    e = model.emis
+    flip = lambda leaf: leaf if is_fill(leaf) else leaf.flip(0)
+    view = LGSSM(GaussMarkov(As=F, offs=c, Qs=Q, x0=model.trans.x0, forward=True),
+                 ScalarEmissions(H=flip(e.H), h=flip(e.h), s=flip(e.s)))
+    return view, None if y is None else y.flip(0)
+
+
+def _kernel_emission(model, y):
+    """(H, h, y) as the filtering kernels read them: the Fill H and h, or,
+    for a per-step h, h = 0 and the observations y - h_t (the same
+    innovation y - H m - h; in float32 the subtraction rounds once)."""
+    e = model.emis
+    if is_fill(e.h):
+        return e.H.value, e.h.value, y
+    return e.H.value, e.h.new_zeros(()), y - e.h
+
+
 def _fused_leaves(model, y):
     """(A, a, Q, H, h, s, y, m0, P0): the Fill values of a constant model,
     the (N, ...) transitions of a per-step one."""
@@ -297,17 +322,20 @@ def _fused_leaves(model, y):
         A, a, Q = t.As.value, t.offs.value, t.Qs.value
     else:
         A, a, Q = (tmaterialize(leaf) for leaf in (t.As, t.offs, t.Qs))
-    return (A, a, Q, e.H.value, e.h.value, s, y, t.x0.mean, t.x0.cov)
+    H, h, y = _kernel_emission(model, y)
+    return (A, a, Q, H, h, s, y, t.x0.mean, t.x0.cov)
 
 
 def logpdf(model, y, *, n_blocks=None, fused=None):
-    """Block-parallel logpdf. `fused=None` runs the kernels when the model's
+    """Block-parallel logpdf, either ordering (a reverse-ordered model
+    through `_forward_view`). `fused=None` runs the kernels when the model's
     tensors are on a CUDA device (the reference's `pallas=None` picks Pallas
     on the TPU); `fused=False` runs the plain PyTorch blocked schedule: for
     Fill models K1-K3's plain versions, for per-step (A, a, Q) the lane path
     (the reference's `_logpdf_xla` with `pallas=False`). Models the kernels
-    do not take (D > 3, per-step H or h) run the matrix path."""
+    do not take (D > 3, per-step H) run the matrix path."""
     _check_general_model(model)
+    model, y = _forward_view(model, y)
     if not _streamed_supported(model):
         return _logpdf_matrix(model, y, _blocks(model, n_blocks, False))
     fused = _use_kernels(model, fused)
@@ -320,8 +348,9 @@ def logpdf(model, y, *, n_blocks=None, fused=None):
 
 def _fwd_grad_supported(model, model_tangents) -> bool:
     """The models `logpdf_fwd_grad` takes: a primal the constant-parameter
-    kernels take, and tangents of Fill leaves, the noise tangent included."""
-    if not _pallas_supported(model):
+    kernels take with a Fill h, and tangents of Fill leaves, the noise
+    tangent included."""
+    if not (_pallas_supported(model) and is_fill(model.emis.h)):
         return False
     for t in model_tangents:
         tr, e = t.trans, t.emis
@@ -606,16 +635,16 @@ def _filter_state_comps(model, y, n_blocks, fused):
     t, e = model.trans, model.emis
     D, N = model.latent_dim, len(model)
     B = _blocks(model, n_blocks, use or _pallas_supported(model))
+    H, h, y = _kernel_emission(model, y)
     y_main, s_main, _ = _blocked_streams(y, tmaterialize(e.s), B)
     if _pallas_supported(model):
         phases = KERNEL_STATE_PHASES if use else PLAIN_STATE_PHASES
         rows = {}
-        packed = kernels.pack_params(t.As.value, t.offs.value, t.Qs.value, e.H.value,
-                                     e.h.value, model.dtype)
+        packed = kernels.pack_params(t.As.value, t.offs.value, t.Qs.value, H, h, model.dtype)
     else:
         phases = STREAMED_STATE_PHASES if use else PLAIN_STATE_PHASES
         rows = dict(trans_rows=_rows_blocked(*_iteration_view(model), B))
-        packed = _emission_params(e.H.value, e.h.value, model.dtype)
+        packed = _emission_params(H, h, model.dtype)
     comps, _ = phases.phase1_aggregate(y_main, s_main, packed, D, **rows)
     starts = phases.phase2_starts(comps, t.x0.mean, symmetrize(t.x0.cov), D)
     return _unblock_states(phases.phase3_states(y_main, s_main, packed, starts, D, **rows), N)
@@ -623,11 +652,16 @@ def _filter_state_comps(model, y, n_blocks, fused):
 
 def filter_(model, y, *, n_blocks=None, fused=None) -> Gaussian:
     """Filtering distributions at every step on the blocked schedule; the
-    padding steps observe nothing, so the real steps' states are exact."""
+    padding steps observe nothing, so the real steps' states are exact. A
+    reverse-ordered model's are those of its iteration view (`_forward_view`),
+    flipped back to time order."""
     _check_general_model(model)
-    if not _streamed_supported(model):
-        return _filter_matrix(model, y, _blocks(model, n_blocks, False))
-    return _comps_to_gaussian(_filter_state_comps(model, y, n_blocks, fused), model.latent_dim)
+    view, y = _forward_view(model, y)
+    if not _streamed_supported(view):
+        xf = _filter_matrix(view, y, _blocks(view, n_blocks, False))
+    else:
+        xf = _comps_to_gaussian(_filter_state_comps(view, y, n_blocks, fused), view.latent_dim)
+    return xf if model.trans.forward else Gaussian(xf.mean.flip(0), xf.cov.flip(0))
 
 
 def _mat_to_array(M):
@@ -642,8 +676,14 @@ def posterior(model, y, *, n_blocks=None, fused=None):
     inverted in plain tensor ops on (N,) component vectors, with the
     adjugate inverse of ops/lanes.py and POSTERIOR_JITTER (the reference's
     `_posterior_pallas`). Otherwise the matrix filter and the batched
-    Cholesky inversion of models.lgssm (the reference's `block.posterior`)."""
+    Cholesky inversion of models.lgssm (the reference's `block.posterior`).
+    A reverse-ordered model's posterior runs the sequential engine only (the
+    reference's block engine takes its associative one there)."""
     _check_general_model(model)
+    if not model.trans.forward:
+        raise NotImplementedError(
+            "the block posterior of a reverse-ordered model needs the associative "
+            "engine (ROADMAP Queue 1 item 10); engine=\"sequential\" takes it")
     if not _streamed_supported(model):
         return _reversed_model_matrix(
             model, _filter_matrix(model, y, _blocks(model, n_blocks, False)))
@@ -657,18 +697,21 @@ def _components(X, D):
 
 def _reversed_model(model, xf):
     """The reverse-ordered posterior LGSSM from the (SD, N) filtering states,
-    the transitions constant (0-dim components) or per step ((N,) ones)."""
+    the transitions constant (0-dim components) or per step ((N,) ones).
+    Computed in float64 whatever the model's dtype, then stored in it: Q_rev
+    is a difference of nearly equal covariances (at a merged step of dt = 0,
+    of equal ones), which float32 cannot form."""
     D = model.latent_dim
     t, x0 = model.trans, model.trans.x0
-    mf, Pf = kernels._state_rows_to_tuple(xf.unbind(0), D)
+    mf, Pf = kernels._state_rows_to_tuple(xf.double().unbind(0), D)
 
     def prev(comp, init):  # the state before each step: x0, then the filtering states
         return torch.cat([init.reshape(1), comp[:-1]])
 
-    x0P = symmetrize(x0.cov)
-    m_prev = tuple(prev(mf[i], x0.mean[i]) for i in range(D))
+    x0P = symmetrize(x0.cov).double()
+    m_prev = tuple(prev(mf[i], x0.mean[i].double()) for i in range(D))
     P_prev = tuple(tuple(prev(Pf[r][c], x0P[r, c]) for c in range(D)) for r in range(D))
-    value = lambda leaf: leaf.value if is_fill(leaf) else leaf
+    value = lambda leaf: (leaf.value if is_fill(leaf) else leaf).double()
     A_c, Q_c = _components(value(t.As), D), _components(value(t.Qs), D)
     a_c = tuple(value(t.offs)[..., i] for i in range(D))
     mp = lanes.vadd(lanes.mv(A_c, m_prev), a_c)
@@ -681,23 +724,25 @@ def _reversed_model(model, xf):
     Q_rev = lanes.msub(P_prev, lanes.mTm(G, lanes.mm(Ppj, G)))
 
     x_last = Gaussian(xf[:D, -1], xf[D:, -1].reshape(D, D))
-    trans = GaussMarkov(As=_mat_to_array(A_rev), offs=torch.stack(a_rev, dim=-1),
-                        Qs=_mat_to_array(Q_rev), x0=x_last, forward=False)
+    narrow = lambda x: x.to(model.dtype)
+    trans = GaussMarkov(As=narrow(_mat_to_array(A_rev)), offs=narrow(torch.stack(a_rev, dim=-1)),
+                        Qs=narrow(_mat_to_array(Q_rev)), x0=x_last, forward=False)
     return LGSSM(trans, model.emis)
 
 
 def _reversed_model_matrix(model, xf: Gaussian):
     """The reverse-ordered posterior LGSSM from the stacked filtering states:
     the predicted state of every step and `models.lgssm._invert_dynamics`,
-    batched over the N steps."""
+    batched over the N steps, in float64 as `_reversed_model` computes."""
     from ..models.lgssm import _invert_dynamics
 
     t, x0 = model.trans, model.trans.x0
-    prev = Gaussian(torch.cat([x0.mean[None].to(xf.mean), xf.mean[:-1]]),
-                    torch.cat([symmetrize(x0.cov)[None].to(xf.cov), xf.cov[:-1]]))
-    F, c, Q = (tmaterialize(leaf) for leaf in (t.As, t.offs, t.Qs))
+    wide = lambda x: x.to(torch.float64)
+    prev = Gaussian(wide(torch.cat([x0.mean[None].to(xf.mean), xf.mean[:-1]])),
+                    wide(torch.cat([symmetrize(x0.cov)[None].to(xf.cov), xf.cov[:-1]])))
+    F, c, Q = (wide(tmaterialize(leaf)) for leaf in (t.As, t.offs, t.Qs))
     xp = Gaussian(_mv(F, prev.mean) + c, symmetrize(F @ symmetrize(prev.cov) @ _mT(F) + Q))
-    A_rev, a_rev, Q_rev = _invert_dynamics(prev, xp, F)
+    A_rev, a_rev, Q_rev = (x.to(model.dtype) for x in _invert_dynamics(prev, xp, F))
     trans = GaussMarkov(As=A_rev, offs=a_rev, Qs=Q_rev,
                         x0=Gaussian(xf.mean[-1], xf.cov[-1]), forward=False)
     return LGSSM(trans, model.emis)
@@ -776,16 +821,71 @@ def affine_prefix_states(F, c, Q, x0_mean, x0_cov, *, n_blocks=None) -> Gaussian
                     torch.stack(Ps, 1).reshape(-1, D, D)[:N])
 
 
+def _affine_state_rows(params, x0_mean, x0_cov, D, N, use_kernels):
+    """(SD, N) states in iteration order from (KT, L, B) rows and the
+    initial state, on K8 -> K9 -> K10 (their plain versions when
+    `use_kernels` is false)."""
+    phases = KERNEL_AFFINE_PHASES if use_kernels else PLAIN_AFFINE_PHASES
+    agg, chunk_aggs = phases.affine_phase1(params, D)
+    starts = phases.affine_phase2_starts(agg, x0_mean, x0_cov, D)
+    return _unblock_states(phases.affine_phase3_states(params, starts, D, chunk_aggs), N)
+
+
 def _affine_states(model, params, fused):
     """(SD, N) states in time order from the model's (KT, L, B) iteration
     rows, on K8 -> K9 -> K10."""
-    phases = KERNEL_AFFINE_PHASES if _use_kernels(model, fused) else PLAIN_AFFINE_PHASES
-    D, x0 = model.latent_dim, model.trans.x0
-    agg, chunk_aggs = phases.affine_phase1(params, D)
-    starts = phases.affine_phase2_starts(agg, x0.mean, symmetrize(x0.cov), D)
-    comps = _unblock_states(phases.affine_phase3_states(params, starts, D, chunk_aggs),
-                            len(model))
+    x0 = model.trans.x0
+    comps = _affine_state_rows(params, x0.mean, symmetrize(x0.cov), model.latent_dim,
+                               len(model), _use_kernels(model, fused))
     return comps if model.trans.forward else comps.flip(1)
+
+
+def _emissions_iteration(model):
+    """The emission leaves (H, h, s) in iteration order: a Fill by its
+    value, a per-step leaf flipped for a reverse-ordered model."""
+    e = model.emis
+    leaf = lambda x: x.value if is_fill(x) else (x if model.trans.forward else x.flip(0))
+    return leaf(e.H), leaf(e.h), leaf(e.s)
+
+
+def rand_with_eps(model, eps_t, eps_e, x_init, *, n_blocks=None):
+    """The joint sample of the observations that the standard normals eps_t
+    (N, D), eps_e (N,) and the initial state x_init give (the reference's
+    `block.rand_with_eps`): the iteration view's maps x -> F x + b with
+    b = c + chol(Q + RAND_JITTER I) eps_t (for a reverse-ordered model eps_t
+    flipped and shifted by one with a zero first, as its transitions are),
+    composed from x_init, then y = H x + h + sqrt(s) eps_e. For D <= 3 the
+    states are the mean rows of K8 -> K9 -> K10 on the (KT, L, B) rows of
+    (F, b, 0) from (x_init, 0): the covariance rows stay exactly zero and
+    are dropped. For D > 3 the matrix `affine_prefix_states`."""
+    _check_general_model(model)
+    forward = model.trans.forward
+    F, b = _sample_maps(model, eps_t)
+    eps_e = eps_e if forward else eps_e.flip(0)
+    N, D = len(model), model.latent_dim
+    zero_cov = x_init.new_zeros(D, D)
+    if _marginals_supported(model):
+        B = _blocks(model, n_blocks, True)
+        rows = _rows_blocked(F, b, torch.zeros_like(F), B)
+        xs = _affine_state_rows(rows, x_init, zero_cov, D, N, _use_kernels(model, None))[:D].T
+    else:
+        xs = affine_prefix_states(F, b, torch.zeros_like(F), x_init, zero_cov,
+                                  n_blocks=n_blocks).mean
+    ys = conditional_rand_scalar(eps_e, xs, *_emissions_iteration(model))
+    return ys if forward else ys.flip(0)
+
+
+def _sample_maps(model, eps_t):
+    """(F, b), each (N, ...): the iteration view's maps x -> F x + b of the
+    sample that the normals eps_t (N, D, indexed by time) give,
+    b = c + chol(Q + RAND_JITTER I) eps_t; a reverse-ordered model's eps_t
+    flipped and shifted by one with a zero first, as its transitions are.
+    The factor is psd.cholesky's, as in the sequential engine's
+    `lgc.conditional_rand`: a Q that is not positive definite raises."""
+    F, c, Q = _iteration_view(model)
+    if not model.trans.forward:
+        eps_t = torch.cat([torch.zeros_like(eps_t[:1]), eps_t.flip(0)[:-1]])
+    return F, c + _mv(psd.cholesky(psd.add_jitter(symmetrize(Q), RAND_JITTER)), eps_t)
 
 
 def latent_marginals(model, *, n_blocks=None, fused=None) -> Gaussian:

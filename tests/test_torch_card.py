@@ -596,3 +596,197 @@ def test_posterior_covariance_is_refused_on_card(cuda_device):
     fx = to_sde(GP(Matern52()))(tt.RegularSpacing(0.0, 0.1, 16), 0.1)
     with pytest.raises(NotImplementedError, match="Intentionally not implemented"):
         gpost.cov(gpost.posterior(fx, np.zeros(16))(fx.x))
+
+
+# ---------------------------------------------------------------------------
+# Composite models, sampling, the posterior's logpdf
+# ---------------------------------------------------------------------------
+
+def _composite_gp(name, s=None):
+    """sum3: a Sum of a scaled, stretched Matern-1/2 and a stretched
+    Matern-3/2 (D = 3); prod2: a Product of Matern-1/2 and Matern-3/2
+    (D = 2); sum3_mean: sum3 with a mean function of the times. `s` are the
+    hyperparameters as tensors (scales and stretches), for a gradient."""
+    from temporalgps_torch.gp import CustomMean, Matern12, Matern32
+
+    if name == "prod2":
+        sc1, st1, st2 = (0.8, 2.0, 0.5) if s is None else s
+        return GP((sc1 * Matern12()).stretch(st1) * Matern32().stretch(st2))
+    s1, st1, s2, st2 = (0.5, 2.0, 1.0, 0.5) if s is None else s
+    k = (s1 * Matern12()).stretch(st1) + (s2 * Matern32()).stretch(st2)
+    return GP(k, CustomMean(lambda t: 0.3 * torch.sin(t))) if name == "sum3_mean" else GP(k)
+
+
+def _composite_calls(name, device, N=3001):
+    """(lml, value, gradient, posterior means, posterior variances) of the
+    composite model, float64, on `device` (the block engine: the kernels on
+    the card, their plain versions on the CPU); and the launch counts of each
+    of the three calls."""
+    y = np.random.default_rng(6).standard_normal(N)
+    y[13] = np.nan
+    x = tt.RegularSpacing(0.0, 0.01, N)
+    fx = to_sde(_composite_gp(name), ArrayStorage(torch.float64), device=device)(x, 0.2)
+    counts = []
+    tk.reset_launch_counts()
+    lml = tt.logpdf(fx, y, engine="block").item()
+    counts.append(tk.launch_counts())
+
+    def model_fn(p):
+        p = torch.exp(p)
+        return build_lgssm(to_sde(_composite_gp(name, p[:-1]), device=device)(x, p[-1]))
+
+    k = 4 if name == "prod2" else 5
+    p0 = torch.full((k,), -0.1, dtype=torch.float64, device=device)
+    tk.reset_launch_counts()
+    value, grad = tt.value_and_grad_fwd_lgssm(model_fn, y)(p0)
+    counts.append(tk.launch_counts())
+    tk.reset_launch_counts()
+    m, v = tpost.marginals(tpost.posterior(fx, y)(x, 0.1), engine="block")
+    counts.append(tk.launch_counts())
+    out = (np.array([lml]), np.array([value.item()]), grad.cpu().numpy(), m.cpu().numpy(),
+           v.cpu().numpy())
+    return out, counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["sum3", "prod2", "sum3_mean"])
+def test_composite_models_on_card_launch_the_kernels_and_match_cpu(cuda_device, name):
+    """A Sum, a Product and a Sum with a mean function (its per-step h moved
+    into y) on RegularSpacing: logpdf launches K1-K3, the forward-mode
+    gradient (k = 5 or 4 hyperparameters) K4-K6, and the posterior marginals
+    K1, K2, K7 and K8-K10; each agrees with the CPU port, float64: 1e-10,
+    the gradient 1e-8."""
+    got, counts = _composite_calls(name, cuda_device)
+    value_kernels = ("phase1_aggregate", "phase2_starts", "phase3_lml")
+    assert [counts[0][n] for n in value_kernels] == [1, 1, 1]
+    jvp_kernels = ("phase1_jvp", "phase2_jvp_starts", "phase3_jvp_lml")
+    if name == "sum3_mean":  # a per-step h: the general schedule's forward mode
+        assert all(counts[1][n] == 0 for n in jvp_kernels)
+    else:
+        assert [counts[1][n] for n in jvp_kernels] == [1, 1, 1]
+    assert all(counts[2][n] == 1 for n in _STATE_KERNELS) and counts[2]["phase3_lml"] == 0
+    want, _ = _composite_calls(name, "cpu")
+    for i, (g, w) in enumerate(zip(got, want)):
+        rtol = 1e-8 if i == 2 else 1e-10
+        np.testing.assert_allclose(g, w, rtol=rtol, atol=rtol * np.abs(w).max())
+
+
+def _eps(N, D, seed=8):
+    rng = np.random.default_rng(seed)
+    return (torch.as_tensor(rng.standard_normal((N, D))), torch.as_tensor(rng.standard_normal(N)),
+            torch.as_tensor(rng.standard_normal(D)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_rand_on_card_launches_the_affine_kernels_once_and_matches_cpu(cuda_device, dtype):
+    """The prior rand of a Sum with a mean function: K8, K9 and K10 once
+    each, a seeded card generator gives the same draws twice, `n` stacks
+    draws; rand_with_eps on the same normals agrees with the CPU port
+    (float64 1e-10, float32 1e-4 of the largest value)."""
+    N = 4001
+    x = tt.RegularSpacing(0.0, 0.01, N)
+    make = lambda device: to_sde(_composite_gp("sum3_mean"), ArrayStorage(dtype),
+                                 device=device)(x, 0.1)
+    fx = make(cuda_device)
+    gen = lambda: torch.Generator(device=cuda_device).manual_seed(3)
+    tk.reset_launch_counts()
+    draw = tt.rand(gen(), fx)
+    counts = tk.launch_counts()
+    assert [counts[n] for n in _STATE_KERNELS[3:]] == [1, 1, 1]
+    assert sum(counts.values()) == 3
+    assert draw.shape == (N,) and draw.dtype == dtype and bool(torch.isfinite(draw).all())
+    assert torch.equal(draw, tt.rand(gen(), fx))
+    assert tt.rand(gen(), fx, n=3).shape == (3, N)
+    eps = _eps(N, 3)
+    got, want = (tlgssm.rand_with_eps(build_lgssm(make(dev)), *(e.to(dev, dtype) for e in eps),
+                                      engine="block")
+                 for dev in (cuda_device, "cpu"))
+    rtol = 1e-10 if dtype == torch.float64 else 1e-4
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=rtol,
+                               atol=rtol * want.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("at", ["training", "new"])
+def test_posterior_logpdf_and_rand_on_card_match_cpu(cuda_device, at):
+    """The posterior of a Sum, float64, at the training inputs (merged with
+    themselves) and at new times: its logpdf runs the reverse model's
+    filter on the streamed K1, K2 and the streamed K3 (not the constant K1,
+    K3), its rand the streamed K1, K2, the streamed K7, then K8-K10. The
+    logpdf agrees with the CPU port within 1e-10; the sample on the same
+    normals within 1e-8 of its largest value: at short steps the reverse
+    model's Q is a difference of nearly equal covariances, which one
+    rounding of the filtering states moves by ~1e-6 of itself, and the
+    sample takes its square root."""
+    N = 2000
+    y = np.random.default_rng(9).standard_normal(N)
+    y[[0, 17, N - 1]] = np.nan
+    x = tt.RegularSpacing(0.0, 0.01, N)
+    x_pr = (x.to_array().numpy() if at == "training"
+            else np.sort(np.random.default_rng(10).uniform(-0.5, 21.0, 300)))
+    y_pr = np.random.default_rng(11).standard_normal(len(x_pr))
+
+    def run(device):
+        # The block engine on both devices: the kernels on the card, their
+        # plain versions on the CPU. (The sequential engine's posterior
+        # inverts the dynamics by a Cholesky solve where the block engine
+        # takes the adjugate: Q_rev, a difference of nearly equal
+        # covariances at short steps, then differs in its last digits, and
+        # the samples, through chol(Q_rev + 1e-9 I), by ~1e-9.)
+        fx = to_sde(_composite_gp("sum3"), ArrayStorage(torch.float64), device=device)(x, 0.2)
+        fxp = tpost.posterior(fx, y)(torch.as_tensor(x_pr, device=device), 0.1)
+        tk.reset_launch_counts()
+        lml = tpost.logpdf(fxp, y_pr, engine="block").item()
+        counts = tk.launch_counts()
+        post, idx = tpost._merged_posterior(fxp, "block")
+        eps = _eps(len(post), 3)
+        sample = tlgssm.rand_with_eps(post, *(e.to(device) for e in eps), engine="block")[idx]
+        return lml, sample.cpu().numpy(), counts
+
+    lml, sample, counts = run(cuda_device)
+    # The merged posterior's filter, then the reverse model's.
+    assert counts["phase1_aggregate_streamed"] == counts["phase2_starts"] == 2
+    assert counts["phase3_states_streamed"] == counts["phase3_lml_streamed"] == 1
+    assert counts["phase1_aggregate"] == counts["phase3_lml"] == counts["phase3_states"] == 0
+    lml_cpu, sample_cpu, _ = run("cpu")
+    np.testing.assert_allclose(lml, lml_cpu, rtol=1e-10)
+    np.testing.assert_allclose(sample, sample_cpu, rtol=1e-8,
+                               atol=1e-8 * np.abs(sample_cpu).max())
+    tk.reset_launch_counts()
+    fx = to_sde(_composite_gp("sum3"), device=cuda_device)(x, 0.2)
+    draw = tpost.rand(torch.Generator(device=cuda_device).manual_seed(1),
+                      tpost.posterior(fx, y)(torch.as_tensor(x_pr, device=cuda_device), 0.1))
+    counts = tk.launch_counts()
+    assert draw.shape == (len(x_pr),) and bool(torch.isfinite(draw).all())
+    assert [counts[n] for n in _STATE_KERNELS[3:]] == [1, 1, 1]
+
+
+@pytest.mark.cuda
+def test_posterior_of_a_reverse_ordered_model_takes_the_sequential_engine(cuda_device):
+    """lgssm.posterior with engine=None of a reverse-ordered model (a
+    posterior LGSSM conditioned again) on the card: the block posterior
+    takes forward-ordered models only, so None picks the sequential engine
+    there, and the smoother agrees with the CPU's within 1e-10 of each
+    leaf's largest entry (the first posterior on the kernels, on the CPU on
+    their plain versions)."""
+    N = 300
+    rng = np.random.default_rng(13)
+    y, y2 = rng.standard_normal(N), rng.standard_normal(N)
+    x = tt.RegularSpacing(0.0, 0.01, N)
+
+    def run(device):
+        fx = to_sde(_composite_gp("sum3"), ArrayStorage(torch.float64), device=device)(x, 0.2)
+        post = tlgssm.posterior(build_lgssm(fx), torch.as_tensor(y, device=device),
+                                engine="block")
+        assert not post.trans.forward
+        again = tlgssm.posterior(post, torch.as_tensor(y2, device=device))
+        t = again.trans
+        return [v.cpu() for v in (t.As, t.offs, t.Qs, t.x0.mean, t.x0.cov)], t.forward
+
+    got, forward = run(cuda_device)
+    assert forward
+    want, _ = run("cpu")
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0,
+                                   atol=1e-10 * w.abs().max().item())

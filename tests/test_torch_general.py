@@ -7,7 +7,8 @@ D <= 3, the matrix path for D > 3) against the reference's
 Inputs come from numpy and go through both packages: N = 37 irregular times
 cut into B = 4 blocks (three padding steps), one NaN, per-point noise. The
 D = 3 model is a Matern-5/2; the D = 6 model a sum of two Matern-5/2s, built
-by the reference (the port has no Sum yet) and carried across as numpy.
+by the reference and carried across as numpy (the schedule held apart from the
+kernel compiler, which tests/test_torch_composite.py holds).
 Tolerances: 1e-10 relative for the lml, filtering states, posterior leaves
 and latent marginals (the same algebra in the same association); 1e-9 for
 posterior marginals at new times; 1e-8 for gradients (two autodiff systems
