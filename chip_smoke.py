@@ -183,15 +183,48 @@ Phases; any failure exits non-zero without the final result line:
      Every call timed by CUDA events (median of 5 batches, 3 for the new
      times); each of sum-c2's seven calls under torch.profiler (device busy
      by kernel, idle share).
+ 16. The Fisher gradient, this slice's main path, through the public entry
+     point:
+       vg = value_and_grad_fisher(model_fn, y, engine="block"); vg(p0)
+     for c2 (phase 6's model_fn, k = 3) at N = 1M, float32 and float64, each
+     call with the counts set to 0 before it and read after it, held to
+     exactly FISHER_LAUNCHES (K1-K3 for the value; K1, K2, K7 (the filter),
+     K8-K10 (the posterior's latent marginals) in the backward); then with engine="parallel" (K1-K3 only) and
+     sum-c2's k = 5 gradient with engine="block". Gates against the forward
+     mode (value_and_grad_fwd_lgssm, K4-K6) on the same model_fn: float64
+     within 1e-6 of each component plus 1e-8 of the largest, float32 within
+     1e-3 of the float64 gradient plus 1e-6 of the largest (phase 6's
+     gate); the value equal to logpdf's (1e-12, the same K1-K3 call);
+     float64 at N = 20k on the card within 1e-10 of the CPU port and within
+     1e-6 of the sequential engine's autograd. Every kernel the call
+     launches is held against its plain version at the inputs the call
+     hands it (the shapes of phases 3 and 9, both dtypes, the gates of
+     phase 3): K1-K3 on its streams, K7 on them, K8-K10 on the rows of its
+     exact (jitter-free) posterior. Each call timed by CUDA events (median
+     of 5 batches of 1) beside the forward mode's; one block call under
+     torch.profiler (device busy by kernel, idle share) with host stages.
+ 17. The other engines and the repaired matrix path at full width: c2 at N =
+     1M, float32 and float64, engine="parallel" logpdf and posterior
+     marginals and engine="sqrt" logpdf (no kernel launched), and the block
+     logpdf with phase2="sqrt" (K1 and K3 around the square-root phase 2,
+     no K2) (float64 within
+     1e-9 of the block engine, float32 within 1e-3 of float64, relative to
+     the largest entry); c2's posterior (reverse-ordered) conditioned again
+     with engine="block" (the associative engine, no kernel), at N = 20k in
+     float64 within 1e-9 of the CPU's sequential engine; the D = 5 sum at
+     N = 100k on the matrix path, float32 posterior means within 1e-3 of
+     float64, and float64 at N = 2k within 1e-10 of the CPU's sequential
+     engine. Each call timed by CUDA events (median of 3 batches of 1).
 
 The third line from the end is the card's name and power limit, the second
 {"kernels": [...]} with the float32 numbers of all thirteen kernels (the
-ten and the streamed forms of K1, K3, K7; launches from phase 15's main
-path, the rest from phases 7, 11 and 13), the last
-{"ok": true, "device": {...}}.
+ten and the streamed forms of K1, K3, K7; launches the totals of phase 15's
+and phase 16's float32 main paths, the rest from phases 7, 11 and 13), the
+last {"ok": true, "device": {...}}.
 """
 
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -299,6 +332,15 @@ COMPOSITE_LAUNCHES = {
                          "phase3_states_streamed": 1, "phase3_lml_streamed": 1},
 }
 COMPOSITE_LAUNCHES["posterior_logpdf_new_times"] = COMPOSITE_LAUNCHES["posterior_logpdf"]
+# The Fisher gradient's launches in one value_and_grad_fisher(..., engine="block")
+# call (phase 16): the value on K1-K3; the backward's filter on K1, K2, K7,
+# the latent marginals of the posterior inverted from it on K8-K10.
+FISHER_LAUNCHES = {"phase1_aggregate": 2, "phase2_starts": 2, "phase3_lml": 1,
+                   "phase3_states": 1, "affine_phase1": 1, "affine_phase2_starts": 1,
+                   "affine_phase3_states": 1}
+# engine="parallel": the value on K1-K3, the backward in tensor ops.
+FISHER_PARALLEL_LAUNCHES = COMPOSITE_LAUNCHES["logpdf"]
+FISHER_KERNELS = VALUE_KERNELS + STATE_KERNELS
 
 # Ragged (L, B) of the chunked kernels (K1, K3, K4, K6, K7, K8, K10) beside
 # the main shapes: L not a multiple of the chunk counts, and fewer steps than
@@ -470,6 +512,7 @@ def main():
                                                    posterior_with_missings,
                                                    replace_observation_noise_cov,
                                                    transform_model_and_obs)
+    from temporalgps_torch.models import lgssm as tlgssm
     from temporalgps_torch.ops import block, kernels
     from temporalgps_torch.utils.fill import is_fill
     from temporalgps_torch.utils.psd import symmetrize
@@ -827,6 +870,7 @@ def main():
                         and all(us > 0 for us in summary["kernel_us"].values()),
                         f"{name}: the profiler saw K1-K3 on the device")
 
+    @functools.lru_cache(maxsize=None)
     def autograd_grad(device, **kw):
         """Reverse-mode gradient of the float64 lml at N = 20k."""
         p = p0.detach().to(device).requires_grad_()
@@ -1334,7 +1378,7 @@ def main():
             build_ms, model = stage_ms(lambda: build_lgssm(fx))
             missing_ms, (model_f, y_f, _) = stage_ms(lambda: transform_model_and_obs(model, y))
             filter_ms, xf = stage_ms(lambda: block._filter_state_comps(model_f, y_f, None, None))
-            reversal_ms, post = stage_ms(lambda: block._reversed_model(model_f, xf))
+            reversal_ms, (post, _) = stage_ms(lambda: block._reversed_model(model_f, xf))
             post = replace_observation_noise_cov(post, fx.noise.value.expand(N_MAIN))
             rows_ms, params = stage_ms(lambda: block._affine_comps_iteration(post, B))
             affine_ms, comps = stage_ms(lambda: block._affine_states(post, params, None))
@@ -1509,7 +1553,7 @@ def main():
             lambda: transform_model_and_obs(model, y_all), reps=5)
         filter_ms, xf = stage_ms(lambda: block._filter_state_comps(model_f, y_f, None, None),
                                  reps=5)
-        reversal_ms, post = stage_ms(lambda: block._reversed_model(model_f, xf), reps=5)
+        reversal_ms, (post, _) = stage_ms(lambda: block._reversed_model(model_f, xf), reps=5)
         marg_ms, _ = stage_ms(lambda: tlgssm.marginals_diag(post), reps=5)
         return {"host_merge_and_sort": merge_ms, "build_lgssm": build_ms,
                 "missing_data": missing_ms, "K1s_K2_K7s_filter_states": filter_ms,
@@ -1615,11 +1659,10 @@ def main():
                     and finite(lat6["float64"].mean, lat6["float64"].cov),
                     f"D = 6 at N={N_D6}: the matrix path (no kernel launched), finite; float32 "
                     f"vs float64 lml rel={r6:.3e}, latent {rec['d6']['latent_f32_vs_f64_rel']}")
-        # The matrix path adds the reference's jitter (1e-10 in float64) to
-        # each combine's covariance (block._minv), so it is held to the same
-        # path on the CPU (held to the reference there by
-        # tests/test_torch_general.py); its distance to the sequential
-        # engine is recorded.
+        # The matrix path is held to the same path on the CPU (held to the
+        # reference there by tests/test_torch_general.py); its distance to
+        # the sequential engine is recorded (phase 17 gates the D = 5 sum's
+        # on it).
         small_k, small_c = (make_d6(torch.float64, N_D6_SMALL, dev) for dev in (DEVICE, "cpu"))
         y6s = torch.as_tensor(y_np[:N_D6_SMALL])
 
@@ -1967,6 +2010,269 @@ def main():
                             and all(us > 0 for us in summary["kernel_us"].values()),
                             f"{name} sum-c2 {cname}: the profiler saw its kernels")
 
+    # ---- 16. the Fisher gradient: this slice's main path -----------------
+    def fisher_model(name, model_fn=None, p=None):
+        """(model, y) as value_and_grad_fisher hands them to the block engine:
+        c2's model_fn(p0) (or the given one's), the missing observation
+        filled."""
+        model = (model_fn or make_model_fn(dtypes[name], N_MAIN, DEVICE))(p0 if p is None else p)
+        model_f, y_f, _ = transform_model_and_obs(model, y_dev[name])
+        return model_f, y_f
+
+    def compare_fisher_kernels(name):
+        """Every kernel the Fisher call launches against its plain version at
+        the inputs the call hands it (the shapes of phases 3 and 9; c2's
+        model_fn(p0), whose noise is exp(log 0.1)): K1-K3 as phase 3 holds
+        them on the forward's streams; K7 on the same streams; K8-K10 on the
+        affine rows of the exact (jitter-free) posterior that the backward
+        takes."""
+        rows = lambda t: t.reshape(D + D * D, -1)
+        model_f, y_f = fisher_model(name)
+        A, a, Q, H, h, s, y, m0, P0 = block._fused_leaves(model_f, y_f)
+        B = block._pallas_blocks(N_MAIN)
+        y_main, s_main, _ = block._blocked_streams(y, s, B)
+        packed = kernels.pack_params(A, a, Q, H, h, dtypes[name])
+        P0 = symmetrize(P0)
+        compare_values(name, y_main, s_main, packed, m0, P0, shape="fisher")
+        starts = kernels.phase2_starts_plain(
+            kernels.phase1_aggregate_plain(y_main, s_main, packed, D,
+                                           chunks=kernels.PHASE1_AGGREGATE_CHUNKS)[0], m0, P0, D)
+        p7 = kernels.phase3_states_plain(y_main, s_main, packed, starts, D,
+                                         chunks=kernels.PHASE3_STATES_CHUNKS)
+        k7 = kernels.phase3_states(y_main, s_main, packed, starts, D)
+        torch.cuda.synchronize()
+        record_comparison("phase3_states", name, k7, p7, rows(k7), rows(p7), "states",
+                          shape="fisher")
+        post = exact_posterior(model_f, y_f)
+        compare_affine(name, block._affine_comps_iteration(post, B), post.trans.x0.mean,
+                       symmetrize(post.trans.x0.cov), shape="fisher")
+
+    def exact_posterior(model_f, y_f):
+        """The backward's exact (jitter-free) posterior: the dynamics inverted
+        against the block filter's predictions."""
+        from temporalgps_torch.ops import fisher
+
+        return fisher._exact_posterior(model_f, tlgssm.filter_(model_f, y_f, engine="block"))[0]
+
+    def grad_excess(g, want, rtol, floor_rel):
+        """Largest |g - want| - (rtol |want| + floor_rel max |want|), and
+        the per-component relative errors."""
+        floor = floor_rel * want.abs().max().item()
+        err = (g.double() - want).abs()
+        return (err - (rtol * want.abs() + floor)).max().item(), (err / want.abs()).tolist()
+
+    def phase_fisher():
+        from temporalgps_torch.learning import value_and_grad_fisher
+        from temporalgps_torch.ops import fisher
+
+        rec = smoke.record["fisher"] = {}
+        out = {}
+        for name, dtype in dtypes.items():
+            compare_fisher_kernels(name)
+            for label, fn_of, p in (("c2", make_model_fn, p0), ("sum-c2", make_sum_fn, p0_sum)):
+                model_fn = fn_of(dtype, N_MAIN, DEVICE)
+                for engine in ("block", "parallel") if label == "c2" else ("block",):
+                    vg = value_and_grad_fisher(model_fn, y_dev[name], engine=engine)
+                    kernels.reset_launch_counts()
+                    v, g = vg(p)
+                    torch.cuda.synchronize()
+                    counts = {kn: n for kn, n in kernels.launch_counts().items() if n}
+                    want = FISHER_LAUNCHES if engine == "block" else FISHER_PARALLEL_LAUNCHES
+                    rec.setdefault("launches", {})[f"{name}_{label}_{engine}"] = counts
+                    smoke.check(counts == want and finite(v, g) and g.shape == p.shape,
+                                f"{label} {name} value_and_grad_fisher engine={engine}: finite, "
+                                f"launches {counts} (want {want})")
+                    if (name, label, engine) == ("float32", "c2", "block"):
+                        # This slice's main path: the kernels line adds its launches.
+                        total = smoke.record.setdefault("launches", {})
+                        for kn, n in counts.items():
+                            total[kn] = total.get(kn, 0) + n
+                    out[(name, label, engine)] = (v, g)
+                v_f, g_f = value_and_grad_fwd_lgssm(model_fn, y_dev[name])(p)
+                out[(name, label, "forward")] = (v_f, g_f)
+                lml = logpdf_with_missings(model_fn(p), y_dev[name]).item()
+                r_v = rel(out[(name, label, "block")][0].item(), lml)
+                rec.setdefault("value_rel_vs_logpdf", {})[f"{name}_{label}"] = r_v
+                smoke.check(r_v <= 1e-12, f"{label} {name} Fisher value {out[(name, label, 'block')][0].item()!r} "
+                            f"vs logpdf {lml!r} rel={r_v:.3e} (tol 1e-12: the same K1-K3 call)")
+        # The gradients against the forward mode's (K4-K6): float64 within
+        # 1e-6 of each component plus 1e-8 of the largest, float32 within
+        # 1e-3 plus 1e-6 of the largest (phase 6's gate) of the float64 one.
+        for (name, label, engine), (v, g) in out.items():
+            if engine == "forward":
+                continue
+            g64 = out[("float64", label, "forward")][1]
+            rtol, floor = (1e-6, 1e-8) if name == "float64" else (1e-3, 1e-6)
+            excess, r = grad_excess(g, g64, rtol, floor)
+            rec.setdefault("grad_rel_vs_forward_f64", {})[f"{name}_{label}_{engine}"] = r
+            smoke.check(excess <= 0.0,
+                        f"{label} {name} Fisher gradient engine={engine} vs the float64 forward "
+                        f"mode: per component {r} (tol {rtol:g} relative + {floor:g} of the "
+                        f"largest, |g64|={g64.abs().tolist()})")
+        rec["grads"] = {f"{n}_{l}_{e}": g.tolist() for (n, l, e), (_, g) in out.items()}
+
+        # float64 at N_SMALL: the card against the CPU port (the kernels'
+        # plain versions) and against the sequential engine's autograd.
+        y_small = y_np[:N_SMALL]
+        v_k, g_k = value_and_grad_fisher(make_model_fn(torch.float64, N_SMALL, DEVICE), y_small,
+                                         engine="block")(p0)
+        v_c, g_c = value_and_grad_fisher(make_model_fn(torch.float64, N_SMALL, "cpu"), y_small,
+                                         engine="block")(p0.cpu())
+        g_seq = autograd_grad("cpu", engine="sequential")
+        r_cpu = max(rel(v_k.item(), v_c.item()), rel_max(g_k.cpu(), g_c))
+        r_seq = rel_max(g_k.cpu(), g_seq)
+        rec.update({"f64_20k_rel_vs_cpu": r_cpu, "f64_20k_grad_rel_vs_sequential": r_seq})
+        smoke.check(r_cpu <= 1e-10 and r_seq <= 1e-6,
+                    f"Fisher float64 N={N_SMALL}: card vs the CPU port rel={r_cpu:.3e} (tol "
+                    f"1e-10); gradient vs the sequential engine's autograd rel={r_seq:.3e} "
+                    f"(tol 1e-6)")
+
+        # Times (CUDA events), where the time goes (torch.profiler and host
+        # stages of the block engine's call).
+        for name, dtype in dtypes.items():
+            model_fn = make_model_fn(dtype, N_MAIN, DEVICE)
+            vg = {engine: value_and_grad_fisher(model_fn, y_dev[name], engine=engine)
+                  for engine in ("block", "parallel")}
+            vg_sum = value_and_grad_fisher(make_sum_fn(dtype, N_MAIN, DEVICE), y_dev[name],
+                                           engine="block")
+            vg_fwd = value_and_grad_fwd_lgssm(model_fn, y_dev[name])
+            calls = {"fisher_block": lambda: vg["block"](p0),
+                     "fisher_parallel": lambda: vg["parallel"](p0),
+                     "sum_c2_fisher_block": lambda: vg_sum(p0_sum),
+                     "forward_mode": lambda: vg_fwd(p0)}
+            for cname, call in calls.items():
+                ms = events_ms(call, reps=1, batches=5)
+                rec.setdefault("ms", {}).setdefault(name, {})[cname] = ms[0]
+                print(f"  {name} {cname}: {ms[0]!r} ms (range {ms[1]!r}..{ms[2]!r}, 5 batches "
+                      f"of 1)", flush=True)
+            summary = call_profile(calls["fisher_block"], FISHER_KERNELS, calls=3)
+            model_f, y_f = fisher_model(name)
+            g1 = torch.ones((), dtype=dtype, device=DEVICE)
+            stages = {
+                "model_fn": lambda: model_fn(p0),
+                "missing_data": lambda: transform_model_and_obs(model_fn(p0), y_dev[name]),
+                "value_K1_K3": lambda: block.logpdf(model_f, y_f),
+                "filter_K1_K2_K7": lambda: tlgssm.filter_(model_f, y_f, engine="block"),
+                "filter_and_reversal": lambda: exact_posterior(model_f, y_f),
+                "fisher_cotangents": lambda: fisher.fisher_cotangents(model_f, y_f, g1,
+                                                                      engine="block"),
+            }
+            summary["host_stage_ms"] = {sname: stage_ms(fn, reps=5)[0]
+                                        for sname, fn in stages.items()}
+            post = exact_posterior(model_f, y_f)
+            summary["host_stage_ms"]["latent_marginals_K8_K10"] = stage_ms(
+                lambda: tlgssm.latent_marginals(post, engine="block"), reps=5)[0]
+            rec.setdefault("profile", {})[name] = summary
+            print(f"  {name} fisher_block profile: {json.dumps(summary)}", flush=True)
+            smoke.check(summary["device_busy_us"] > 0
+                        and all(us > 0 for us in summary["kernel_us"].values()),
+                        f"{name} Fisher: the profiler saw K1-K3, K7 and K8-K10")
+
+    # ---- 17. the alternative engines, the reverse block posterior, the
+    # matrix path's inverse ----------------------------------------------
+    def phase_engines():
+        rec = smoke.record["engines"] = {}
+        outs = {}
+        for name, dtype in dtypes.items():
+            fx = make_fx(dtype, N_MAIN, DEVICE)
+            model_f, y_f, _ = transform_model_and_obs(build_lgssm(fx), y_dev[name])
+            post = posterior_with_missings(build_lgssm(fx), y_dev[name])
+            calls = {
+                "block_logpdf": (lambda: tlgssm.logpdf(model_f, y_f, engine="block"),
+                                 COMPOSITE_LAUNCHES["logpdf"]),
+                "parallel_logpdf": (lambda: tlgssm.logpdf(model_f, y_f, engine="parallel"), {}),
+                "sqrt_logpdf": (lambda: tlgssm.logpdf(model_f, y_f, engine="sqrt"), {}),
+                # K1 and K3 around the square-root phase 2 (tensor ops, no K2).
+                "block_sqrt_logpdf": (
+                    lambda: tlgssm.logpdf(model_f, y_f, engine="block", phase2="sqrt"),
+                    {"phase1_aggregate": 1, "phase3_lml": 1}),
+                "block_posterior_marginals": (lambda: posterior_marginals(fx, y_dev[name], "block"),
+                                              COMPOSITE_LAUNCHES["posterior_marginals"]),
+                "parallel_posterior_marginals": (
+                    lambda: posterior_marginals(fx, y_dev[name], "parallel"), {}),
+                # c2's posterior (reverse-ordered) conditioned again: the
+                # associative engine, no kernel.
+                "reverse_block_posterior": (
+                    lambda: tlgssm.posterior(post, y_f, engine="block"), {}),
+            }
+            for cname, (call, want) in calls.items():
+                kernels.reset_launch_counts()
+                got = call()
+                torch.cuda.synchronize()
+                counts = {kn: n for kn, n in kernels.launch_counts().items() if n}
+                if cname == "reverse_block_posterior":
+                    smoke.check(got.trans.forward, "the reverse model's block posterior is "
+                                "forward-ordered")
+                    got = (got.trans.As, got.trans.offs, got.trans.Qs)
+                got = got if isinstance(got, tuple) else (got,)
+                outs[(name, cname)] = [t.double() for t in got]
+                smoke.check(counts == want and all(finite(t) for t in got),
+                            f"{name} {cname} N={N_MAIN}: finite, launches {counts} (want {want})")
+                ms = events_ms(call, reps=1, batches=3)
+                rec.setdefault("ms", {}).setdefault(name, {})[cname] = ms[0]
+                print(f"  {name} {cname}: {ms[0]!r} ms (range {ms[1]!r}..{ms[2]!r}, 3 batches "
+                      f"of 1)", flush=True)
+        r = {}
+        for kind in ("logpdf", "posterior_marginals"):
+            for engine in ("parallel", "sqrt", "block_sqrt"):
+                cname = f"{engine}_{kind}"
+                if ("float64", cname) not in outs:
+                    continue
+                r[f"{cname}_f64_vs_block"] = max(rel_max(a, b) for a, b in zip(
+                    outs[("float64", cname)], outs[("float64", f"block_{kind}")]))
+                r[f"{cname}_f32_vs_f64"] = max(rel_max(a, b) for a, b in zip(
+                    outs[("float32", cname)], outs[("float64", cname)]))
+        rec["rel"] = r
+        smoke.check(all(v <= (1e-9 if k.endswith("block") else 1e-3) for k, v in r.items()),
+                    f"parallel, sqrt and phase2=sqrt at N={N_MAIN}: float64 vs the block "
+                    f"engine (tol 1e-9), "
+                    f"float32 vs float64 (tol 1e-3), relative to the largest entry: "
+                    f"{json.dumps(r)}")
+
+        # The reverse model's block posterior at N_SMALL, float64: the card
+        # against the CPU's sequential engine (both conditionings).
+        y_small = torch.as_tensor(y_np[:N_SMALL])
+        leaves = {}
+        for device, engine in ((DEVICE, None), ("cpu", "sequential")):
+            model = build_lgssm(make_fx(torch.float64, N_SMALL, device))
+            model_f, y_f, _ = transform_model_and_obs(model, y_small.to(device))
+            first = tlgssm.posterior(model_f, y_f, engine=engine or "block")
+            again = tlgssm.posterior(first, y_f, engine=engine or "block")
+            t = again.trans
+            leaves[device] = [t.As, t.offs, t.Qs, t.x0.mean, t.x0.cov]
+        r_rev = max(rel_max(a.cpu(), b) for a, b in zip(leaves[DEVICE], leaves["cpu"]))
+        rec["reverse_block_posterior_f64_20k_rel_vs_sequential"] = r_rev
+        smoke.check(r_rev <= 1e-9, f"the reverse model's block posterior, float64 N={N_SMALL}, "
+                    f"card vs the CPU's sequential engine rel={r_rev:.3e} (tol 1e-9)")
+
+        # The matrix path's inverse (no jitter): the D = 5 sum at N_D5, the
+        # float32 posterior means against float64 on the card; float64 at
+        # N_D6_SMALL on the card against the CPU's sequential engine.
+        means = {}
+        for name, dtype in dtypes.items():
+            fx5 = make_other("d5", dtype, N_D5, DEVICE)
+            kernels.reset_launch_counts()
+            means[name] = posterior_marginals(fx5, y_dev[name][:N_D5])[0].double()
+            torch.cuda.synchronize()
+            counts = {kn: n for kn, n in kernels.launch_counts().items() if n}
+            smoke.check(counts == {} and finite(means[name]),
+                        f"D = 5 {name} N={N_D5} posterior means: the matrix path (no kernel "
+                        f"launched), finite: {counts}")
+            ms = events_ms(lambda: posterior_marginals(fx5, y_dev[name][:N_D5]), reps=1, batches=3)
+            rec.setdefault("ms", {}).setdefault(name, {})["d5_posterior_marginals"] = ms[0]
+            print(f"  {name} d5_posterior_marginals N={N_D5}: {ms[0]!r} ms", flush=True)
+        r5 = rel_max(means["float32"], means["float64"])
+        y5 = y_np[:N_D6_SMALL]
+        m_k = posterior_marginals(make_other("d5", torch.float64, N_D6_SMALL, DEVICE), y5)[0]
+        m_c = posterior_marginals(make_other("d5", torch.float64, N_D6_SMALL, "cpu"), y5,
+                                  "sequential")[0]
+        r5s = rel_max(m_k.cpu(), m_c)
+        rec["d5"] = {"post_means_f32_vs_f64": r5, "f64_small_rel_vs_sequential": r5s}
+        smoke.check(r5 <= 1e-3 and r5s <= 1e-10,
+                    f"D = 5 matrix path: float32 posterior means vs float64 at N={N_D5} "
+                    f"rel={r5:.3e} (tol 1e-3); float64 at N={N_D6_SMALL} vs the CPU's "
+                    f"sequential engine rel={r5s:.3e} (tol 1e-10)")
+
     smoke.phase("1. versions and card", phase_versions)
     smoke.phase("2. build", phase_build)
     smoke.phase("3. value kernels vs plain versions at N=1M", phase_compare)
@@ -1982,6 +2288,8 @@ def main():
     smoke.phase("13. streamed kernels vs plain versions at N=1M", phase_compare_streamed)
     smoke.phase("14. irregular times and D = 6", phase_irregular)
     smoke.phase("15. sum-c2: composite models, sampling, the posterior's logpdf", phase_composite)
+    smoke.phase("16. the Fisher gradient at N=1M", phase_fisher)
+    smoke.phase("17. engines parallel and sqrt, the reverse block posterior, D = 5", phase_engines)
 
     print("== detail", json.dumps(smoke.record, default=str))
     if smoke.failures:

@@ -28,7 +28,15 @@ K1, K2, K3).
 
 Hyperparameters are fitted on the lml and its forward-mode gradient, which
 runs the primal and k tangent filters through one pass of kernels
-(learning.value_and_grad_fwd_lgssm, fit, fit_lbfgs).
+(learning.value_and_grad_fwd_lgssm, fit, fit_lbfgs), or on the Fisher
+identity's gradient, whose cost does not grow with the number of
+hyperparameters (learning.value_and_grad_fisher: the posterior, its
+marginals and the filter, engine="block" on K1-K3, K7 and K8-K10).
+
+Engines: "block" (the kernels), "sequential" (the ground truth, a loop over
+time), "parallel" (an associative scan over all N steps, ops/assoc.py) and
+"sqrt" (the same in square-root form, ops/sqrt.py), chosen per call with
+`engine=`.
 
 The JAX package temporalgps_tpu is the reference this port is held to.
 """
@@ -40,6 +48,7 @@ from .learning import (
     fit,
     fit_lbfgs,
     positive,
+    value_and_grad_fisher,
     value_and_grad_fwd,
     value_and_grad_fwd_lgssm,
 )
@@ -60,4 +69,5 @@ __all__ = [
     "constrained",
     "value_and_grad_fwd",
     "value_and_grad_fwd_lgssm",
+    "value_and_grad_fisher",
 ]

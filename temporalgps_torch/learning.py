@@ -16,17 +16,14 @@ function that returns the leaves (A, a, Q, H, h, s, m0, P0) of
 rebuilt from its slices with the model's own structure.
 """
 
-import dataclasses
 from typing import Any, Callable, NamedTuple
 
 import torch
 from torch.utils import _pytree as pytree
 
-from .models.lgssm import LGSSM
-from .models.missings import logpdf_with_missings
+from .models.lgssm import model_leaves, model_like
+from .models.missings import logpdf_with_missings, transform_model_and_obs
 from .ops import block
-from .utils.fill import Fill, is_fill
-from .utils.gaussian import Gaussian
 
 
 def positive(x, *, device="cuda"):
@@ -117,29 +114,6 @@ def value_and_grad_fwd(f):
     return vg
 
 
-_PER_STEP = (("trans", "As"), ("trans", "offs"), ("trans", "Qs"),
-             ("emis", "H"), ("emis", "h"), ("emis", "s"))
-
-
-def _leaves(model):
-    """The tensors of a model: the per-step leaves (A, a, Q, H, h, s), a
-    Fill by its value, then the prior's (m0, P0)."""
-    per_step = [getattr(getattr(model, part), name) for part, name in _PER_STEP]
-    x0 = model.trans.x0
-    return (*(leaf.value if is_fill(leaf) else leaf for leaf in per_step), x0.mean, x0.cov)
-
-
-def _model_like(model, leaves):
-    """A model of `model`'s structure (Fill where it has a Fill) over other
-    leaf tensors, e.g. their derivatives along one parameter."""
-    new = {"trans": {"x0": Gaussian(*leaves[6:])}, "emis": {}}
-    for (part, name), leaf in zip(_PER_STEP, leaves):
-        old = getattr(getattr(model, part), name)
-        new[part][name] = Fill(leaf, old.N) if is_fill(old) else leaf
-    return LGSSM(dataclasses.replace(model.trans, **new["trans"]),
-                 dataclasses.replace(model.emis, **new["emis"]))
-
-
 def _model_and_tangents(model_fn, flat):
     """(model, [k tangent models]) of `model_fn` at `flat`: one jacfwd over
     the model's leaves, sliced per parameter. Each tangent model has the
@@ -148,13 +122,26 @@ def _model_and_tangents(model_fn, flat):
 
     def leaves_fn(p):
         built.append(model_fn(p))
-        leaves = _leaves(built[-1])
+        leaves = model_leaves(built[-1])
         return leaves, leaves
 
     jac, leaves = torch.func.jacfwd(leaves_fn, has_aux=True)(flat)
     per_tangent = [J.movedim(-1, 0).unbind(0) for J in jac]
-    tangents = [_model_like(built[-1], t_leaves) for t_leaves in zip(*per_tangent)]
-    return _model_like(built[-1], leaves), tangents
+    tangents = [model_like(built[-1], t_leaves) for t_leaves in zip(*per_tangent)]
+    return model_like(built[-1], leaves), tangents
+
+
+def _obs_on_model(y):
+    """fn: model -> y as the model's dtype on its device, carried there once."""
+    cache = {}
+
+    def y_on(model):
+        key = (model.dtype, model.device)
+        if key not in cache:
+            cache[key] = torch.as_tensor(y, dtype=model.dtype, device=model.device)
+        return cache[key]
+
+    return y_on
 
 
 def value_and_grad_fwd_lgssm(model_fn, y, *, n_blocks=None, fallback=None):
@@ -175,14 +162,7 @@ def value_and_grad_fwd_lgssm(model_fn, y, *, n_blocks=None, fallback=None):
     chosen by `_fwd_grad_supported` before anything runs.
 
     Returns fn: params -> (value, grad), grad with params' dtype and device."""
-    y_cache = {}
-
-    def y_on(model):
-        """y as the model's dtype on its device, carried there once."""
-        key = (model.dtype, model.device)
-        if key not in y_cache:
-            y_cache[key] = torch.as_tensor(y, dtype=model.dtype, device=model.device)
-        return y_cache[key]
+    y_on = _obs_on_model(y)
 
     def plain_logpdf(p):
         model = model_fn(p)
@@ -201,9 +181,30 @@ def value_and_grad_fwd_lgssm(model_fn, y, *, n_blocks=None, fallback=None):
 
 
 def value_and_grad_fisher(model_fn, y, *, n_blocks=None, engine="parallel"):
-    """The closed-form Fisher/EM-identity gradient of the reference; it needs
-    ops/fisher.py, which is not ported yet."""
-    raise NotImplementedError(
-        "value_and_grad_fisher is not ported yet (ROADMAP Queue 1 item 10: "
-        "ops/fisher.py)"
-    )
+    """value_and_grad of `p -> logpdf(model_fn(p), y)` by the closed-form
+    Fisher identity in innovations form (ops/fisher.py): the value on the
+    block engine (K1-K3 on the card), the gradient from the smoothing
+    posterior's statistics on `engine`, a few forward-speed passes whatever
+    the number of hyperparameters k, then autograd through `model_fn`.
+    engine="block" runs the filter (K1, K2, K7) and the latent marginals of
+    the posterior inverted from it (K8-K10) on the kernels on the card;
+    "parallel" (the reference's default, kept here) the associative scans
+    of ops/assoc.py, several times slower on the card (PERF.md).
+
+    model_fn: flat parameter tensor -> forward-ordered scalar-emission LGSSM.
+    NaNs in y are missing observations: filled, and their volume added back,
+    as `logpdf` does. Returns fn: params -> (value, grad)."""
+    from .ops.fisher import logpdf_fisher
+
+    y_on = _obs_on_model(y)
+
+    def vg(params):
+        flat = torch.as_tensor(params).detach().requires_grad_()
+        with torch.enable_grad():
+            model = model_fn(flat)
+            model_f, y_f, comp = transform_model_and_obs(model, y_on(model))
+            value = logpdf_fisher(model_f, y_f, n_blocks, engine) + comp
+            (grad,) = torch.autograd.grad(value, flat)
+        return value.detach(), grad
+
+    return vg

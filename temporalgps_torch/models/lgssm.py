@@ -9,6 +9,12 @@ Engines ported:
   * "block"      — the block-parallel schedules of ops/block.py on the
     hand-written kernels (CUDA) or their plain versions (CPU); models the
     kernels do not take (D > 3) run its plain matrix path on either.
+  * "parallel"   — the associative scan over all N steps (ops/assoc.py),
+    batched tensor ops on either device.
+  * "sqrt"       — the same scan in the square-root algebra (ops/sqrt.py):
+    logpdf, filter_ and posterior; the data-free functions (marginals,
+    latent_marginals, rand) run the sequential engine for it, as in the
+    reference.
 
 The RTS smoother is, as in the reference, another LGSSM: reverse-ordered,
 with inverted dynamics, whose x0 is the last filtering state. Step order per
@@ -26,7 +32,7 @@ import torch
 from ..config import POSTERIOR_JITTER
 from ..ops import lgc
 from ..utils import psd
-from ..utils.fill import is_fill
+from ..utils.fill import Fill, is_fill
 from ..utils.gaussian import Gaussian, gaussian_rand
 from . import emissions as em
 from .gauss_markov import GaussMarkov
@@ -53,6 +59,29 @@ class LGSSM:
         return self.trans.x0.mean.device
 
 
+_PER_STEP = (("trans", "As"), ("trans", "offs"), ("trans", "Qs"),
+             ("emis", "H"), ("emis", "h"), ("emis", "s"))
+
+
+def model_leaves(model):
+    """The tensors of a model: the per-step leaves (A, a, Q, H, h, s), a
+    Fill by its value, then the prior's (m0, P0)."""
+    per_step = [getattr(getattr(model, part), name) for part, name in _PER_STEP]
+    x0 = model.trans.x0
+    return (*(leaf.value if is_fill(leaf) else leaf for leaf in per_step), x0.mean, x0.cov)
+
+
+def model_like(model, leaves):
+    """A model of `model`'s structure (Fill where it has a Fill) over other
+    leaf tensors, e.g. their derivatives along one parameter."""
+    new = {"trans": {"x0": Gaussian(*leaves[6:])}, "emis": {}}
+    for (part, name), leaf in zip(_PER_STEP, leaves):
+        old = getattr(getattr(model, part), name)
+        new[part][name] = Fill(leaf, old.N) if is_fill(old) else leaf
+    return LGSSM(dataclasses.replace(model.trans, **new["trans"]),
+                 dataclasses.replace(model.emis, **new["emis"]))
+
+
 def _resolve_engine(engine, model=None):
     """`None` picks "block" for any model on a CUDA device (the kernels for
     D <= 3, constant or per-step transitions; the matrix path beyond), and
@@ -70,17 +99,16 @@ def _resolve_engine(engine, model=None):
     return "sequential"
 
 
+# ops/steady.py imports its pieces of ops/lti.py: both come with item 8.
 _NOT_PORTED = {
-    "parallel": "ROADMAP Queue 1 item 10",
-    "sqrt": "ROADMAP Queue 1 item 10",
-    "lti": "ROADMAP Queue 1 item 10",
+    "lti": "ROADMAP Queue 1 item 8",
     "steady": "ROADMAP Queue 1 item 8",
 }
 
 
 def _check_engine(engine):
-    """Raise for an engine other than "block" and "sequential"."""
-    if engine in ("block", "sequential"):
+    """Raise for an engine the port does not have."""
+    if engine in ("block", "sequential", "parallel", "sqrt"):
         return
     if engine in _NOT_PORTED:
         raise NotImplementedError(f"engine={engine!r} is not ported yet ({_NOT_PORTED[engine]})")
@@ -95,18 +123,29 @@ def _obs(model, y):
 # logpdf / filter / posterior
 # ---------------------------------------------------------------------------
 
-def logpdf(model: LGSSM, y, *, engine=None, fused=None, n_blocks=None):
+def logpdf(model: LGSSM, y, *, engine=None, fused=None, n_blocks=None, phase2=None):
     """Log marginal likelihood via the Kalman filter, either ordering. For
     engine="block", `fused=False` runs the plain PyTorch blocked schedule
-    instead of the kernels, and `n_blocks` overrides the block count."""
+    instead of the kernels, `n_blocks` overrides the block count and
+    `phase2="sqrt"` takes the square-root prefix across the blocks (in
+    tensor ops, in place of K2)."""
     engine = _resolve_engine(engine, model)
     _check_engine(engine)
     y = _obs(model, y)
     if engine == "block":
         from ..ops import block
 
-        return block.logpdf(model, y, n_blocks=n_blocks, fused=fused)
+        return block.logpdf(model, y, n_blocks=n_blocks, fused=fused, phase2=phase2)
+    if engine in ("parallel", "sqrt"):
+        return _engine_module(engine).logpdf(model, y)
     return _logpdf_sequential(model, y)
+
+
+def _engine_module(engine):
+    """ops/assoc.py for "parallel", ops/sqrt.py for "sqrt"."""
+    from ..ops import assoc, sqrt
+
+    return assoc if engine == "parallel" else sqrt
 
 
 def filter_(model: LGSSM, y, *, engine=None, n_blocks=None) -> Gaussian:
@@ -119,6 +158,8 @@ def filter_(model: LGSSM, y, *, engine=None, n_blocks=None) -> Gaussian:
         from ..ops import block
 
         return block.filter_(model, y, n_blocks=n_blocks)
+    if engine in ("parallel", "sqrt"):
+        return _engine_module(engine).filter_(model, y)
     forward = model.trans.forward
     xs = []
     x = model.trans.x0
@@ -133,15 +174,15 @@ def filter_(model: LGSSM, y, *, engine=None, n_blocks=None) -> Gaussian:
     return _stack_gaussians(xs, forward)
 
 
-def _invert_dynamics(first: Gaussian, second: Gaussian, A):
+def _invert_dynamics(first: Gaussian, second: Gaussian, A, jitter=POSTERIOR_JITTER):
     """Reversed conditioned dynamics (A_rev, a_rev, Q_rev), batched over
     leading axes:
         Gt = second.P^{-1} A first.P,
         A_rev = Gt^T, a_rev = first.m - Gt^T second.m,
         Q_rev = first.P - Gt^T second.P Gt,
-    second.P carrying POSTERIOR_JITTER on its diagonal."""
+    second.P carrying `jitter` on its diagonal."""
     Pf = psd.symmetrize(first.cov)
-    Pp = psd.add_jitter(psd.symmetrize(second.cov), POSTERIOR_JITTER)
+    Pp = psd.add_jitter(psd.symmetrize(second.cov), jitter)
     Gt = psd.chol_solve(psd.cholesky(Pp), A @ Pf)
     GtT = Gt.transpose(-1, -2)
     a_rev = first.mean - torch.einsum("...ij,...j->...i", GtT, second.mean)
@@ -153,8 +194,8 @@ def posterior(model: LGSSM, y, *, engine=None, n_blocks=None) -> LGSSM:
     """The smoother as an LGSSM of the opposite ordering: filter, emitting
     the inverted dynamics of every step; its x0 is the last filtering
     distribution and its emissions are the model's. `None` picks
-    "sequential" for a reverse-ordered model on any device: the block
-    posterior takes forward-ordered models only (ROADMAP Queue 1 item 10)."""
+    "sequential" for a reverse-ordered model on any device (engine="block"
+    takes the associative engine for one)."""
     engine = _resolve_engine(engine, model if model.trans.forward else None)
     _check_engine(engine)
     y = _obs(model, y)
@@ -162,6 +203,8 @@ def posterior(model: LGSSM, y, *, engine=None, n_blocks=None) -> LGSSM:
         from ..ops import block
 
         return block.posterior(model, y, n_blocks=n_blocks)
+    if engine in ("parallel", "sqrt"):
+        return _engine_module(engine).posterior(model, y)
     forward = model.trans.forward
     dyn = []
     x = model.trans.x0
@@ -206,6 +249,10 @@ def marginals_diag(model: LGSSM, *, engine=None, n_blocks=None):
         from ..ops import block
 
         return block.marginals_diag(model, n_blocks=n_blocks)
+    if engine == "parallel":
+        from ..ops import assoc
+
+        return assoc.marginals_diag(model)
     out = [em.step_predict_marginals(x, e) for x, e in _latent_sequential(model)]
     return _stack([m for m, _ in out], model.trans.forward), _stack(
         [v for _, v in out], model.trans.forward)
@@ -219,6 +266,10 @@ def latent_marginals(model: LGSSM, *, engine=None, n_blocks=None) -> Gaussian:
         from ..ops import block
 
         return block.latent_marginals(model, n_blocks=n_blocks)
+    if engine == "parallel":
+        from ..ops import assoc
+
+        return assoc.latent_marginals(model)
     return _stack_gaussians([x for x, _ in _latent_sequential(model)], model.trans.forward)
 
 
@@ -318,6 +369,10 @@ def rand_with_eps(model: LGSSM, eps_t, eps_e, x_init, *, engine=None, n_blocks=N
         from ..ops import block
 
         return block.rand_with_eps(model, eps_t, eps_e, x_init, n_blocks=n_blocks)
+    if engine == "parallel":
+        from ..ops import assoc
+
+        return assoc.rand_with_eps(model, eps_t, eps_e, x_init)
     forward = model.trans.forward
     x = x_init
     ys = []

@@ -1,0 +1,350 @@
+"""Parallel-prefix Kalman filtering and smoothing (temporalgps_tpu/ops/assoc.py):
+engine="parallel", and the element algebra that the block engine's matrix
+path (ops/block.py) and the square-root engine (ops/sqrt.py) share.
+
+A filtering element represents p(x_k | x_j, y_{j+1:k}) as (A, b, C, eta, J):
+
+    x_k | x_j ~ N(A x_j + b, C)   reweighted by   exp(eta' x_j - x_j' J x_j / 2)
+
+Composition (i earlier, j later), with M = (I + C_i J_j)^{-1}:
+
+    A = A_j M A_i
+    b = A_j M (b_i + C_i eta_j) + b_j
+    C = A_j M C_i A_j' + C_j
+    eta = A_i' M' (eta_j - J_j b_i) + eta_i
+    J = A_i' M' J_j A_i + J_i
+
+The prior enters as the element (0, m0, P0, 0, 0), so the inclusive prefix at
+position k is the filtering distribution after step k. All N + 1 elements are
+combined by `_associative_scan`, in the association of the reference's
+`jax.lax.associative_scan`: log2(N) levels of batched (N, D, D) tensor ops,
+on the card as on the CPU (the reference runs the same scan in XLA; no Pallas
+kernel). Affine-Gaussian maps (F, c, Q) compose the same way for marginals
+and samples.
+
+Both orderings share one algebra: a reverse-ordered model (the smoother's
+posterior), flipped to iteration order, has its transitions shifted by one
+with the identity first (`_iteration_view`), which turns emit-then-transition
+into transition-then-emit. Scalar emissions only: vector emissions are
+ROADMAP Queue 1 item 7.
+"""
+
+import math
+
+import torch
+
+from ..config import POSTERIOR_JITTER, RAND_JITTER
+from ..models.emissions import ScalarEmissions
+from ..models.gauss_markov import GaussMarkov
+from ..models.lgssm import LGSSM, _invert_dynamics
+from ..utils import psd
+from ..utils.fill import tmaterialize
+from ..utils.gaussian import Gaussian
+from ..utils.psd import symmetrize
+from .lgc import conditional_rand_scalar, predict_marginals_scalar
+
+_LOG2PI = math.log(2.0 * math.pi)
+
+
+def _mT(X):
+    return X.transpose(-1, -2)
+
+
+def _mv(A, x):
+    return torch.einsum("...ij,...j->...i", A, x)
+
+
+def check_scalar_emissions(model):
+    """Raise NotImplementedError for a model with vector emissions, which no
+    engine of the port takes yet."""
+    if not isinstance(model.emis, ScalarEmissions):
+        raise NotImplementedError(
+            "vector emissions (Dense, Large, Bottleneck) are not ported yet "
+            "(ROADMAP Queue 1 item 7)"
+        )
+
+
+# ---------------------------------------------------------------------------
+# The element algebra
+# ---------------------------------------------------------------------------
+
+def _minv(C, J):
+    """(I + C J)^{-1}, batched; C, J symmetric PSD. I + C J is nonsingular
+    (the eigenvalues of C J are real and non-negative), so its LU inverse is
+    well posed where a Cholesky factor of C is not (C is singular at the
+    prior element and near-singular at small time steps): no jitter, any D.
+    The reference takes a Cholesky congruence with a jitter for D > 3,
+    which moved the float32 posterior means of Matern52() + Matern32() by
+    7.7e-2 at N = 2000; this inverse, 5.8e-5 (probes/torch_minv_repair.py,
+    beside the inverse formed in float64)."""
+    return torch.linalg.inv(torch.eye(C.shape[-1], dtype=C.dtype, device=C.device) + C @ J)
+
+
+def _combine_filter(e_i, e_j):
+    """Filtering elements combined, e_i first, batched."""
+    A_i, b_i, C_i, eta_i, J_i = e_i
+    A_j, b_j, C_j, eta_j, J_j = e_j
+    M = _minv(C_i, J_j)
+    AjM = A_j @ M
+    MAi = M @ A_i
+    return (A_j @ MAi, _mv(AjM, b_i + _mv(C_i, eta_j)) + b_j,
+            symmetrize(AjM @ C_i @ _mT(A_j) + C_j),
+            _mv(_mT(MAi), eta_j - _mv(J_j, b_i)) + eta_i,
+            symmetrize(_mT(MAi) @ J_j @ A_i + J_i))
+
+
+def _combine_affine(e_i, e_j):
+    """Affine-Gaussian maps x -> N(A x + b, C) composed, e_i first."""
+    A_i, b_i, C_i = e_i
+    A_j, b_j, C_j = e_j
+    return A_j @ A_i, _mv(A_j, b_i) + b_j, symmetrize(A_j @ C_i @ _mT(A_j) + C_j)
+
+
+def _combine_affine_mean(e_i, e_j):
+    """Affine maps x -> A x + b composed, e_i first (a sample's states)."""
+    A_i, b_i = e_i
+    A_j, b_j = e_j
+    return A_j @ A_i, _mv(A_j, b_i) + b_j
+
+
+def _associative_scan(combine, elems):
+    """Inclusive prefix of the tuple `elems` along axis 0 in the association
+    of the reference's `jax.lax.associative_scan`: adjacent pairs combined,
+    their prefix recursively, then the even positions from it; log2 depth,
+    the earlier operand always on the left."""
+    n = elems[0].shape[0]
+    if n < 2:
+        return elems
+    odd = _associative_scan(combine, combine(tuple(x[0:-1:2] for x in elems),
+                                             tuple(x[1::2] for x in elems)))
+    later = tuple(x[2::2] for x in elems)
+    even = combine(tuple(x[:-1] for x in odd) if n % 2 == 0 else odd, later)
+    out = []
+    for x, e, o in zip(elems, even, odd):
+        e = torch.cat([x[:1], e])
+        merged = x.new_empty((e.shape[0] + o.shape[0], *x.shape[1:]))
+        merged[0::2], merged[1::2] = e, o
+        out.append(merged)
+    return tuple(out)
+
+
+def _scalar_update(m, P, H, h, s, y):
+    """Kalman update of (m, P) by the scalar observation y = H x + h +
+    N(0, s), batched over leading axes (the reference's
+    `lgc.posterior_and_lml_scalar`): (m_post, P_post, lml)."""
+    P = symmetrize(P)
+    V = torch.einsum("...j,...jk->...k", H, P)
+    sqrtS = torch.sqrt((V * H).sum(-1) + s)
+    Bv = V / sqrtS[..., None]
+    alpha = (y - ((H * m).sum(-1) + h)) / sqrtS
+    lml = -0.5 * (_LOG2PI + 2.0 * torch.log(sqrtS) + alpha * alpha)
+    return m + Bv * alpha[..., None], P - Bv[..., :, None] * Bv[..., None, :], lml
+
+
+# ---------------------------------------------------------------------------
+# Iteration-order views of an LGSSM
+# ---------------------------------------------------------------------------
+
+def _flip(x):
+    """A tensor, or each of a tuple or Gaussian's, flipped along time."""
+    if isinstance(x, Gaussian):
+        return Gaussian(x.mean.flip(0), x.cov.flip(0))
+    if isinstance(x, tuple):
+        return tuple(t.flip(0) for t in x)
+    return x.flip(0)
+
+
+def _unflip(model, x):
+    """Values in iteration order -> time order."""
+    return x if model.trans.forward else _flip(x)
+
+
+def _iteration_view(model):
+    """The model's transitions (F, c, Q), each (N, ...), in iteration order,
+    as the elements take them.
+
+    A forward model transitions, then emits, so state t includes transition
+    t. A reverse model emits, then transitions: flipped to iteration order
+    and shifted by one with the identity map first (its x0 is already the
+    state at the last step), dropping the transition out of step 0 (the
+    element view of the reference's `_iteration_view`)."""
+    t = model.trans
+    F, c, Q = (tmaterialize(leaf) for leaf in (t.As, t.offs, t.Qs))
+    if t.forward:
+        return F, c, Q
+    D = model.latent_dim
+    eye = torch.eye(D, dtype=F.dtype, device=F.device)
+    return (torch.cat([eye[None], F.flip(0)[:-1]]), torch.cat([c.new_zeros(1, D), c.flip(0)[:-1]]),
+            torch.cat([Q.new_zeros(1, D, D), Q.flip(0)[:-1]]))
+
+
+def _iteration_order(model, y=None):
+    """((F, c, Q) unshifted, (H, h, s), y), each (N, ...), in iteration
+    order: the rest of the reference's `_iteration_view`."""
+    t, e = model.trans, model.emis
+    leaves = tuple(tmaterialize(leaf) for leaf in (t.As, t.offs, t.Qs, e.H, e.h, e.s))
+    if not t.forward:
+        leaves = _flip(leaves)
+        y = None if y is None else y.flip(0)
+    return leaves[:3], leaves[3:], y
+
+
+def _sample_maps(model, eps_t):
+    """(F, b), each (N, ...): the iteration view's maps x -> F x + b of the
+    sample that the normals eps_t (N, D, indexed by time) give,
+    b = c + chol(Q + RAND_JITTER I) eps_t; a reverse-ordered model's eps_t
+    flipped and shifted by one with a zero first, as its transitions are.
+    The factor is psd.cholesky's, as in the sequential engine's
+    `lgc.conditional_rand`: a Q that is not positive definite raises."""
+    F, c, Q = _iteration_view(model)
+    if not model.trans.forward:
+        eps_t = torch.cat([torch.zeros_like(eps_t[:1]), eps_t.flip(0)[:-1]])
+    return F, c + _mv(psd.cholesky(psd.add_jitter(symmetrize(Q), RAND_JITTER)), eps_t)
+
+
+# ---------------------------------------------------------------------------
+# Elements and prefixes
+# ---------------------------------------------------------------------------
+
+def _prior_element(x0, D, like):
+    """(0, m0, P0, 0, 0) with a leading axis of one."""
+    z = like.new_zeros(1, D, D)
+    return (z, x0.mean[None].to(like), symmetrize(x0.cov)[None].to(like), like.new_zeros(1, D), z)
+
+
+def _filter_elements(F, c, Q, H, h, s, y, x0):
+    """Per-step filtering elements of scalar emissions, with the prior
+    element in front: N + 1 of each component."""
+    D = F.shape[-1]
+    I = torch.eye(D, dtype=F.dtype, device=F.device)
+    S = torch.einsum("ni,nij,nj->n", H, Q, H) + s
+    K = _mv(Q, H) / S[:, None]
+    ImKH = I - K[:, :, None] * H[:, None, :]
+    resid = y - ((H * c).sum(-1) + h)
+    w = torch.einsum("nji,nj->ni", F, H)  # F' H
+    elems = (ImKH @ F, c + K * resid[:, None], symmetrize(ImKH @ Q), w * (resid / S)[:, None],
+             symmetrize(w[:, :, None] * w[:, None, :] / S[:, None, None]))
+    return tuple(torch.cat([p, e]) for p, e in zip(_prior_element(x0, D, F), elems))
+
+
+def _filter_prefix(model, y):
+    """Inclusive filtering prefixes in iteration order: (outs, (F_ev, c_ev,
+    Q_ev), (F_it, c_it, Q_it), (H, h, s), y_it), outs a Gaussian of N + 1
+    entries, outs[0] = x0, outs[k] the filtering state after the k-th step."""
+    check_scalar_emissions(model)
+    ev = _iteration_view(model)
+    it, emis_it, y_it = _iteration_order(model, y)
+    elems = _filter_elements(*ev, *emis_it, y_it, model.trans.x0)
+    _, b, C, _, _ = _associative_scan(_combine_filter, elems)
+    return Gaussian(b, C), ev, it, emis_it, y_it
+
+
+def _batched_predict(x: Gaussian, F, c, Q) -> Gaussian:
+    return Gaussian(_mv(F, x.mean) + c, symmetrize(F @ symmetrize(x.cov) @ _mT(F) + Q))
+
+
+def _logpdf_from_prefix(outs, ev, emis_it, y_it):
+    """The lml: each step's prediction from the prefix before it, then its
+    scalar update's lml, summed."""
+    pre = _batched_predict(Gaussian(outs.mean[:-1], outs.cov[:-1]), *ev)
+    return _scalar_update(pre.mean, pre.cov, *emis_it, y_it)[2].sum()
+
+
+def _reversed_model_matrix(model, xf: Gaussian, jitter=POSTERIOR_JITTER):
+    """(posterior, predictions): the reverse-ordered posterior LGSSM of a
+    forward-ordered model from its stacked filtering states, and the
+    predicted state of every step (float64) that it inverts the dynamics
+    against (`models.lgssm._invert_dynamics`, `jitter` on each predicted
+    covariance; the Fisher gradient's exact smoother passes 0), batched over
+    the N steps, in float64 whatever the model's dtype, then stored in it
+    (Q_rev is a difference of nearly equal covariances, which float32 cannot
+    form)."""
+    t, x0 = model.trans, model.trans.x0
+    wide = lambda x: x.to(torch.float64)
+    prev = Gaussian(wide(torch.cat([x0.mean[None].to(xf.mean), xf.mean[:-1]])),
+                    wide(torch.cat([symmetrize(x0.cov)[None].to(xf.cov), xf.cov[:-1]])))
+    F, c, Q = (wide(tmaterialize(leaf)) for leaf in (t.As, t.offs, t.Qs))
+    xp = _batched_predict(prev, F, c, Q)
+    A_rev, a_rev, Q_rev = (x.to(model.dtype) for x in _invert_dynamics(prev, xp, F, jitter))
+    trans = GaussMarkov(As=A_rev, offs=a_rev, Qs=Q_rev,
+                        x0=Gaussian(xf.mean[-1], xf.cov[-1]), forward=False)
+    return LGSSM(trans, model.emis), xp
+
+
+def _posterior_from_prefix(model, outs, it):
+    """The smoother as an LGSSM of the opposite ordering from the filtering
+    prefixes (the reference's `assoc.posterior` post-processing). A forward
+    model's dynamics are inverted between each state before a step and its
+    prediction; a reverse model's between each post-update state's
+    prediction and that state, the last prediction its x0. Inverted in
+    float64, as `_reversed_model_matrix`."""
+    if model.trans.forward:
+        return _reversed_model_matrix(model, Gaussian(outs.mean[1:], outs.cov[1:]))[0]
+    wide = lambda x: x.to(torch.float64)
+    u = Gaussian(wide(outs.mean[1:]), wide(outs.cov[1:]))
+    F, c, Q = (wide(x) for x in it)
+    xp = _batched_predict(u, F, c, Q)
+    A_rev, a_rev, Q_rev = (x.to(model.dtype) for x in _flip(_invert_dynamics(xp, u, F)))
+    trans = GaussMarkov(As=A_rev, offs=a_rev, Qs=Q_rev,
+                        x0=Gaussian(xp.mean[-1].to(model.dtype), xp.cov[-1].to(model.dtype)),
+                        forward=True)
+    return LGSSM(trans, model.emis)
+
+
+# ---------------------------------------------------------------------------
+# Engine entry points (the semantics of models.lgssm's sequential engine)
+# ---------------------------------------------------------------------------
+
+def filter_(model, y) -> Gaussian:
+    """Filtering distributions at every step, in time order."""
+    outs = _filter_prefix(model, y)[0]
+    return _unflip(model, Gaussian(outs.mean[1:], outs.cov[1:]))
+
+
+def logpdf(model, y):
+    """Log marginal likelihood, either ordering."""
+    outs, ev, _, emis_it, y_it = _filter_prefix(model, y)
+    return _logpdf_from_prefix(outs, ev, emis_it, y_it)
+
+
+def posterior(model, y):
+    """The smoother as a reverse-ordered (for a reverse model, forward-
+    ordered) LGSSM: the prefix filter, then the batched inversion of the
+    dynamics."""
+    outs, _, it, _, _ = _filter_prefix(model, y)
+    return _posterior_from_prefix(model, outs, it)
+
+
+def latent_marginals(model) -> Gaussian:
+    """Marginals of the latent chain: the prefix of the affine maps of the
+    iteration view from the prior's, in time order. The identity the view
+    puts first encodes a reverse model's emit-before-transition order, so
+    the prefixes 1..N serve both orderings."""
+    check_scalar_emissions(model)
+    F, c, Q = _iteration_view(model)
+    D = model.latent_dim
+    prior = _prior_element(model.trans.x0, D, F)[:3]
+    elems = tuple(torch.cat([p, e]) for p, e in zip(prior, (F, c, Q)))
+    _, b, C = _associative_scan(_combine_affine, elems)
+    return _unflip(model, Gaussian(b[1:], C[1:]))
+
+
+def marginals_diag(model):
+    """(means, variances) of the scalar observations, (H m + h, H P H^T + s)."""
+    e = model.emis
+    return predict_marginals_scalar(latent_marginals(model),
+                                    *(tmaterialize(leaf) for leaf in (e.H, e.h, e.s)))
+
+
+def rand_with_eps(model, eps_t, eps_e, x_init):
+    """The joint sample of the observations that the standard normals eps_t
+    (N, D), eps_e (N,) and the initial state x_init give: the prefix of the
+    sample's affine maps (`_sample_maps`) from x_init, then y = H x + h +
+    sqrt(s) eps_e."""
+    check_scalar_emissions(model)
+    F, b = _sample_maps(model, eps_t)
+    prior = (F.new_zeros(1, *F.shape[1:]), x_init[None].to(F))
+    _, states = _associative_scan(_combine_affine_mean,
+                                  tuple(torch.cat([p, e]) for p, e in zip(prior, (F, b))))
+    _, (H, h, s), eps_it = _iteration_order(model, eps_e)
+    return _unflip(model, conditional_rand_scalar(eps_it, states[1:], H, h, s))

@@ -31,7 +31,13 @@ Scalar-emission models take one of three routes:
   D > 3, or per-step H           the matrix path: the same three phases in
                                  batched (B, D, D) tensor ops, on the card
                                  too (the reference's XLA schedule has no
-                                 Pallas kernel either).
+                                 Pallas kernel either), on the element
+                                 algebra of ops/assoc.py (whose inverse
+                                 carries no jitter, unlike the reference's).
+
+`phase2="sqrt"` runs phase 2 in the square-root algebra of ops/sqrt.py
+(batched tensor ops over the B block aggregates; K2 is the covariance form),
+between K1 and K3 on the card or their plain versions on the CPU.
 
 A per-step emission offset h (a CustomMean) moves into the observations,
 y - h_t, before the streams are cut (`_kernel_emission`): the innovation
@@ -47,7 +53,9 @@ Smoothing and prediction reuse phases 1 and 2 with a third phase that keeps
 the filtering state after every step (K7 phase3_states, streamed or not;
 the matrix phase 3 for D > 3): `filter_`, and `posterior`, which inverts the
 dynamics step by step into a reverse-ordered LGSSM (plain tensor ops on
-(N,) components for D <= 3, batched Cholesky solves for D > 3). Marginals
+(N,) components for D <= 3, batched Cholesky solves for D > 3); a
+reverse-ordered model's posterior is the associative engine's, as in the
+reference. Marginals
 of a chain (the posterior's, or the prior's) are a prefix composition of
 affine-Gaussian maps on the same three-phase schedule (K8 affine_phase1, K9
 affine_phase2_starts, K10 affine_phase3_states, D <= 3, both orderings;
@@ -70,16 +78,18 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from ..config import LARGE_VAR, POSTERIOR_JITTER, RAND_JITTER
+from ..config import LARGE_VAR, POSTERIOR_JITTER
 from ..models.emissions import ScalarEmissions
 from ..models.gauss_markov import GaussMarkov
 from ..models.lgssm import LGSSM
 from ..models.missings import fill_in_missings, volume_compensation
-from ..utils import psd
 from ..utils.fill import is_fill, tmaterialize
 from ..utils.gaussian import Gaussian
 from ..utils.psd import symmetrize
-from . import kernels, lanes
+from . import assoc, kernels, lanes, sqrt
+from .assoc import (_associative_scan, _combine_affine, _combine_filter, _iteration_view, _mT,
+                    _mv, _prior_element, _reversed_model_matrix, _sample_maps, _scalar_update,
+                    check_scalar_emissions)
 from .lgc import conditional_rand_scalar
 
 
@@ -127,8 +137,6 @@ PLAIN_AFFINE_PHASES = _AffinePhases(
     kernels.affine_phase1_plain, kernels.affine_phase2_starts_plain,
     kernels.affine_phase3_states_plain)
 
-_LOG2PI = math.log(2.0 * math.pi)
-
 # Block count cap of the reference's fused phase-2 kernel (a TPU VMEM bound).
 # K2 here takes any B; the cap is kept so both packages cut time the same way.
 _PHASE2_FUSED_MAX_B = 2048
@@ -153,16 +161,6 @@ def _streamed_supported(model) -> bool:
     y, `_kernel_emission`)."""
     e = model.emis
     return isinstance(e, ScalarEmissions) and model.latent_dim <= 3 and is_fill(e.H)
-
-
-def _check_general_model(model):
-    """Raise NotImplementedError for a model no block schedule of the port
-    takes."""
-    if not isinstance(model.emis, ScalarEmissions):
-        raise NotImplementedError(
-            "vector emissions (Dense, Large, Bottleneck) are not ported yet "
-            "(ROADMAP Queue 1 item 7)"
-        )
 
 
 def _use_kernels(model, fused) -> bool:
@@ -264,27 +262,28 @@ def _logpdf_fused_impl(A, a, Q, H, h, s, y, m0, P0, B, phases: _Phases):
 
 
 class _LogpdfFused(torch.autograd.Function):
-    """Forward through the kernel wrappers, K1-K3 on constant parameters or
-    their streamed forms on per-step (A, a, Q); backward through the plain
-    blocked schedule (same function, PyTorch autograd): for per-step
-    parameters the lane path."""
+    """Forward through the kernel wrappers, K1 and K3 on constant parameters
+    or their streamed forms on per-step (A, a, Q), K2 or the square-root
+    phase 2 between them; backward through the plain blocked schedule (same
+    function, PyTorch autograd): for per-step parameters the lane path."""
 
     @staticmethod
-    def forward(ctx, B, A, a, Q, H, h, s, y, m0, P0):
-        ctx.B = B
+    def forward(ctx, B, phase2, A, a, Q, H, h, s, y, m0, P0):
+        ctx.B, ctx.phase2 = B, phase2
         ctx.save_for_backward(A, a, Q, H, h, s, y, m0, P0)
-        phases = STREAMED_PHASES if A.ndim == 3 else KERNEL_PHASES
-        return _logpdf_fused_impl(A, a, Q, H, h, s, y, m0, P0, B, phases)
+        kernel, streamed, _ = LOGPDF_PHASES[phase2]
+        return _logpdf_fused_impl(A, a, Q, H, h, s, y, m0, P0, B,
+                                  streamed if A.ndim == 3 else kernel)
 
     @staticmethod
     def backward(ctx, grad_out):
-        needs = ctx.needs_input_grad[1:]
+        needs = ctx.needs_input_grad[2:]
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, needs)]
-            out = _logpdf_fused_impl(*leaves, ctx.B, PLAIN_PHASES)
+            out = _logpdf_fused_impl(*leaves, ctx.B, LOGPDF_PHASES[ctx.phase2][2])
             wrt = [t for t, n in zip(leaves, needs) if n]
             grads = iter(torch.autograd.grad(out, wrt, grad_out, allow_unused=True))
-        return (None, *(next(grads) if n else None for n in needs))
+        return (None, None, *(next(grads) if n else None for n in needs))
 
 
 def _forward_view(model, y=None):
@@ -326,24 +325,31 @@ def _fused_leaves(model, y):
     return (A, a, Q, H, h, s, y, t.x0.mean, t.x0.cov)
 
 
-def logpdf(model, y, *, n_blocks=None, fused=None):
+def logpdf(model, y, *, n_blocks=None, fused=None, phase2=None):
     """Block-parallel logpdf, either ordering (a reverse-ordered model
     through `_forward_view`). `fused=None` runs the kernels when the model's
     tensors are on a CUDA device (the reference's `pallas=None` picks Pallas
     on the TPU); `fused=False` runs the plain PyTorch blocked schedule: for
     Fill models K1-K3's plain versions, for per-step (A, a, Q) the lane path
     (the reference's `_logpdf_xla` with `pallas=False`). Models the kernels
-    do not take (D > 3, per-step H) run the matrix path."""
-    _check_general_model(model)
+    do not take (D > 3, per-step H) run the matrix path.
+
+    `phase2="sqrt"` runs the prefix over the block aggregates in the
+    square-root algebra (ops/sqrt.py) in tensor ops, in place of K2: on the
+    card between K1 and K3 (streamed or not), with `fused=False` between
+    their plain versions; the matrix path runs it in its phase 2."""
+    check_scalar_emissions(model)
+    if phase2 not in LOGPDF_PHASES:
+        raise ValueError(f"unknown phase2 {phase2!r}")
     model, y = _forward_view(model, y)
     if not _streamed_supported(model):
-        return _logpdf_matrix(model, y, _blocks(model, n_blocks, False))
+        return _logpdf_matrix(model, y, _blocks(model, n_blocks, False), phase2)
     fused = _use_kernels(model, fused)
     B = _blocks(model, n_blocks, fused or _pallas_supported(model))
     leaves = _fused_leaves(model, y)
     if fused:
-        return _LogpdfFused.apply(B, *leaves)
-    return _logpdf_fused_impl(*leaves, B, PLAIN_PHASES)
+        return _LogpdfFused.apply(B, phase2, *leaves)
+    return _logpdf_fused_impl(*leaves, B, LOGPDF_PHASES[phase2][2])
 
 
 def _fwd_grad_supported(model, model_tangents) -> bool:
@@ -428,14 +434,6 @@ def logpdf_fwd_grad(model, y, model_tangents, *, n_blocks=None):
 # elements, states and transitions as batched (B, ...) tensors
 # ---------------------------------------------------------------------------
 
-def _mT(X):
-    return X.transpose(-1, -2)
-
-
-def _mv(A, x):
-    return torch.einsum("...ij,...j->...i", A, x)
-
-
 def _blocked_leaves(model, y, B):
     """((A, a, Q, H, h, s, y) as (L, B, ...) tensors, compensation): the
     reference's `_pad_tail` and `_split_tree`. A Fill leaf pads with its own
@@ -474,81 +472,53 @@ def _step_elements(A, a, Q, H, h, s, y):
                                                    / S[..., None, None]))
 
 
-def _minv(C, J):
-    """(I + C J)^{-1}, batched; C, J symmetric PSD (the reference's
-    `assoc._minv`): a plain inverse for D <= 3, else a Cholesky congruence
-    with the reference's jitter, C = Lc Lc^T, (I + C J)^{-1} =
-    Lc (I + Lc^T J Lc)^{-1} Lc^{-1}."""
-    D = C.shape[-1]
-    I = torch.eye(D, dtype=C.dtype, device=C.device)
-    if D <= 3:
-        return torch.linalg.inv(I + C @ J)
-    Cs = symmetrize(C)
-    if C.dtype == torch.float64:
-        eps = 1e-10
-    else:  # scaled to the covariance's magnitude, as the reference does in float32
-        eps = 3e-6 * torch.diagonal(Cs, dim1=-2, dim2=-1).abs().amax(-1).clamp_min(1.0)
-        eps = eps[..., None, None]
-    Lc = torch.linalg.cholesky(Cs + eps * I)
-    Ls = torch.linalg.cholesky(symmetrize(_mT(Lc) @ J @ Lc) + I)
-    Lc_inv = torch.linalg.solve_triangular(Lc, I.expand(Lc.shape), upper=False)
-    return Lc @ torch.cholesky_solve(Lc_inv, Ls)
+def _phase2_prefix(elems, phase2=None):
+    """Inclusive prefix of an element tuple with the prior element first (the
+    reference's `_phase2_prefix`); phase2="sqrt" combines in the square-root
+    algebra (ops/sqrt.py), whose covariances stay PSD by construction, and
+    returns the covariance form."""
+    if phase2 == "sqrt":
+        sqrt.check_dim(elems[0].shape[-1])
+        return sqrt.from_sqrt_element(
+            _associative_scan(sqrt._combine_sqrt, sqrt.to_sqrt_element(elems)))
+    return _associative_scan(_combine_filter, elems)
 
 
-def _combine_filter(e_i, e_j):
-    """Filtering elements combined, e_i first (the reference's
-    `assoc._combine_filter`), batched."""
-    A_i, b_i, C_i, eta_i, J_i = e_i
-    A_j, b_j, C_j, eta_j, J_j = e_j
-    M = _minv(C_i, J_j)
-    AjM = A_j @ M
-    MAi = M @ A_i
-    return (A_j @ MAi, _mv(AjM, b_i + _mv(C_i, eta_j)) + b_j,
-            symmetrize(AjM @ C_i @ _mT(A_j) + C_j),
-            _mv(_mT(MAi), eta_j - _mv(J_j, b_i)) + eta_i,
-            symmetrize(_mT(MAi) @ J_j @ A_i + J_i))
-
-
-def _combine_affine(e_i, e_j):
-    """Affine-Gaussian maps composed, e_i first (`assoc._combine_affine`)."""
-    A_i, b_i, C_i = e_i
-    A_j, b_j, C_j = e_j
-    return A_j @ A_i, _mv(A_j, b_i) + b_j, symmetrize(A_j @ C_i @ _mT(A_j) + C_j)
-
-
-def _associative_scan(combine, elems):
-    """Inclusive prefix of the tuple `elems` along axis 0 in the association
-    of the reference's `jax.lax.associative_scan`: adjacent pairs combined,
-    their prefix recursively, then the even positions from it; log2 depth,
-    the earlier operand always on the left."""
-    n = elems[0].shape[0]
-    if n < 2:
-        return elems
-    odd = _associative_scan(combine, combine(tuple(x[0:-1:2] for x in elems),
-                                             tuple(x[1::2] for x in elems)))
-    later = tuple(x[2::2] for x in elems)
-    even = combine(tuple(x[:-1] for x in odd) if n % 2 == 0 else odd, later)
-    out = []
-    for x, e, o in zip(elems, even, odd):
-        e = torch.cat([x[:1], e])
-        merged = x.new_empty((e.shape[0] + o.shape[0], *x.shape[1:]))
-        merged[0::2], merged[1::2] = e, o
-        out.append(merged)
-    return tuple(out)
-
-
-def _prefix_from(prior, aggs, combine):
-    """Exclusive block starts (m, P), each (B, ...): the prefix of the
-    prior element and the B aggregates, without its last entry."""
-    elems = tuple(torch.cat([p, a]) for p, a in zip(prior, aggs))
-    pref = _associative_scan(combine, elems)
+def _prefix_from(prior, aggs, scan):
+    """Exclusive block starts (m, P), each (B, ...): the prefix (`scan` of
+    an element tuple) of the prior element and the B aggregates, without its
+    last entry."""
+    pref = scan(tuple(torch.cat([p, a]) for p, a in zip(prior, aggs)))
     return pref[1][:-1], pref[2][:-1]
 
 
-def _matrix_starts(model, blocked):
+def _phase2_starts_sqrt(comps, x0_mean, x0_cov, D):
+    """K2's function in the square-root algebra: (K, B) block aggregate rows
+    -> (SD, B) block-start states."""
+    B, DD = comps.shape[1], D * D
+    rows = comps.T
+    agg = (rows[:, :DD].reshape(B, D, D), rows[:, DD:DD + D],
+           rows[:, DD + D:2 * DD + D].reshape(B, D, D), rows[:, 2 * DD + D:2 * DD + 2 * D],
+           rows[:, 2 * DD + 2 * D:].reshape(B, D, D))
+    m, P = _prefix_from(_prior_element(Gaussian(x0_mean, x0_cov), D, comps), agg,
+                        lambda e: _phase2_prefix(e, "sqrt"))
+    return _gaussian_to_comps(Gaussian(m, P))
+
+
+# logpdf's phases by its phase2: (the kernels on constant parameters, their
+# streamed forms, the plain versions).
+LOGPDF_PHASES = {
+    None: (KERNEL_PHASES, STREAMED_PHASES, PLAIN_PHASES),
+    "sqrt": tuple(p._replace(phase2_starts=_phase2_starts_sqrt)
+                  for p in (KERNEL_PHASES, STREAMED_PHASES, PLAIN_PHASES)),
+}
+
+
+def _matrix_starts(model, blocked, phase2=None):
     """Phases 1 and 2 of the matrix path: each block's fold of its step
     elements from the identity, then the prefix with the prior element
-    (0, m0, P0, 0, 0) in front; the (B, D), (B, D, D) block starts."""
+    (0, m0, P0, 0, 0) in front (`_phase2_prefix`); the (B, D), (B, D, D)
+    block starts."""
     A, a, Q, H, h, s, y = blocked
     L, B, D = A.shape[0], A.shape[1], model.latent_dim
     dtype, device = model.dtype, model.device
@@ -557,30 +527,21 @@ def _matrix_starts(model, blocked):
     agg = (torch.eye(D, dtype=dtype, device=device).expand(B, D, D), zvec, zmat, zvec, zmat)
     for l in range(L):
         agg = _combine_filter(agg, _step_elements(A[l], a[l], Q[l], H[l], h[l], s[l], y[l]))
-    x0 = model.trans.x0
-    prior = (zmat[:1], x0.mean[None].to(dtype), symmetrize(x0.cov)[None].to(dtype),
-             zvec[:1], zmat[:1])
-    return _prefix_from(prior, agg, _combine_filter)
+    return _prefix_from(_prior_element(model.trans.x0, D, zmat), agg,
+                        lambda e: _phase2_prefix(e, phase2))
 
 
 def _kalman_steps(m, P, A, a, Q, H, h, s, y):
     """Predict and scalar update of every block, (B, ...) tensors (the
     reference's `lgc.predict` and `lgc.posterior_and_lml_scalar`)."""
-    m = _mv(A, m) + a
-    P = symmetrize(A @ symmetrize(P) @ _mT(A) + Q)
-    V = torch.einsum("...j,...jk->...k", H, P)
-    sqrtS = torch.sqrt((V * H).sum(-1) + s)
-    Bv = V / sqrtS[..., None]
-    alpha = (y - ((H * m).sum(-1) + h)) / sqrtS
-    lml = -0.5 * (_LOG2PI + 2.0 * torch.log(sqrtS) + alpha * alpha)
-    return m + Bv * alpha[..., None], P - Bv[..., :, None] * Bv[..., None, :], lml
+    return _scalar_update(_mv(A, m) + a, A @ symmetrize(P) @ _mT(A) + Q, H, h, s, y)
 
 
-def _logpdf_matrix(model, y, B):
+def _logpdf_matrix(model, y, B, phase2=None):
     """lml on the matrix path (the reference's `_logpdf_xla` for models the
     lane path does not take)."""
     blocked, comp = _blocked_leaves(model, y, B)
-    m, P = _matrix_starts(model, blocked)
+    m, P = _matrix_starts(model, blocked, phase2)
     acc = m.new_zeros(m.shape[0])
     for step in zip(*blocked):
         m, P, lml = _kalman_steps(m, P, *step)
@@ -655,7 +616,7 @@ def filter_(model, y, *, n_blocks=None, fused=None) -> Gaussian:
     padding steps observe nothing, so the real steps' states are exact. A
     reverse-ordered model's are those of its iteration view (`_forward_view`),
     flipped back to time order."""
-    _check_general_model(model)
+    check_scalar_emissions(model)
     view, y = _forward_view(model, y)
     if not _streamed_supported(view):
         xf = _filter_matrix(view, y, _blocks(view, n_blocks, False))
@@ -677,17 +638,15 @@ def posterior(model, y, *, n_blocks=None, fused=None):
     adjugate inverse of ops/lanes.py and POSTERIOR_JITTER (the reference's
     `_posterior_pallas`). Otherwise the matrix filter and the batched
     Cholesky inversion of models.lgssm (the reference's `block.posterior`).
-    A reverse-ordered model's posterior runs the sequential engine only (the
-    reference's block engine takes its associative one there)."""
-    _check_general_model(model)
+    A reverse-ordered model's posterior is the associative engine's
+    (ops/assoc.py), as the reference's block engine hands it there."""
+    check_scalar_emissions(model)
     if not model.trans.forward:
-        raise NotImplementedError(
-            "the block posterior of a reverse-ordered model needs the associative "
-            "engine (ROADMAP Queue 1 item 10); engine=\"sequential\" takes it")
+        return assoc.posterior(model, y)
     if not _streamed_supported(model):
         return _reversed_model_matrix(
-            model, _filter_matrix(model, y, _blocks(model, n_blocks, False)))
-    return _reversed_model(model, _filter_state_comps(model, y, n_blocks, fused))
+            model, _filter_matrix(model, y, _blocks(model, n_blocks, False)))[0]
+    return _reversed_model(model, _filter_state_comps(model, y, n_blocks, fused))[0]
 
 
 def _components(X, D):
@@ -695,9 +654,12 @@ def _components(X, D):
     return tuple(tuple(X[..., r, c] for c in range(D)) for r in range(D))
 
 
-def _reversed_model(model, xf):
-    """The reverse-ordered posterior LGSSM from the (SD, N) filtering states,
-    the transitions constant (0-dim components) or per step ((N,) ones).
+def _reversed_model(model, xf, jitter=POSTERIOR_JITTER):
+    """(posterior, predictions): the reverse-ordered posterior LGSSM from the
+    (SD, N) filtering states, the transitions constant (0-dim components) or
+    per step ((N,) ones), and the predicted state of every step (float64,
+    stacked) that it inverts the dynamics against, `jitter` on each
+    predicted covariance (the Fisher gradient's exact smoother passes 0).
     Computed in float64 whatever the model's dtype, then stored in it: Q_rev
     is a difference of nearly equal covariances (at a merged step of dt = 0,
     of equal ones), which float32 cannot form."""
@@ -716,7 +678,7 @@ def _reversed_model(model, xf):
     a_c = tuple(value(t.offs)[..., i] for i in range(D))
     mp = lanes.vadd(lanes.mv(A_c, m_prev), a_c)
     Pp = lanes.madd(lanes.sym(lanes.mmT(lanes.mm(A_c, P_prev), A_c)), Q_c)
-    Ppj = tuple(tuple(Pp[r][c] + (POSTERIOR_JITTER if r == c else 0.0) for c in range(D))
+    Ppj = tuple(tuple(Pp[r][c] + (jitter if r == c else 0.0) for c in range(D))
                 for r in range(D))
     G = lanes.mm(lanes.inv(Ppj), lanes.mm(A_c, P_prev))
     A_rev = tuple(tuple(G[c][r] for c in range(D)) for r in range(D))
@@ -727,49 +689,13 @@ def _reversed_model(model, xf):
     narrow = lambda x: x.to(model.dtype)
     trans = GaussMarkov(As=narrow(_mat_to_array(A_rev)), offs=narrow(torch.stack(a_rev, dim=-1)),
                         Qs=narrow(_mat_to_array(Q_rev)), x0=x_last, forward=False)
-    return LGSSM(trans, model.emis)
-
-
-def _reversed_model_matrix(model, xf: Gaussian):
-    """The reverse-ordered posterior LGSSM from the stacked filtering states:
-    the predicted state of every step and `models.lgssm._invert_dynamics`,
-    batched over the N steps, in float64 as `_reversed_model` computes."""
-    from ..models.lgssm import _invert_dynamics
-
-    t, x0 = model.trans, model.trans.x0
-    wide = lambda x: x.to(torch.float64)
-    prev = Gaussian(wide(torch.cat([x0.mean[None].to(xf.mean), xf.mean[:-1]])),
-                    wide(torch.cat([symmetrize(x0.cov)[None].to(xf.cov), xf.cov[:-1]])))
-    F, c, Q = (wide(tmaterialize(leaf)) for leaf in (t.As, t.offs, t.Qs))
-    xp = Gaussian(_mv(F, prev.mean) + c, symmetrize(F @ symmetrize(prev.cov) @ _mT(F) + Q))
-    A_rev, a_rev, Q_rev = (x.to(model.dtype) for x in _invert_dynamics(prev, xp, F))
-    trans = GaussMarkov(As=A_rev, offs=a_rev, Qs=Q_rev,
-                        x0=Gaussian(xf.mean[-1], xf.cov[-1]), forward=False)
-    return LGSSM(trans, model.emis)
+    return LGSSM(trans, model.emis), Gaussian(torch.stack(mp, dim=-1), _mat_to_array(Pp))
 
 
 def _marginals_supported(model) -> bool:
     """The models the affine kernels take: D <= 3 (any ordering, Fill or
     per-step parameters)."""
     return model.latent_dim <= 3
-
-
-def _iteration_view(model):
-    """The model's transitions (F, c, Q), each (N, ...), in iteration order.
-
-    A forward model transitions, then emits, so state t includes transition
-    t. A reverse model emits, then transitions: flipped to iteration order
-    and shifted by one with the identity map first (its x0 is already the
-    state at the last step), dropping the transition out of step 0 (the
-    reference's `assoc._iteration_view`)."""
-    t = model.trans
-    F, c, Q = (tmaterialize(leaf) for leaf in (t.As, t.offs, t.Qs))
-    if t.forward:
-        return F, c, Q
-    D = model.latent_dim
-    eye = torch.eye(D, dtype=F.dtype, device=F.device)
-    return (torch.cat([eye[None], F.flip(0)[:-1]]), torch.cat([c.new_zeros(1, D), c.flip(0)[:-1]]),
-            torch.cat([Q.new_zeros(1, D, D), Q.flip(0)[:-1]]))
 
 
 def _affine_comps_iteration(model, B):
@@ -810,7 +736,7 @@ def affine_prefix_states(F, c, Q, x0_mean, x0_cov, *, n_blocks=None) -> Gaussian
     for l in range(L):
         agg = _combine_affine(agg, (Fb[l], cb[l], Qb[l]))
     prior = (F.new_zeros(1, D, D), x0_mean[None].to(F), symmetrize(x0_cov)[None].to(F))
-    m, P = _prefix_from(prior, agg, _combine_affine)
+    m, P = _prefix_from(prior, agg, lambda e: _associative_scan(_combine_affine, e))
     ms, Ps = [], []
     for l in range(L):
         m = _mv(Fb[l], m) + cb[l]
@@ -858,7 +784,7 @@ def rand_with_eps(model, eps_t, eps_e, x_init, *, n_blocks=None):
     states are the mean rows of K8 -> K9 -> K10 on the (KT, L, B) rows of
     (F, b, 0) from (x_init, 0): the covariance rows stay exactly zero and
     are dropped. For D > 3 the matrix `affine_prefix_states`."""
-    _check_general_model(model)
+    check_scalar_emissions(model)
     forward = model.trans.forward
     F, b = _sample_maps(model, eps_t)
     eps_e = eps_e if forward else eps_e.flip(0)
@@ -873,19 +799,6 @@ def rand_with_eps(model, eps_t, eps_e, x_init, *, n_blocks=None):
                                   n_blocks=n_blocks).mean
     ys = conditional_rand_scalar(eps_e, xs, *_emissions_iteration(model))
     return ys if forward else ys.flip(0)
-
-
-def _sample_maps(model, eps_t):
-    """(F, b), each (N, ...): the iteration view's maps x -> F x + b of the
-    sample that the normals eps_t (N, D, indexed by time) give,
-    b = c + chol(Q + RAND_JITTER I) eps_t; a reverse-ordered model's eps_t
-    flipped and shifted by one with a zero first, as its transitions are.
-    The factor is psd.cholesky's, as in the sequential engine's
-    `lgc.conditional_rand`: a Q that is not positive definite raises."""
-    F, c, Q = _iteration_view(model)
-    if not model.trans.forward:
-        eps_t = torch.cat([torch.zeros_like(eps_t[:1]), eps_t.flip(0)[:-1]])
-    return F, c + _mv(psd.cholesky(psd.add_jitter(symmetrize(Q), RAND_JITTER)), eps_t)
 
 
 def latent_marginals(model, *, n_blocks=None, fused=None) -> Gaussian:

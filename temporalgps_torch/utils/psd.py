@@ -25,9 +25,47 @@ def cholesky(P):
     return torch.linalg.cholesky(P)
 
 
+def tri_solve(L, B):
+    """Solve L X = B for lower-triangular L; batched."""
+    return torch.linalg.solve_triangular(L, B, upper=False)
+
+
 def chol_solve(L, B):
-    """Solve (L L^T) X = B given the lower Cholesky factor L; batched."""
-    return torch.cholesky_solve(B, L)
+    """Solve (L L^T) X = B given the lower Cholesky factor L; batched: two
+    triangular solves, as the reference's. (torch.cholesky_solve's batched
+    CUDA path is far slower on many small systems:
+    probes/torch_fisher_ops.py.)"""
+    return torch.linalg.solve_triangular(L.transpose(-1, -2), tri_solve(L, B), upper=True)
+
+
+def _chol_unrolled(P, D):
+    """Closed-form Cholesky factor for D <= 4, elementwise over leading axes,
+    that takes semidefinite P: each pivot clamped at 0, the column below a
+    zero pivot zero."""
+    L = [[None] * D for _ in range(D)]
+    for j in range(D):
+        s = P[..., j, j] - sum(L[j][k] * L[j][k] for k in range(j))
+        L[j][j] = torch.sqrt(torch.clamp_min(s, 0.0))
+        inv = torch.where(L[j][j] > 0, 1.0 / torch.where(L[j][j] > 0, L[j][j], 1.0), 0.0)
+        for i in range(j + 1, D):
+            L[i][j] = (P[..., i, j] - sum(L[i][k] * L[j][k] for k in range(j))) * inv
+    zero = torch.zeros_like(P[..., 0, 0])
+    return torch.stack([torch.stack([L[i][j] if j <= i else zero for j in range(D)], dim=-1)
+                        for i in range(D)], dim=-2)
+
+
+def psd_root(P):
+    """A square root U, U U^T = P, of a symmetric PSD P that may be singular
+    (the zero covariance of the prior element, a zero process noise): the
+    unrolled semidefinite Cholesky factor for D <= 4, else the symmetric
+    eigendecomposition with its eigenvalues clamped at 0 (the reference's
+    `psd.psd_root`)."""
+    P = symmetrize(P)
+    D = P.shape[-1]
+    if D <= 4:
+        return _chol_unrolled(P, D)
+    w, V = torch.linalg.eigh(P)
+    return V * torch.sqrt(torch.clamp_min(w, 0.0))[..., None, :]
 
 
 def block_diag(mats):

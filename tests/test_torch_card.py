@@ -790,3 +790,132 @@ def test_posterior_of_a_reverse_ordered_model_takes_the_sequential_engine(cuda_d
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0,
                                    atol=1e-10 * w.abs().max().item())
+
+
+def _c2_model_fn(device, N):
+    """c2's builder, (s2 * Matern52()).stretch(sc) with noise, float64, on
+    RegularSpacing(0, 1e-3, N)."""
+    def model_fn(p):
+        s2, sc, noise = torch.exp(p)
+        return build_lgssm(to_sde(GP((s2 * Matern52()).stretch(sc)), device=device)(
+            tt.RegularSpacing(0.0, 1e-3, N), noise))
+
+    return model_fn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["block", "parallel"])
+def test_value_and_grad_fisher_on_card_matches_cpu(cuda_device, engine):
+    """value_and_grad_fisher of c2's builder at N = 2000 with NaNs, float64.
+    engine="block" launches K1-K3 for the value, then K1, K2, K7 (the
+    filter) and K8-K10 (the latent marginals of the posterior inverted from
+    it); "parallel" K1-K3 only. Value and gradient within 1e-10 and 1e-8 of the
+    CPU port, the gradient within 1e-6 of the forward mode's (K4-K6)."""
+    from temporalgps_torch.learning import value_and_grad_fisher
+
+    N = 2000
+    y = np.random.default_rng(12).standard_normal(N)
+    y[[0, 17, N - 1]] = np.nan
+    p0 = torch.tensor([0.1, -0.2, math.log(0.1)], dtype=torch.float64)
+    tk.reset_launch_counts()
+    v, g = value_and_grad_fisher(_c2_model_fn(cuda_device, N), y, engine=engine)(
+        p0.to(cuda_device))
+    counts = {name: n for name, n in tk.launch_counts().items() if n}
+    want = {"phase1_aggregate": 1, "phase2_starts": 1, "phase3_lml": 1}
+    if engine == "block":
+        want = {"phase1_aggregate": 2, "phase2_starts": 2, "phase3_lml": 1, "phase3_states": 1,
+                "affine_phase1": 1, "affine_phase2_starts": 1, "affine_phase3_states": 1}
+    assert counts == want
+    v_c, g_c = value_and_grad_fisher(_c2_model_fn("cpu", N), y, engine=engine)(p0)
+    np.testing.assert_allclose(v.item(), v_c.item(), rtol=1e-10)
+    np.testing.assert_allclose(g.cpu().numpy(), g_c.numpy(), rtol=1e-8)
+    _, g_fwd = tt.value_and_grad_fwd_lgssm(_c2_model_fn(cuda_device, N), y)(p0.to(cuda_device))
+    np.testing.assert_allclose(g.cpu().numpy(), g_fwd.cpu().numpy(), rtol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("times", ["regular", "irregular"])
+def test_block_phase2_sqrt_on_card_launches_k1_and_k3(cuda_device, times):
+    """block logpdf with phase2="sqrt" on the card, float64, N = 2000 with
+    NaNs: K1 and K3 (the streamed forms for irregular times) once each around
+    the square-root phase 2, no K2; value within 1e-10 of the CPU port and
+    of the covariance-form phase 2."""
+    N = 2000
+    rng = np.random.default_rng(15)
+    t = np.cumsum(rng.uniform(0.5e-3, 1.5e-3, N)) if times == "irregular" else None
+    y = rng.standard_normal(N)
+    y[[0, 9, N - 1]] = np.nan
+
+    def run(device, **kwargs):
+        x = (tt.RegularSpacing(0.0, 1e-3, N) if t is None
+             else torch.as_tensor(t, device=device))
+        model = build_lgssm(to_sde(GP(1.3 * Matern52()), device=device)(x, 0.1))
+        model_f, y_f, _ = tmissings.transform_model_and_obs(model, torch.as_tensor(y, device=device))
+        tk.reset_launch_counts()
+        lml = tlgssm.logpdf(model_f, y_f, engine="block", **kwargs)
+        counts = {name: n for name, n in tk.launch_counts().items() if n}
+        return lml.item(), counts
+
+    v, counts = run(cuda_device, phase2="sqrt")
+    suffix = "_streamed" if times == "irregular" else ""
+    assert counts == {f"phase1_aggregate{suffix}": 1, f"phase3_lml{suffix}": 1}
+    v_c, _ = run("cpu", phase2="sqrt")
+    v_cov, _ = run(cuda_device)
+    np.testing.assert_allclose([v, v], [v_c, v_cov], rtol=1e-10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["parallel", "sqrt"])
+def test_alternative_engines_on_card_match_cpu(cuda_device, engine):
+    """engine="parallel" and "sqrt" on the card (tensor ops, no kernel):
+    logpdf, the filter and the posterior's leaves of c2's model at N = 2000,
+    float64, within 1e-10 of the CPU port, relative to the largest entry."""
+    N = 2000
+    y = np.random.default_rng(13).standard_normal(N)
+
+    def run(device):
+        model = build_lgssm(to_sde(GP(Matern52()), device=device)(
+            tt.RegularSpacing(0.0, 1e-3, N), 0.1))
+        yy = torch.as_tensor(y, device=device)
+        xf = tlgssm.filter_(model, yy, engine=engine)
+        post = tlgssm.posterior(model, yy, engine=engine)
+        return [tlgssm.logpdf(model, yy, engine=engine).reshape(1), xf.mean, xf.cov,
+                post.trans.As, post.trans.offs, post.trans.Qs]
+
+    tk.reset_launch_counts()
+    got = run(cuda_device)
+    assert sum(tk.launch_counts().values()) == 0
+    for a, b in zip(got, run("cpu")):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-10,
+                                   atol=1e-10 * b.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_block_posterior_of_a_reverse_model_on_card_matches_cpu(cuda_device):
+    """c2's posterior (reverse-ordered, from K1, K2, K7 and the reversal)
+    conditioned again with engine="block", float64, N = 2000: the
+    associative engine, no kernel launched; its leaves within 1e-10 of the
+    CPU port's and within 1e-9 of the CPU's sequential engine's, relative to
+    the largest entry."""
+    N = 2000
+    y = np.random.default_rng(14).standard_normal(N)
+    y[[3, N - 1]] = np.nan
+
+    def run(device, engine):
+        model = build_lgssm(to_sde(GP(Matern52()), device=device)(
+            tt.RegularSpacing(0.0, 1e-3, N), 0.1))
+        model_f, y_f, _ = tmissings.transform_model_and_obs(model, torch.as_tensor(y, device=device))
+        post = tlgssm.posterior(model_f, y_f, engine=engine)
+        if device != "cpu":
+            tk.reset_launch_counts()
+        again = tlgssm.posterior(post, y_f, engine=engine)
+        t = again.trans
+        assert t.forward
+        return [t.As, t.offs, t.Qs, t.x0.mean, t.x0.cov]
+
+    got = run(cuda_device, "block")
+    assert sum(tk.launch_counts().values()) == 0
+    for engine, rtol in (("block", 1e-10), ("sequential", 1e-9)):
+        for a, b in zip(got, run("cpu", engine)):
+            np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=rtol,
+                                       atol=rtol * b.abs().max().item())

@@ -142,9 +142,9 @@ def test_logpdf_and_marginals_match_reference(name, irregular, custom_mean):
     path for D = 5, and the fused Function over the wrappers' plain
     versions) against the reference's sequential engine; the prior marginals
     likewise; the posterior marginals at the training inputs against the
-    reference's sequential engine, and for D = 5 on the block engine against
-    the reference's block engine (both matrix paths add the same jitter to
-    each combine, 1e-10, which moves them ~4e-9 from the sequential value)."""
+    reference's sequential engine on both port engines (for D = 5 the
+    port's matrix path inverts without the reference block engine's jitter,
+    which moves that engine ~4e-9 from the sequential value)."""
     jfx, tfx = fxs(name, irregular, custom_mean)
     y = make_y()
     want = float(jitted(japi.logpdf, engine="sequential")(jfx, jnp.asarray(y)))
@@ -157,9 +157,8 @@ def test_logpdf_and_marginals_match_reference(name, irregular, custom_mean):
         close(m, m_ref)
         close(v, v_ref)
     fxp = tpost.posterior(tfx, y)(tfx.x, 0.2)
+    ref = _posterior_marginals_ref(name, "sequential", irregular, custom_mean)
     for engine in ("sequential", "block"):
-        ref_engine = engine if name == "sum5" else "sequential"
-        ref = _posterior_marginals_ref(name, ref_engine, irregular, custom_mean)
         for got, want in zip(tpost.marginals(fxp, engine=engine), ref):
             close(got, want)
 

@@ -110,7 +110,7 @@ def test_engine_resolution_on_cpu_is_sequential():
     assert tlgssm._resolve_engine(None, model) == "sequential"
     assert tlgssm._resolve_engine("block", model) == "block"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlgssm.logpdf(model, torch.zeros(N, dtype=torch.float64), engine="parallel")
+        tlgssm.logpdf(model, torch.zeros(N, dtype=torch.float64), engine="steady")
 
 
 def _spec(k):

@@ -225,7 +225,7 @@ def test_routes_the_port_does_not_take_raise():
     for got, want in ((post.trans.As, post_seq.trans.As), (post.trans.offs, post_seq.trans.offs),
                       (post.trans.Qs, post_seq.trans.Qs)):
         _close(got, want, rtol=1e-10)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 8"):
         tlgssm.marginals_diag(model, engine="lti")
     with pytest.raises(NotImplementedError, match="item 7"):
         tpost.posterior(tf(x_tr, noise_tr), y)(np.zeros((3, 2)))
