@@ -33,6 +33,12 @@ identity's gradient, whose cost does not grow with the number of
 hyperparameters (learning.value_and_grad_fisher: the posterior, its
 marginals and the filter, engine="block" on K1-K3, K7 and K8-K10).
 
+Space-time GPs (space_time/): `Separable(EQ().stretch(0.7), Matern52())` on a
+`RectilinearGrid(points, times)` compiles to an LGSSM of D = Ns * Dt states
+with Ns observations a step (DenseEmissions); the same verbs take and give
+flat (space-fastest) vectors, and `posterior` predicts at new times on the
+same spatial points.
+
 Engines: "block" (the kernels), "sequential" (the ground truth, a loop over
 time), "parallel" (an associative scan over all N steps, ops/assoc.py) and
 "sqrt" (the same in square-root form, ops/sqrt.py), chosen per call with
@@ -41,6 +47,7 @@ time), "parallel" (an associative scan over all N steps, ops/assoc.py) and
 The JAX package temporalgps_tpu is the reference this port is held to.
 """
 
+from . import space_time
 from .gp.lti_sde import logpdf, marginals, mean, mean_and_var, rand, var
 from .gp.posterior import posterior
 from .learning import (
@@ -55,6 +62,7 @@ from .learning import (
 from .utils.regular_spacing import RegularSpacing
 
 __all__ = [
+    "space_time",
     "RegularSpacing",
     "logpdf",
     "rand",

@@ -8,7 +8,7 @@ import torch
 
 from .gp import kernels as K
 from .gp import means
-from .models.emissions import ScalarEmissions
+from .models.emissions import DenseEmissions, ScalarEmissions
 from .models.gauss_markov import GaussMarkov
 from .models.lgssm import LGSSM
 from .utils.fill import Fill
@@ -22,6 +22,15 @@ def _leaf(value, N, time_ndim, dtype, device):
     return Fill(t, N) if t.ndim == time_ndim else t
 
 
+def _trans_from_numpy(As, offs, Qs, x0_mean, x0_cov, N, dtype, device, forward):
+    leaf = lambda v, nd: _leaf(v, N, nd, dtype, device)
+    x0 = Gaussian(
+        torch.tensor(np.asarray(x0_mean), dtype=dtype, device=device),
+        torch.tensor(np.asarray(x0_cov), dtype=dtype, device=device),
+    )
+    return GaussMarkov(As=leaf(As, 2), offs=leaf(offs, 1), Qs=leaf(Qs, 2), x0=x0, forward=forward)
+
+
 def lgssm_from_numpy(As, offs, Qs, H, h, s, x0_mean, x0_cov, N, *, dtype, device="cuda",
                      forward=True):
     """The port's LGSSM from the reference LGSSM's leaves: each of As (D, D),
@@ -32,14 +41,18 @@ def lgssm_from_numpy(As, offs, Qs, H, h, s, x0_mean, x0_cov, N, *, dtype, device
     reference's jax.jvp of its model function) come across the same way. On
     the card unless the caller passes device="cpu"."""
     leaf = lambda v, nd: _leaf(v, N, nd, dtype, device)
-    x0 = Gaussian(
-        torch.tensor(np.asarray(x0_mean), dtype=dtype, device=device),
-        torch.tensor(np.asarray(x0_cov), dtype=dtype, device=device),
-    )
-    return LGSSM(
-        GaussMarkov(As=leaf(As, 2), offs=leaf(offs, 1), Qs=leaf(Qs, 2), x0=x0, forward=forward),
-        ScalarEmissions(H=leaf(H, 1), h=leaf(h, 0), s=leaf(s, 0)),
-    )
+    return LGSSM(_trans_from_numpy(As, offs, Qs, x0_mean, x0_cov, N, dtype, device, forward),
+                 ScalarEmissions(H=leaf(H, 1), h=leaf(h, 0), s=leaf(s, 0)))
+
+
+def dense_lgssm_from_numpy(As, offs, Qs, H, h, S, x0_mean, x0_cov, N, *, dtype, device="cuda",
+                           forward=True):
+    """`lgssm_from_numpy` for a reference LGSSM with DenseEmissions (a
+    space-time model): H (Dout, D), h (Dout,) and S (Dout, Dout), each a Fill
+    value or per step."""
+    leaf = lambda v, nd: _leaf(v, N, nd, dtype, device)
+    return LGSSM(_trans_from_numpy(As, offs, Qs, x0_mean, x0_cov, N, dtype, device, forward),
+                 DenseEmissions(H=leaf(H, 2), h=leaf(h, 1), S=leaf(S, 2)))
 
 
 def tangent_lgssms_from_numpy(tangent_leaves, N, *, dtype, device="cuda"):
@@ -49,17 +62,24 @@ def tangent_lgssms_from_numpy(tangent_leaves, N, *, dtype, device="cuda"):
             for leaves in tangent_leaves]
 
 
-_ATOMS = {"Matern12": K.Matern12, "Matern32": K.Matern32, "Matern52": K.Matern52}
+_ATOMS = {"Matern12": K.Matern12, "Matern32": K.Matern32, "Matern52": K.Matern52, "EQ": K.EQ}
 
 
 def kernel_from_spec(spec):
     """The port's kernel from a nested spec of names and numpy scalars:
-    ("Matern12",), ("Matern32",), ("Matern52",), ("Scaled", child, sigma2),
-    ("Stretched", child, s), ("Sum", (child, ...)) or ("Product", (child,
-    ...)). Hyperparameters become Python floats."""
+    ("Matern12",), ("Matern32",), ("Matern52",), ("EQ",), ("Scaled", child,
+    sigma2), ("Stretched", child, s), ("Sum", (child, ...)), ("Product",
+    (child, ...)) or ("Separable", space_child, time_child).
+    Hyperparameters become Python floats."""
     name = spec[0]
     if name in _ATOMS:
         return _ATOMS[name]()
+    if name == "Separable":
+        from .space_time import Separable
+
+        return Separable(kernel_from_spec(spec[1]), kernel_from_spec(spec[2]))
+    if name == "DTCSeparable":
+        raise NotImplementedError("DTCSeparable is not ported yet (ROADMAP Queue 1 item 8)")
     if name == "Scaled":
         return K.Scaled(kernel_from_spec(spec[1]), float(np.asarray(spec[2])))
     if name == "Stretched":

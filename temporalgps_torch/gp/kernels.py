@@ -5,8 +5,9 @@ Ported: Matern12 (state dim 1), Matern32 (2), Matern52 (3), and the
 combinators Scaled (`sigma2 * k`), Stretched (`k.stretch(s)`), Sum
 (`k1 + k2`, the direct sum of the children's state spaces, composed by
 gp.lti_sde.lgssm_components) and Product (`k1 * k2`, the Kronecker product
-of their states). Cosine, Constant, ApproxPeriodic and EQ wait for ROADMAP
-Queue 1 item 9 (EQ's spatial gram for item 7). Hyperparameters are stored as
+of their states). EQ has its dense gram, the spatial factor of a space-time
+`Separable` kernel (space_time/); its SDE, Cosine, Constant and
+ApproxPeriodic wait for ROADMAP Queue 1 item 9. Hyperparameters are stored as
 given (Python floats or tensors, which may require grad); they are cast to
 the model's dtype and device where the model is built.
 
@@ -25,7 +26,7 @@ import torch
 from ..utils import psd
 
 _NOT_PORTED = ("is not ported yet: Cosine, Constant, ApproxPeriodic and EQ's SDE wait for "
-               "ROADMAP Queue 1 item 9, EQ's spatial gram for item 7")
+               "ROADMAP Queue 1 item 9")
 
 
 class Kernel:
@@ -65,6 +66,12 @@ class Matern32(Kernel):
 @dataclasses.dataclass(frozen=True, eq=False)
 class Matern52(Kernel):
     pass
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class EQ(Kernel):
+    """The squared-exponential kernel exp(-|x - y|^2 / 2), spatial use only:
+    it has no finite SDE."""
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -113,6 +120,9 @@ def gram(k: Kernel, x, y=None):
     if isinstance(k, Matern52):
         tau = _pairwise_dist(x, y) * math.sqrt(5.0)
         return (1.0 + tau + tau * tau / 3.0) * torch.exp(-tau)
+    if isinstance(k, EQ):
+        tau = _pairwise_dist(x, y)
+        return torch.exp(-0.5 * tau * tau)
     if isinstance(k, Scaled):
         return k.sigma2 * gram(k.kernel, x, y)
     if isinstance(k, Stretched):
@@ -130,7 +140,7 @@ def gram(k: Kernel, x, y=None):
 def gram_diag(k: Kernel, x):
     """diag(gram(k, x, x)) without the O(N^2) matrix."""
     x = torch.as_tensor(x)
-    if isinstance(k, (Matern12, Matern32, Matern52)):
+    if isinstance(k, (Matern12, Matern32, Matern52, EQ)):
         return torch.ones(x.shape[0], dtype=x.dtype, device=x.device)
     if isinstance(k, Scaled):
         return k.sigma2 * gram_diag(k.kernel, x)

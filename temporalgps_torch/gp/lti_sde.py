@@ -7,7 +7,10 @@ inputs into the `LGSSM` on which inference runs; `logpdf` and the prior
 one shared (A, Q) wrapped in `Fill`s; an (N,) tensor of times gives
 per-step transitions. A Sum kernel compiles to the direct sum of its
 children's chains (block-diagonal A, Q and x0 covariance, concatenated H,
-summed h); a CustomMean to a per-step emission offset h.
+summed h); a CustomMean to a per-step emission offset h. A Separable kernel
+on a RectilinearGrid (space_time/) compiles to the space-time LGSSM of
+space_time/builder.py; `logpdf`, `marginals` and `rand` take and give flat
+(space-fastest) observations for it.
 
 The storage dtype and the device are explicit per model. The device is the
 CUDA card unless the caller asks for the CPU: `to_sde(f, ArrayStorage(
@@ -31,6 +34,7 @@ from ..utils import psd
 from ..utils.fill import Fill, is_fill, tmaterialize
 from ..utils.gaussian import Gaussian
 from ..utils.psd import symmetrize
+from ..space_time import grids
 from ..utils.regular_spacing import RegularSpacing, num_times, time_array
 from . import kernels as K
 from .means import ConstMean, ZeroMean, mean_vector
@@ -77,7 +81,7 @@ def to_sde(f: GP, storage=None, *, device="cuda") -> LTISDE:
 
 def _canon_noise(noise, x, dtype, device):
     """Per-observation variance: a Fill for scalar noise, (N,) otherwise."""
-    N = num_times(x)
+    N = _flat_len(x)
     if noise is None:
         return Fill(torch.tensor(DEFAULT_NOISE, dtype=dtype, device=device), N)
     if is_fill(noise):
@@ -91,11 +95,27 @@ def _canon_noise(noise, x, dtype, device):
 @dataclasses.dataclass(frozen=True, eq=False)
 class FiniteLTISDE:
     f: LTISDE
-    x: Any      # RegularSpacing or (N,) tensor of times
-    noise: Any  # Fill or (N,) tensor
+    x: Any      # RegularSpacing, (N,) tensor of times or RectilinearGrid
+    noise: Any  # Fill or (N,) tensor, one variance per (flat) observation
 
     def __len__(self):
-        return num_times(self.x)
+        return _flat_len(self.x)
+
+
+def _is_grid(x) -> bool:
+    return isinstance(x, (grids.RectilinearGrid, grids.RegularInTime))
+
+
+def _flat_len(x) -> int:
+    return grids.flat_len(x) if _is_grid(x) else num_times(x)
+
+
+def _to_time_form(x, y):
+    return grids.observations_to_time_form(x, y) if _is_grid(x) else y
+
+
+def _destructure(x, ys):
+    return grids.destructure(x, ys) if _is_grid(x) else ys
 
 
 def broadcast_components(atoms: K.SDEAtoms, x, dtype, device):
@@ -200,6 +220,10 @@ def _add_mean_to_hs(hs, mean_fn, x, dtype, device):
 
 
 def build_lgssm(fx: FiniteLTISDE) -> LGSSM:
+    if _is_grid(fx.x):
+        from ..space_time import builder
+
+        return builder.build_lgssm_spacetime(fx)
     f = fx.f
     dtype = _storage_dtype(f.storage)
     As, offs, Qs, (Hs, hs), x0 = lgssm_components(f.f.kernel, fx.x, dtype, f.device)
@@ -213,11 +237,13 @@ def build_lgssm(fx: FiniteLTISDE) -> LGSSM:
 def logpdf(fx: FiniteLTISDE, y, *, engine=None, **engine_kwargs):
     """Log marginal likelihood of y under fx; NaNs in y are missing
     observations. `engine=None` picks the block engine for a model on a CUDA
-    device (its kernels, constant or streamed; the matrix path for D > 3)
-    and the sequential engine otherwise;
-    `engine_kwargs` (`fused`, `n_blocks`) go to models.lgssm.logpdf."""
+    device (its kernels, constant or streamed; the matrix path for D > 3),
+    the parallel engine for a grid's model there (models.lgssm.
+    _resolve_engine), and the sequential engine otherwise;
+    `engine_kwargs` (`fused`, `n_blocks`) go to models.lgssm.logpdf. On a
+    grid, y is flat (space fastest)."""
     model = build_lgssm(fx)
-    y = torch.as_tensor(y, dtype=model.dtype, device=model.device)
+    y = _to_time_form(fx.x, torch.as_tensor(y, dtype=model.dtype, device=model.device))
     return missings.logpdf_with_missings(model, y, engine=engine, **engine_kwargs)
 
 
@@ -226,12 +252,11 @@ def rand(generator, fx: FiniteLTISDE, n=None, *, engine=None):
     stacked on a leading axis. The normals come from `generator`, a
     torch.Generator on the model's device (the reference takes a key).
     `engine=None` runs the affine block schedule (K8-K10 with zero process
-    noise rows) for a model on a CUDA device, the sequential engine
-    otherwise."""
+    noise rows) for a model on a CUDA device (a grid's: the parallel
+    engine), the sequential engine otherwise."""
     model = build_lgssm(fx)
-    if n is None:
-        return lgssm_mod.rand(generator, model, engine=engine)
-    return torch.stack([lgssm_mod.rand(generator, model, engine=engine) for _ in range(n)])
+    draw = lambda: _destructure(fx.x, lgssm_mod.rand(generator, model, engine=engine))
+    return draw() if n is None else torch.stack([draw() for _ in range(n)])
 
 
 def cov(fx: FiniteLTISDE):
@@ -244,8 +269,10 @@ def cov(fx: FiniteLTISDE):
 def marginals(fx: FiniteLTISDE, *, engine=None):
     """Prior marginal (means, variances) of every observation, the noise
     included. `engine=None` runs the affine block schedule (K8-K10) for a
-    model on a CUDA device and the sequential engine otherwise."""
-    return lgssm_mod.marginals_diag(build_lgssm(fx), engine=engine)
+    model on a CUDA device (a grid's: the parallel engine) and the
+    sequential engine otherwise."""
+    m, v = lgssm_mod.marginals_diag(build_lgssm(fx), engine=engine)
+    return _destructure(fx.x, m), _destructure(fx.x, v)
 
 
 def mean_and_var(fx: FiniteLTISDE, *, engine=None):

@@ -19,6 +19,12 @@ its marginals on K8-K10. Models of more than three states take the block
 engine's plain matrix path. The dense posterior covariance is refused, as
 in the reference.
 
+Grids (space_time/): a RectilinearGrid posterior merges along time only (the
+spatial points must agree) and indexes the flat (space-fastest) vectors;
+its model has D = Ns * Dt states and vector emissions, so it takes the
+matrix path. RegularInTime inputs are refused, as in the reference's exact
+inference (the pseudo-point route, ROADMAP Queue 1 item 8).
+
 Sampling and scoring new data (`rand`, `logpdf`) always merge, as the
 reference does, even at the training inputs (each time then appears twice:
 a step of dt = 0 with A = I and Q = 0). `rand` samples the reverse-ordered
@@ -35,13 +41,15 @@ import numpy as np
 import torch
 
 from ..config import LARGE_VAR
+from ..models import emissions as em
 from ..models import lgssm as lgssm_mod
 from ..models import missings as missings_mod
+from ..models.emissions import DenseEmissions, ScalarEmissions
+from ..space_time import grids
 from ..utils.fill import is_fill
-from ..utils.regular_spacing import RegularSpacing, num_times, time_array
-from .lti_sde import LTISDE, FiniteLTISDE, _canon_noise, _storage_dtype, build_lgssm
-
-_GRID_ITEM = "grid inputs (RectilinearGrid) wait for the space-time port (ROADMAP Queue 1 item 7)"
+from ..utils.regular_spacing import RegularSpacing, time_array
+from .lti_sde import (LTISDE, FiniteLTISDE, _canon_noise, _destructure, _flat_len, _is_grid,
+                      _storage_dtype, _to_time_form, build_lgssm)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -52,7 +60,7 @@ class PosteriorLTISDE:
     noise: Any
 
     def __call__(self, x_pr, noise=None):
-        _check_time_series(x_pr)
+        _check_inputs(x_pr)
         dtype = _storage_dtype(self.prior.storage)
         return FinitePosteriorLTISDE(self, x_pr, _canon_noise(noise, x_pr, dtype,
                                                                self.prior.device))
@@ -65,16 +73,23 @@ class FinitePosteriorLTISDE:
     noise: Any
 
 
-def _check_time_series(x):
-    """The inputs ported: RegularSpacing or a vector of times."""
-    if isinstance(x, RegularSpacing) or (x.ndim if hasattr(x, "ndim") else np.ndim(x)) == 1:
+def _check_inputs(x):
+    """The inputs of exact inference: RegularSpacing, a vector of times or a
+    RectilinearGrid."""
+    if isinstance(x, grids.RegularInTime):
+        raise NotImplementedError(
+            "RegularInTime inputs take the pseudo-point (DTC) route, not exact inference "
+            "(ROADMAP Queue 1 item 8)")
+    ndim = x.ndim if hasattr(x, "ndim") else np.ndim(x)
+    if isinstance(x, (RegularSpacing, grids.RectilinearGrid)) or ndim == 1:
         return
-    raise NotImplementedError(f"{type(x).__name__} inputs: {_GRID_ITEM}")
+    raise ValueError(f"inputs of {ndim} dimensions: exact inference takes RegularSpacing, "
+                     "a vector of times or a RectilinearGrid")
 
 
 def posterior(fx: FiniteLTISDE, y) -> PosteriorLTISDE:
-    """The lazy posterior of fx given y (NaN = missing)."""
-    _check_time_series(fx.x)
+    """The lazy posterior of fx given y (NaN = missing; flat on a grid)."""
+    _check_inputs(fx.x)
     dtype = _storage_dtype(fx.f.storage)
     return PosteriorLTISDE(fx.f, torch.as_tensor(y, dtype=dtype, device=fx.f.device),
                            fx.x, fx.noise)
@@ -85,56 +100,93 @@ def _noise_array(noise, N):
 
 
 def _times_of(x):
-    return time_array(x).detach().cpu().numpy()
+    return time_array(grids.get_times(x)).detach().cpu().numpy()
+
+
+def _same_points(x1, x2) -> bool:
+    """Whether two grids have the same spatial points."""
+    s1, s2 = (torch.as_tensor(x.xl).detach().cpu().numpy() for x in (x1, x2))
+    return s1.shape == s2.shape and bool(np.all(s1 == s2))
 
 
 def _same_inputs(x1, x2) -> bool:
     if x1 is x2:
         return True
+    if _is_grid(x1) != _is_grid(x2) or (_is_grid(x1) and not _same_points(x1, x2)):
+        return False
     t1, t2 = _times_of(x1), _times_of(x2)
     return t1.shape == t2.shape and bool(np.all(t1 == t2))
 
 
-def _build_inference_data(fp: PosteriorLTISDE, x_pr):
-    """Merged, time-sorted (times, noise, y with NaN at the prediction
-    points, tr_idx, pr_idx); the sort and ranks are host-side numpy."""
+def _merge_order(fp: PosteriorLTISDE, x_pr):
+    """(sorted times, rank of each training time, rank of each prediction
+    time) of the merged inputs; host-side numpy."""
     t_tr, t_pr = _times_of(fp.x), _times_of(x_pr)
-    n_tr, n_pr = len(t_tr), len(t_pr)
     t_all = np.concatenate([t_tr, t_pr])
     order = np.argsort(t_all, kind="stable")
     rank = np.argsort(order, kind="stable")
-    tr_idx, pr_idx = rank[:n_tr], rank[n_tr:]
+    return t_all[order], rank[:len(t_tr)], rank[len(t_tr):]
 
+
+def _build_inference_data(fp: PosteriorLTISDE, x_pr):
+    """Merged, time-sorted (x, noise, y with NaN at the prediction points,
+    tr_idx, pr_idx), flat; on a grid the merge is along time only, the
+    indices flat (space-fastest) positions."""
+    t_sorted, tr_rank, pr_rank = _merge_order(fp, x_pr)
     device = fp.y.device
-    order_t = torch.as_tensor(order, device=device)
-    noise_tr = _noise_array(fp.noise, n_tr)
-    noise_all = torch.cat([noise_tr, noise_tr.new_full((n_pr,), LARGE_VAR)])[order_t]
-    y_all = torch.cat([fp.y, fp.y.new_full((n_pr,), float("nan"))])[order_t]
-    x_sorted = torch.as_tensor(t_all[order], device=device)
+    if _is_grid(fp.x) or _is_grid(x_pr):
+        if not (isinstance(fp.x, grids.RectilinearGrid)
+                and isinstance(x_pr, grids.RectilinearGrid)):
+            raise TypeError("grid posterior prediction requires RectilinearGrid inputs")
+        if not _same_points(fp.x, x_pr):
+            raise ValueError("Space coords of inputs not compatible, cannot merge.")
+        Ns = fp.x.xl.shape[0]
+        flat = lambda ranks: (ranks[:, None] * Ns + np.arange(Ns)).reshape(-1)
+        tr_idx, pr_idx = flat(tr_rank), flat(pr_rank)
+        x_sorted = grids.RectilinearGrid(fp.x.xl, torch.as_tensor(t_sorted, device=device))
+    else:
+        tr_idx, pr_idx = tr_rank, pr_rank
+        x_sorted = torch.as_tensor(t_sorted, device=device)
+    n = len(tr_idx) + len(pr_idx)
+    tr_t = torch.as_tensor(tr_idx, device=device)
+    noise_all = fp.y.new_full((n,), LARGE_VAR)
+    noise_all[tr_t] = _noise_array(fp.noise, len(tr_idx)).to(fp.y.dtype)
+    y_all = fp.y.new_full((n,), float("nan"))
+    y_all[tr_t] = fp.y
     return x_sorted, noise_all, y_all, tr_idx, pr_idx
+
+
+def _noise_leaf_like(model, x, noise_flat):
+    """Flat noise in the representation of the model's emissions: dense
+    per-time matrices for a grid's DenseEmissions, flat for scalar ones."""
+    tf = _to_time_form(x, noise_flat)
+    return torch.diag_embed(tf) if isinstance(model.emis, DenseEmissions) else tf
 
 
 def _pred_noise_full(pr_idx, n, noise_pr, dtype, device):
     """Zeros at the training indices, the prediction noise at the prediction
-    indices."""
+    indices, flat."""
     out = torch.zeros(n, dtype=dtype, device=device)
     out[torch.as_tensor(pr_idx, device=device)] = _noise_array(noise_pr, len(pr_idx)).to(dtype)
     return out
 
 
-def _posterior_model(fp, x_sorted, noise_all, y_all, noise_pred_full, *, engine=None):
-    model = build_lgssm(fp.prior(x_sorted, noise_all))
-    post = missings_mod.posterior_with_missings(model, y_all, engine=engine)
-    return missings_mod.replace_observation_noise_cov(post, noise_pred_full)
+def _posterior_model(fp, x, noise, y, noise_pred, *, engine=None):
+    """The posterior LGSSM of the prior at x with noise, conditioned on the
+    flat y, with the flat prediction noise in place of the training noise."""
+    model = build_lgssm(fp.prior(x, noise))
+    post = missings_mod.posterior_with_missings(model, _to_time_form(x, y), engine=engine)
+    return missings_mod.replace_observation_noise_cov(post, _noise_leaf_like(model, x, noise_pred))
 
 
 def _merged_posterior(fxp: FinitePosteriorLTISDE, engine):
-    """(posterior LGSSM over the merged times, with the prediction noise at
+    """(posterior LGSSM over the merged inputs, with the prediction noise at
     the prediction indices and zero at the training ones; the prediction
-    indices as a tensor on its device)."""
+    indices as a tensor on its device, into the flat outputs: a merged grid's
+    (Nt, Ns) outputs flattened, space fastest)."""
     fp = fxp.f
     x_sorted, noise_all, y_all, _tr_idx, pr_idx = _build_inference_data(fp, fxp.x)
-    noise_pred = _pred_noise_full(pr_idx, len(x_sorted), fxp.noise,
+    noise_pred = _pred_noise_full(pr_idx, len(y_all), fxp.noise,
                                   _storage_dtype(fp.prior.storage), y_all.device)
     post = _posterior_model(fp, x_sorted, noise_all, y_all, noise_pred, engine=engine)
     return post, torch.as_tensor(pr_idx, device=y_all.device)
@@ -142,15 +194,16 @@ def _merged_posterior(fxp: FinitePosteriorLTISDE, engine):
 
 def marginals(fxp: FinitePosteriorLTISDE, *, engine=None):
     """Posterior marginal (means, variances) at fxp.x, including the
-    prediction noise fxp.noise."""
+    prediction noise fxp.noise; flat on a grid."""
     fp = fxp.f
     if _same_inputs(fxp.x, fp.x):
-        noise_pred = _noise_array(fxp.noise, num_times(fxp.x))
+        noise_pred = _noise_array(fxp.noise, _flat_len(fxp.x))
         post = _posterior_model(fp, fp.x, fp.noise, fp.y, noise_pred, engine=engine)
-        return lgssm_mod.marginals_diag(post, engine=engine)
+        m, v = lgssm_mod.marginals_diag(post, engine=engine)
+        return _destructure(fxp.x, m), _destructure(fxp.x, v)
     post, idx = _merged_posterior(fxp, engine)
     m, v = lgssm_mod.marginals_diag(post, engine=engine)
-    return m[idx], v[idx]
+    return m.reshape(-1)[idx], v.reshape(-1)[idx]
 
 
 def mean_and_var(fxp, *, engine=None):
@@ -170,7 +223,7 @@ def rand(generator, fxp: FinitePosteriorLTISDE, *, engine=None):
     the normals from `generator`, a torch.Generator on the model's
     device."""
     post, idx = _merged_posterior(fxp, engine)
-    return lgssm_mod.rand(generator, post, engine=engine)[idx]
+    return lgssm_mod.rand(generator, post, engine=engine).reshape(-1)[idx]
 
 
 def logpdf(fxp: FinitePosteriorLTISDE, y_pr, *, engine=None):
@@ -178,8 +231,11 @@ def logpdf(fxp: FinitePosteriorLTISDE, y_pr, *, engine=None):
     missing): the reverse-ordered posterior LGSSM's lml of y_pr at the
     prediction indices, the training ones missing."""
     post, idx = _merged_posterior(fxp, engine)
-    y_full = torch.full((len(post),), float("nan"), dtype=post.dtype, device=post.device)
+    y_full = torch.full((len(post) * em.dim_out(post.emis),), float("nan"), dtype=post.dtype,
+                        device=post.device)
     y_full[idx] = torch.as_tensor(y_pr, dtype=post.dtype, device=post.device)
+    if not isinstance(post.emis, ScalarEmissions):
+        y_full = y_full.reshape(len(post), -1)  # a grid's time form
     return missings_mod.logpdf_with_missings(post, y_full, engine=engine)
 
 

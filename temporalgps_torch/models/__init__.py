@@ -1,4 +1,4 @@
-from .emissions import ScalarEmissions
+from .emissions import DenseEmissions, LargeEmissions, ScalarEmissions
 from .gauss_markov import GaussMarkov
 from .lgssm import (
     LGSSM,
@@ -15,6 +15,8 @@ __all__ = [
     "GaussMarkov",
     "LGSSM",
     "ScalarEmissions",
+    "DenseEmissions",
+    "LargeEmissions",
     "filter_",
     "latent_marginals",
     "logpdf",
@@ -23,3 +25,11 @@ __all__ = [
     "posterior",
     "rand",
 ]
+
+
+def __getattr__(name):
+    if name == "BottleneckEmissions":
+        from . import emissions
+
+        return emissions.BottleneckEmissions  # raises, naming its ROADMAP item
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

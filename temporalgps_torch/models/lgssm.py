@@ -16,6 +16,10 @@ Engines ported:
     latent_marginals, rand) run the sequential engine for it, as in the
     reference.
 
+Emissions are any container of models/emissions.py: scalar observations
+(a time series) or vector ones (a space-time grid's Ns observations a step,
+DenseEmissions), whose step functions every engine shares.
+
 The RTS smoother is, as in the reference, another LGSSM: reverse-ordered,
 with inverted dynamics, whose x0 is the last filtering state. Step order per
 ordering:
@@ -32,7 +36,7 @@ import torch
 from ..config import POSTERIOR_JITTER
 from ..ops import lgc
 from ..utils import psd
-from ..utils.fill import Fill, is_fill
+from ..utils.fill import Fill, is_fill, tmaterialize
 from ..utils.gaussian import Gaussian, gaussian_rand
 from . import emissions as em
 from .gauss_markov import GaussMarkov
@@ -41,7 +45,7 @@ from .gauss_markov import GaussMarkov
 @dataclasses.dataclass(frozen=True, eq=False)
 class LGSSM:
     trans: GaussMarkov
-    emis: Any  # ScalarEmissions
+    emis: Any  # ScalarEmissions, DenseEmissions or LargeEmissions
 
     def __len__(self):
         return len(self.trans)
@@ -83,9 +87,25 @@ def model_like(model, leaves):
 
 
 def _resolve_engine(engine, model=None):
-    """`None` picks "block" for any model on a CUDA device (the kernels for
-    D <= 3, constant or per-step transitions; the matrix path beyond), and
-    "sequential" everywhere else (the reference picks "block" on the TPU).
+    """`None` picks, for a model on a CUDA device, "block" for scalar
+    emissions (the kernels for D <= 3, constant or per-step transitions; the
+    matrix path beyond) and "parallel" for vector emissions (the space-time
+    models, which no kernel takes), and "sequential" everywhere else (the
+    reference picks "block" on the TPU up to D = 32, "sequential" above).
+    The vector rule is the card's: c4's model (chip_smoke.py phase 18,
+    "NVIDIA H100 80GB HBM3, 700.00 W") at D = 150 (50 x 1000) and D = 30
+    (10 x 1000), ms float32 / float64:
+
+        D = 150  logpdf               parallel 66 / 78,   block 81 / 92,
+                                      sequential 1006 / 1057
+                 posterior marginals  parallel 89 / 72,   block 95 / 105,
+                                      sequential 2533 / 2567
+        D = 30   logpdf               parallel 27 / 27,   block 44 / 70,
+                                      sequential 893 / 941
+                 posterior marginals  parallel 32 / 38,   block 56 / 70,
+                                      sequential 2219 / 2536
+
+    "parallel" wins at both sizes, so one rule, no latent_dim threshold.
     Either ordering: the reverse-ordered posterior's data-free functions
     (marginals, rand) run the affine prefix, and its `logpdf` the filter of
     its iteration view, where the reference's filtering functions fall back
@@ -95,14 +115,16 @@ def _resolve_engine(engine, model=None):
     if engine is not None:
         return engine
     if model is not None and model.device.type == "cuda":
-        return "block"
+        return "block" if isinstance(model.emis, em.ScalarEmissions) else "parallel"
     return "sequential"
 
 
-# ops/steady.py imports its pieces of ops/lti.py: both come with item 8.
+# ops/steady.py imports its pieces of ops/lti.py: both come with item 8; the
+# factored space-time filter (space_time/kron.py) with item 7b.
 _NOT_PORTED = {
     "lti": "ROADMAP Queue 1 item 8",
     "steady": "ROADMAP Queue 1 item 8",
+    "kron": "ROADMAP Queue 1 item 7b",
 }
 
 
@@ -237,12 +259,17 @@ def posterior(model: LGSSM, y, *, engine=None, n_blocks=None) -> LGSSM:
 
 def marginals(model: LGSSM, *, engine=None, n_blocks=None) -> Gaussian:
     """Observation-space marginal at every step: for scalar emissions a
-    Gaussian of (N,) means and (N,) variances."""
-    return Gaussian(*marginals_diag(model, engine=engine, n_blocks=n_blocks))
+    Gaussian of (N,) means and (N,) variances, for vector emissions of
+    (N, Dout) means and (N, Dout, Dout) covariances."""
+    if isinstance(model.emis, em.ScalarEmissions):
+        return Gaussian(*marginals_diag(model, engine=engine, n_blocks=n_blocks))
+    return em.step_predict(latent_marginals(model, engine=engine, n_blocks=n_blocks),
+                           em.map_leaves(tmaterialize, model.emis))
 
 
 def marginals_diag(model: LGSSM, *, engine=None, n_blocks=None):
-    """Observation-space marginal (means, variances), each (N,)."""
+    """Observation-space marginal (means, variances), each (N,) for scalar
+    emissions, (N, Dout) for vector ones."""
     engine = _resolve_engine(engine, model)
     _check_engine(engine)
     if engine == "block":
@@ -301,16 +328,16 @@ def _iteration(model, *streams):
     order: t = 0 .. N-1 for a forward model, N-1 .. 0 for a reverse one."""
     t, e = model.trans, model.emis
     N = len(model)
+    emis = map(type(e), *(_steps(leaf, N) for leaf in em.leaves(e)))
     per_step = list(zip(
-        _steps(t.As, N), _steps(t.offs, N), _steps(t.Qs, N),
-        map(em.ScalarEmissions, _steps(e.H, N), _steps(e.h, N), _steps(e.s, N)),
+        _steps(t.As, N), _steps(t.offs, N), _steps(t.Qs, N), emis,
         *(s.unbind(0) for s in streams),
     ))
     return per_step if t.forward else per_step[::-1]
 
 
 def _update(x, e, yt):
-    return lgc.posterior_and_lml_scalar(x, e.H, e.h, e.s, yt)
+    return em.step_posterior_and_lml(x, e, yt)
 
 
 def _stack(values, forward):
@@ -346,20 +373,21 @@ def rand(generator, model: LGSSM, *, engine=None):
     """A joint sample of the observations. All normals are drawn up front
     from `generator` (a torch.Generator on the model's device), in the
     reference's order: the initial state, then eps_t (N, D) for the
-    transitions, then eps_e (N,) for the emissions; `rand_with_eps` runs the
-    chain on them."""
+    transitions, then eps_e ((N,) scalar, (N, Dout) vector) for the
+    emissions; `rand_with_eps` runs the chain on them."""
     N, D = len(model), model.latent_dim
     x_init = gaussian_rand(generator, model.trans.x0)
     normal = lambda *shape: torch.randn(shape, generator=generator, dtype=model.dtype,
                                         device=model.device)
     eps_t = normal(N, D)
-    eps_e = normal(N)
+    e = model.emis
+    eps_e = normal(N) if isinstance(e, em.ScalarEmissions) else normal(N, em.dim_out(e))
     return rand_with_eps(model, eps_t, eps_e, x_init, engine=engine)
 
 
 def rand_with_eps(model: LGSSM, eps_t, eps_e, x_init, *, engine=None, n_blocks=None):
-    """The joint sample the standard normals eps_t (N, D), eps_e (N,) and
-    the initial state x_init give, each indexed by time. engine="block" runs
+    """The joint sample the standard normals eps_t (N, D), eps_e ((N,) or
+    (N, Dout)) and the initial state x_init give, each indexed by time. engine="block" runs
     the affine block schedule (ops/block.rand_with_eps: K8-K10 for D <= 3);
     "sequential" the reference's steps: forward, transition then emit;
     reverse, emit then transition (eps_t of step 0 unused)."""

@@ -10,7 +10,7 @@ import math
 import torch
 
 from ..config import LARGE_VAR
-from ..utils.fill import is_fill
+from ..utils.fill import tmaterialize
 from . import emissions as em
 from .lgssm import LGSSM, logpdf, posterior
 
@@ -18,10 +18,20 @@ _HALF_LOG_2PI_LARGE_VAR = 0.5 * math.log(2.0 * math.pi * LARGE_VAR)
 
 
 def fill_in_missings(noise, y):
-    """(noise_filled, y_filled, n_missing) for (N,) scalar noise variances."""
+    """(noise_filled, y_filled, n_missing). `noise` is the per-step noise
+    leaf: (N,) scalar variances or (N, Dout) diagonals, which take LARGE_VAR
+    where y is NaN, or (N, Dout, Dout) dense covariances, whose diagonal
+    takes LARGE_VAR at a missing entry and whose row and column of it
+    become zero off the diagonal."""
     mask = torch.isnan(y)
     y_filled = torch.where(mask, 0.0, y)
-    noise_filled = torch.where(mask, LARGE_VAR, noise)
+    if noise.ndim == y.ndim:
+        noise_filled = torch.where(mask, LARGE_VAR, noise)
+    else:
+        keep = ~mask[..., :, None] & ~mask[..., None, :]
+        diag = torch.where(mask, LARGE_VAR, torch.diagonal(noise, dim1=-2, dim2=-1))
+        eye = torch.eye(noise.shape[-1], dtype=torch.bool, device=noise.device)
+        noise_filled = torch.where(eye, torch.diag_embed(diag), torch.where(keep, noise, 0.0))
     return noise_filled, y_filled, mask.sum()
 
 
@@ -38,9 +48,7 @@ def replace_observation_noise_cov(model: LGSSM, new_noise) -> LGSSM:
 def transform_model_and_obs(model: LGSSM, y):
     """(model', y', compensation) with the missing entries marginalised out.
     Only the noise leaf is materialised; the other leaves stay Fills."""
-    noise = em.noise_cov(model.emis)
-    if is_fill(noise):
-        noise = noise.value.expand(noise.N)
+    noise = tmaterialize(em.noise_cov(model.emis))
     noise_filled, y_filled, n_missing = fill_in_missings(noise, y)
     comp = volume_compensation(n_missing, y_filled.dtype)
     return replace_observation_noise_cov(model, noise_filled), y_filled, comp

@@ -25,25 +25,22 @@ and samples.
 Both orderings share one algebra: a reverse-ordered model (the smoother's
 posterior), flipped to iteration order, has its transitions shifted by one
 with the identity first (`_iteration_view`), which turns emit-then-transition
-into transition-then-emit. Scalar emissions only: vector emissions are
-ROADMAP Queue 1 item 7.
+into transition-then-emit. A step's element (`step_elements`) takes any
+emission container of models/emissions.py: a scalar observation, a vector
+one with dense noise (the Cholesky factor of its innovation covariance) or
+with diagonal noise (every factor in the input space, `element_dense_diag`).
 """
-
-import math
 
 import torch
 
-from ..config import POSTERIOR_JITTER, RAND_JITTER
-from ..models.emissions import ScalarEmissions
+from ..config import IDENT_EPS, POSTERIOR_JITTER, RAND_JITTER
+from ..models import emissions as em
 from ..models.gauss_markov import GaussMarkov
 from ..models.lgssm import LGSSM, _invert_dynamics
 from ..utils import psd
-from ..utils.fill import tmaterialize
+from ..utils.fill import is_fill, tmaterialize
 from ..utils.gaussian import Gaussian
 from ..utils.psd import symmetrize
-from .lgc import conditional_rand_scalar, predict_marginals_scalar
-
-_LOG2PI = math.log(2.0 * math.pi)
 
 
 def _mT(X):
@@ -54,19 +51,14 @@ def _mv(A, x):
     return torch.einsum("...ij,...j->...i", A, x)
 
 
-def check_scalar_emissions(model):
-    """Raise NotImplementedError for a model with vector emissions, which no
-    engine of the port takes yet."""
-    if not isinstance(model.emis, ScalarEmissions):
-        raise NotImplementedError(
-            "vector emissions (Dense, Large, Bottleneck) are not ported yet "
-            "(ROADMAP Queue 1 item 7)"
-        )
-
-
 # ---------------------------------------------------------------------------
 # The element algebra
 # ---------------------------------------------------------------------------
+
+# The state dim above which `_minv` forms a float32 inverse in float64 (the
+# cut lies between the measured D = 30 and D = 150).
+MINV_WIDE_ABOVE_D = 32
+
 
 def _minv(C, J):
     """(I + C J)^{-1}, batched; C, J symmetric PSD. I + C J is nonsingular
@@ -75,9 +67,22 @@ def _minv(C, J):
     prior element and near-singular at small time steps): no jitter, any D.
     The reference takes a Cholesky congruence with a jitter for D > 3,
     which moved the float32 posterior means of Matern52() + Matern32() by
-    7.7e-2 at N = 2000; this inverse, 5.8e-5 (probes/torch_minv_repair.py,
-    beside the inverse formed in float64)."""
-    return torch.linalg.inv(torch.eye(C.shape[-1], dtype=C.dtype, device=C.device) + C @ J)
+    7.7e-2 at N = 2000; this inverse, 5.8e-5 (probes/torch_minv_repair.py).
+
+    Above D = MINV_WIDE_ABOVE_D a float32 inverse is formed in float64 and
+    stored in float32. Both inverses in one call on the card
+    (probes/torch_c4_blocks.py, "NVIDIA H100 80GB HBM3, 700.00 W"; float32
+    ms, LU -> formed in float64): at the space-time model c4 (D = 150)
+    "parallel" `logpdf` 75.4 -> 58.4, "block" 84.8 -> 64.7, and the block
+    engine's posterior means 3.9e-3 -> 1.5e-3 from the float32 problem
+    solved in float64, the parallel engine's 9.1e-4 -> 1.1e-3 (the
+    sequential engine's, with no inverse: 9.7e-4); at D = 30 `logpdf` 24.5
+    -> 30.0 ("parallel"), means within 1.3x; at D = 6 `logpdf` 131.8 ->
+    159.3, at D = 3 ("parallel", N = 1M) 80.2 -> 102.2, for no gain."""
+    if C.dtype != torch.float32 or C.shape[-1] <= MINV_WIDE_ABOVE_D:
+        return torch.linalg.inv(torch.eye(C.shape[-1], dtype=C.dtype, device=C.device) + C @ J)
+    eye = torch.eye(C.shape[-1], dtype=torch.float64, device=C.device)
+    return torch.linalg.inv(eye + C.double() @ J.double()).float()
 
 
 def _combine_filter(e_i, e_j):
@@ -128,19 +133,6 @@ def _associative_scan(combine, elems):
     return tuple(out)
 
 
-def _scalar_update(m, P, H, h, s, y):
-    """Kalman update of (m, P) by the scalar observation y = H x + h +
-    N(0, s), batched over leading axes (the reference's
-    `lgc.posterior_and_lml_scalar`): (m_post, P_post, lml)."""
-    P = symmetrize(P)
-    V = torch.einsum("...j,...jk->...k", H, P)
-    sqrtS = torch.sqrt((V * H).sum(-1) + s)
-    Bv = V / sqrtS[..., None]
-    alpha = (y - ((H * m).sum(-1) + h)) / sqrtS
-    lml = -0.5 * (_LOG2PI + 2.0 * torch.log(sqrtS) + alpha * alpha)
-    return m + Bv * alpha[..., None], P - Bv[..., :, None] * Bv[..., None, :], lml
-
-
 # ---------------------------------------------------------------------------
 # Iteration-order views of an LGSSM
 # ---------------------------------------------------------------------------
@@ -179,14 +171,15 @@ def _iteration_view(model):
 
 
 def _iteration_order(model, y=None):
-    """((F, c, Q) unshifted, (H, h, s), y), each (N, ...), in iteration
-    order: the rest of the reference's `_iteration_view`."""
-    t, e = model.trans, model.emis
-    leaves = tuple(tmaterialize(leaf) for leaf in (t.As, t.offs, t.Qs, e.H, e.h, e.s))
+    """((F, c, Q) unshifted, the emissions, y), each leaf (N, ...), in
+    iteration order: the rest of the reference's `_iteration_view`."""
+    t = model.trans
+    trans = tuple(tmaterialize(leaf) for leaf in (t.As, t.offs, t.Qs))
+    emis = em.map_leaves(tmaterialize, model.emis)
     if not t.forward:
-        leaves = _flip(leaves)
+        trans, emis = _flip(trans), em.map_leaves(_flip, emis)
         y = None if y is None else y.flip(0)
-    return leaves[:3], leaves[3:], y
+    return trans, emis, y
 
 
 def _sample_maps(model, eps_t):
@@ -195,9 +188,15 @@ def _sample_maps(model, eps_t):
     b = c + chol(Q + RAND_JITTER I) eps_t; a reverse-ordered model's eps_t
     flipped and shifted by one with a zero first, as its transitions are.
     The factor is psd.cholesky's, as in the sequential engine's
-    `lgc.conditional_rand`: a Q that is not positive definite raises."""
+    `lgc.conditional_rand`: a Q that is not positive definite raises. A
+    forward model's constant (Fill) Q is factored once, the same factor as
+    each of the sequential engine's steps takes (a batch of copies may be
+    factored otherwise by the library: a Q as ill-conditioned as a space-time
+    model's moves the sample by ~1e-7 between the two)."""
     F, c, Q = _iteration_view(model)
-    if not model.trans.forward:
+    if model.trans.forward and is_fill(model.trans.Qs):
+        Q = model.trans.Qs.value
+    elif not model.trans.forward:
         eps_t = torch.cat([torch.zeros_like(eps_t[:1]), eps_t.flip(0)[:-1]])
     return F, c + _mv(psd.cholesky(psd.add_jitter(symmetrize(Q), RAND_JITTER)), eps_t)
 
@@ -212,29 +211,74 @@ def _prior_element(x0, D, like):
     return (z, x0.mean[None].to(like), symmetrize(x0.cov)[None].to(like), like.new_zeros(1, D), z)
 
 
-def _filter_elements(F, c, Q, H, h, s, y, x0):
-    """Per-step filtering elements of scalar emissions, with the prior
-    element in front: N + 1 of each component."""
-    D = F.shape[-1]
-    I = torch.eye(D, dtype=F.dtype, device=F.device)
-    S = torch.einsum("ni,nij,nj->n", H, Q, H) + s
-    K = _mv(Q, H) / S[:, None]
-    ImKH = I - K[:, :, None] * H[:, None, :]
-    resid = y - ((H * c).sum(-1) + h)
-    w = torch.einsum("nji,nj->ni", F, H)  # F' H
-    elems = (ImKH @ F, c + K * resid[:, None], symmetrize(ImKH @ Q), w * (resid / S)[:, None],
-             symmetrize(w[:, :, None] * w[:, None, :] / S[:, None, None]))
-    return tuple(torch.cat([p, e]) for p, e in zip(_prior_element(x0, D, F), elems))
+def step_elements(F, c, Q, e, y):
+    """Filtering elements of steps that transition by (F, c, Q), then
+    observe y through the emissions e, batched over leading axes (the
+    reference's `_filter_elements` and `block._step_element`)."""
+    I = torch.eye(F.shape[-1], dtype=F.dtype, device=F.device)
+    if isinstance(e, em.ScalarEmissions):
+        H, h, s = e.H, e.h, e.s
+        S = torch.einsum("...i,...ij,...j->...", H, Q, H) + s
+        K = _mv(Q, H) / S[..., None]
+        ImKH = I - K[..., :, None] * H[..., None, :]
+        resid = y - ((H * c).sum(-1) + h)
+        w = torch.einsum("...ji,...j->...i", F, H)  # F' H
+        return (ImKH @ F, c + K * resid[..., None], symmetrize(ImKH @ Q),
+                w * (resid / S)[..., None],
+                symmetrize(w[..., :, None] * w[..., None, :] / S[..., None, None]))
+    if isinstance(e, em.LargeEmissions):
+        return element_dense_diag(F, c, Q, e.C, e.c, e.s_diag, y)
+    H, d, R = e.H, e.h, e.S
+    Ls = psd.cholesky(symmetrize(H @ Q @ _mT(H) + R))
+    K = _mT(psd.chol_solve(Ls, H @ Q))  # (..., D, Dout)
+    ImKH = I - K @ H
+    resid = y - (_mv(H, c) + d)
+    FtH = _mT(F) @ _mT(psd.chol_solve(Ls, H))  # F' H' S^{-1}
+    return (ImKH @ F, c + _mv(K, resid), symmetrize(ImKH @ Q), _mv(FtH, resid),
+            symmetrize(FtH @ H @ F))
+
+
+def element_dense_diag(F, c, Q, H, d, s_diag, y):
+    """The filtering element of vector emissions with diagonal noise R =
+    diag(s_diag), every Cholesky factor and solve D x D (the reference's
+    input-space factorisation): with Lp = chol(Q + IDENT_EPS I), Gram =
+    H' R^{-1} H, u = H' R^{-1} r, T = Lp' Gram and Fm = I + T Lp,
+
+        C = Lp Fm^{-1} Lp',   K r = Lp Fm^{-1} Lp' u,
+        H' S^{-1} H = Gram - T' Fm^{-1} T,   H' S^{-1} r = u - T' Fm^{-1} Lp' u.
+
+    Batched over leading axes."""
+    I = torch.eye(F.shape[-1], dtype=F.dtype, device=F.device)
+    q_isqrt = 1.0 / torch.sqrt(s_diag)
+    Hw = H * q_isqrt[..., None]
+    delta = q_isqrt * (y - (_mv(H, c) + d))
+    Gram = symmetrize(_mT(Hw) @ Hw)
+    u = _mv(_mT(Hw), delta)
+    Lp = psd.cholesky(psd.add_jitter(symmetrize(Q), IDENT_EPS))
+    T = _mT(Lp) @ Gram
+    Lf = psd.cholesky(symmetrize(T @ Lp) + I)
+    G = psd.tri_solve(Lf, _mT(Lp))
+    FmiLpu = psd.chol_solve(Lf, _mv(_mT(Lp), u)[..., None])[..., 0]
+    M1 = symmetrize(Gram - _mT(T) @ psd.chol_solve(Lf, T))
+    w = u - _mv(_mT(T), FmiLpu)
+    return (F - symmetrize(Q) @ (M1 @ F), c + _mv(Lp, FmiLpu), _mT(G) @ G, _mv(_mT(F), w),
+            symmetrize(_mT(F) @ M1 @ F))
+
+
+def _filter_elements(F, c, Q, e, y, x0):
+    """Per-step filtering elements with the prior element in front: N + 1
+    of each component."""
+    elems = step_elements(F, c, Q, e, y)
+    return tuple(torch.cat([p, x]) for p, x in zip(_prior_element(x0, F.shape[-1], F), elems))
 
 
 def _filter_prefix(model, y):
     """Inclusive filtering prefixes in iteration order: (outs, (F_ev, c_ev,
-    Q_ev), (F_it, c_it, Q_it), (H, h, s), y_it), outs a Gaussian of N + 1
+    Q_ev), (F_it, c_it, Q_it), emissions, y_it), outs a Gaussian of N + 1
     entries, outs[0] = x0, outs[k] the filtering state after the k-th step."""
-    check_scalar_emissions(model)
     ev = _iteration_view(model)
     it, emis_it, y_it = _iteration_order(model, y)
-    elems = _filter_elements(*ev, *emis_it, y_it, model.trans.x0)
+    elems = _filter_elements(*ev, emis_it, y_it, model.trans.x0)
     _, b, C, _, _ = _associative_scan(_combine_filter, elems)
     return Gaussian(b, C), ev, it, emis_it, y_it
 
@@ -245,9 +289,9 @@ def _batched_predict(x: Gaussian, F, c, Q) -> Gaussian:
 
 def _logpdf_from_prefix(outs, ev, emis_it, y_it):
     """The lml: each step's prediction from the prefix before it, then its
-    scalar update's lml, summed."""
+    update's lml, summed."""
     pre = _batched_predict(Gaussian(outs.mean[:-1], outs.cov[:-1]), *ev)
-    return _scalar_update(pre.mean, pre.cov, *emis_it, y_it)[2].sum()
+    return em.step_posterior_and_lml(pre, emis_it, y_it)[1].sum()
 
 
 def _reversed_model_matrix(model, xf: Gaussian, jitter=POSTERIOR_JITTER):
@@ -320,7 +364,6 @@ def latent_marginals(model) -> Gaussian:
     iteration view from the prior's, in time order. The identity the view
     puts first encodes a reverse model's emit-before-transition order, so
     the prefixes 1..N serve both orderings."""
-    check_scalar_emissions(model)
     F, c, Q = _iteration_view(model)
     D = model.latent_dim
     prior = _prior_element(model.trans.x0, D, F)[:3]
@@ -330,21 +373,21 @@ def latent_marginals(model) -> Gaussian:
 
 
 def marginals_diag(model):
-    """(means, variances) of the scalar observations, (H m + h, H P H^T + s)."""
-    e = model.emis
-    return predict_marginals_scalar(latent_marginals(model),
-                                    *(tmaterialize(leaf) for leaf in (e.H, e.h, e.s)))
+    """(means, variance diagonals) of the observations: for scalar ones
+    (H m + h, H P H^T + s)."""
+    return em.step_predict_marginals(latent_marginals(model),
+                                     em.map_leaves(tmaterialize, model.emis))
 
 
 def rand_with_eps(model, eps_t, eps_e, x_init):
     """The joint sample of the observations that the standard normals eps_t
-    (N, D), eps_e (N,) and the initial state x_init give: the prefix of the
-    sample's affine maps (`_sample_maps`) from x_init, then y = H x + h +
-    sqrt(s) eps_e."""
-    check_scalar_emissions(model)
+    (N, D), eps_e ((N,) or (N, Dout)) and the initial state x_init give: the
+    prefix of the sample's affine maps (`_sample_maps`) from x_init, then
+    each step's observation given its state (for scalar emissions y = H x +
+    h + sqrt(s) eps_e)."""
     F, b = _sample_maps(model, eps_t)
     prior = (F.new_zeros(1, *F.shape[1:]), x_init[None].to(F))
     _, states = _associative_scan(_combine_affine_mean,
                                   tuple(torch.cat([p, e]) for p, e in zip(prior, (F, b))))
-    _, (H, h, s), eps_it = _iteration_order(model, eps_e)
-    return _unflip(model, conditional_rand_scalar(eps_it, states[1:], H, h, s))
+    _, emis_it, eps_it = _iteration_order(model, eps_e)
+    return _unflip(model, em.step_conditional_rand(eps_it, states[1:], emis_it))

@@ -35,6 +35,10 @@ Scalar-emission models take one of three routes:
                                  algebra of ops/assoc.py (whose inverse
                                  carries no jitter, unlike the reference's).
 
+Vector emissions (DenseEmissions, LargeEmissions: the space-time models)
+take the matrix path at any D, their (N, Dout, ...) leaves padded and
+blocked like the rest.
+
 `phase2="sqrt"` runs phase 2 in the square-root algebra of ops/sqrt.py
 (batched tensor ops over the B block aggregates; K2 is the covariance form),
 between K1 and K3 on the card or their plain versions on the CPU.
@@ -79,6 +83,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..config import LARGE_VAR, POSTERIOR_JITTER
+from ..models import emissions as em
 from ..models.emissions import ScalarEmissions
 from ..models.gauss_markov import GaussMarkov
 from ..models.lgssm import LGSSM
@@ -88,10 +93,7 @@ from ..utils.gaussian import Gaussian
 from ..utils.psd import symmetrize
 from . import assoc, kernels, lanes, sqrt
 from .assoc import (_associative_scan, _combine_affine, _combine_filter, _iteration_view, _mT,
-                    _mv, _prior_element, _reversed_model_matrix, _sample_maps, _scalar_update,
-                    check_scalar_emissions)
-from .lgc import conditional_rand_scalar
-
+                    _mv, _prior_element, _reversed_model_matrix, _sample_maps, step_elements)
 
 
 
@@ -179,14 +181,18 @@ def _pallas_blocks(N: int) -> int:
     return max(b, 1)
 
 
-def _default_blocks(N: int, D: int = 1) -> int:
+def _default_blocks(N: int) -> int:
     """Block count of the plain general schedule (the reference's
-    `_default_blocks`): ~8 sqrt(N), a power of two, at most 8192 (32 for
-    D > 16, where fewer, fatter blocks keep the combine tree shallow)."""
+    `_default_blocks`): ~8 sqrt(N), a power of two, at most 8192. The
+    reference caps it at 32 for D > 16 (fewer, fatter blocks measured faster
+    on its TPU, and a shallower combine tree finite there in float32); on the
+    card the space-time model c4 (D = 150, N = 1000) ran the block engine's
+    logpdf 1.9x faster at 128 blocks than at 32 and its float32 posterior
+    means came 1.54e-3 from the float32 problem solved in float64 against
+    1.92e-3 (probes/torch_c4_blocks.py), so the port does not cap it."""
     b = 1
     target = int(8 * (N ** 0.5))
-    cap = 8192 if D <= 16 else 32
-    while b * 2 <= min(target, cap):
+    while b * 2 <= min(target, 8192):
         b *= 2
     return max(b, 1)
 
@@ -195,8 +201,7 @@ def _blocks(model, n_blocks, kernel_cut: bool) -> int:
     """B: `n_blocks` if given, else the kernels' cut or the plain general
     schedule's; at most N."""
     N = len(model)
-    return min(n_blocks or (_pallas_blocks(N) if kernel_cut else
-                            _default_blocks(N, model.latent_dim)), N)
+    return min(n_blocks or (_pallas_blocks(N) if kernel_cut else _default_blocks(N)), N)
 
 
 def _pad_tail(y, s, B, L):
@@ -295,10 +300,9 @@ def _forward_view(model, y=None):
     if model.trans.forward:
         return model, y
     F, c, Q = _iteration_view(model)
-    e = model.emis
     flip = lambda leaf: leaf if is_fill(leaf) else leaf.flip(0)
     view = LGSSM(GaussMarkov(As=F, offs=c, Qs=Q, x0=model.trans.x0, forward=True),
-                 ScalarEmissions(H=flip(e.H), h=flip(e.h), s=flip(e.s)))
+                 em.map_leaves(flip, model.emis))
     return view, None if y is None else y.flip(0)
 
 
@@ -338,7 +342,6 @@ def logpdf(model, y, *, n_blocks=None, fused=None, phase2=None):
     square-root algebra (ops/sqrt.py) in tensor ops, in place of K2: on the
     card between K1 and K3 (streamed or not), with `fused=False` between
     their plain versions; the matrix path runs it in its phase 2."""
-    check_scalar_emissions(model)
     if phase2 not in LOGPDF_PHASES:
         raise ValueError(f"unknown phase2 {phase2!r}")
     model, y = _forward_view(model, y)
@@ -435,41 +438,45 @@ def logpdf_fwd_grad(model, y, model_tangents, *, n_blocks=None):
 # ---------------------------------------------------------------------------
 
 def _blocked_leaves(model, y, B):
-    """((A, a, Q, H, h, s, y) as (L, B, ...) tensors, compensation): the
-    reference's `_pad_tail` and `_split_tree`. A Fill leaf pads with its own
-    value, a per-step one with an identity transition, zero offset, noise
-    and emission; s pads with LARGE_VAR and y with 0."""
+    """((A, a, Q, emissions, y), each leaf an (L, B, ...) tensor,
+    compensation): the reference's `_pad_tail` and `_split_tree`. A Fill
+    leaf pads with its own value, a per-step one with an identity
+    transition, zero offset, process noise and emission; the observation
+    noise always pads with LARGE_VAR (LARGE_VAR I for a dense covariance),
+    and y with 0, each pad step taking the constant compensation of its
+    Dout observations."""
     t, e = model.trans, model.emis
     N, D = len(model), model.latent_dim
     L = -(-N // B)
     n_pad = B * L - N
     dtype, device = model.dtype, model.device
 
-    def pad(leaf, pad_value):
+    def pad(leaf, pad_value=None):
         x = tmaterialize(leaf)
-        value = leaf.value if is_fill(leaf) else pad_value
+        value = leaf.value if pad_value is None else pad_value
         x = torch.cat([x, value.to(x).expand(n_pad, *value.shape)])
         return x.reshape(B, L, *x.shape[1:]).transpose(0, 1)
 
+    def pad_emission(leaf):
+        if is_fill(leaf):
+            return pad(leaf)
+        return pad(leaf, leaf.new_zeros(leaf.shape[1:]))
+
+    noise = tmaterialize(em.noise_cov(e))
+    large = torch.full(noise.shape[1:], LARGE_VAR, dtype=dtype, device=device)
+    if isinstance(e, em.DenseEmissions):
+        large = torch.diag_embed(large.diagonal())
+    emis = em.replace_noise_cov(em.map_leaves(pad_emission, e), pad(noise, large))
     z = lambda *shape: torch.zeros(shape, dtype=dtype, device=device)
-    leaves = (pad(t.As, torch.eye(D, dtype=dtype, device=device)), pad(t.offs, z(D)),
-              pad(t.Qs, z(D, D)), pad(e.H, z(D)), pad(e.h, z()),
-              pad(e.s, torch.tensor(LARGE_VAR, dtype=dtype, device=device)), pad(y, z()))
-    return leaves, n_pad * 0.5 * math.log(2.0 * math.pi * LARGE_VAR)
+    per_step = lambda leaf, value: pad(leaf, None if is_fill(leaf) else value)
+    leaves = (per_step(t.As, torch.eye(D, dtype=dtype, device=device)), per_step(t.offs, z(D)),
+              per_step(t.Qs, z(D, D)), emis, pad(y, z(*y.shape[1:])))
+    return leaves, n_pad * em.dim_out(e) * 0.5 * math.log(2.0 * math.pi * LARGE_VAR)
 
 
-def _step_elements(A, a, Q, H, h, s, y):
-    """Filtering elements of scalar-emission steps, batched over leading
-    axes (the scalar branch of the reference's `_step_element`)."""
-    I = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
-    S = torch.einsum("...i,...ij,...j->...", H, Q, H) + s
-    K = _mv(Q, H) / S[..., None]
-    ImKH = I - K[..., :, None] * H[..., None, :]
-    resid = y - ((H * a).sum(-1) + h)
-    w = torch.einsum("...ji,...j->...i", A, H)
-    return (ImKH @ A, a + K * resid[..., None], symmetrize(ImKH @ Q),
-            w * (resid / S)[..., None], symmetrize(w[..., :, None] * w[..., None, :]
-                                                   / S[..., None, None]))
+def _at(e, l):
+    """Step l of a blocked emission container: each leaf's (B, ...) slice."""
+    return em.map_leaves(lambda leaf: leaf[l], e)
 
 
 def _phase2_prefix(elems, phase2=None):
@@ -516,35 +523,34 @@ LOGPDF_PHASES = {
 
 def _matrix_starts(model, blocked, phase2=None):
     """Phases 1 and 2 of the matrix path: each block's fold of its step
-    elements from the identity, then the prefix with the prior element
+    elements (from its first: the identity element in front of it would
+    combine to the same tuple), then the prefix with the prior element
     (0, m0, P0, 0, 0) in front (`_phase2_prefix`); the (B, D), (B, D, D)
     block starts."""
-    A, a, Q, H, h, s, y = blocked
-    L, B, D = A.shape[0], A.shape[1], model.latent_dim
-    dtype, device = model.dtype, model.device
-    zmat = torch.zeros((B, D, D), dtype=dtype, device=device)
-    zvec = torch.zeros((B, D), dtype=dtype, device=device)
-    agg = (torch.eye(D, dtype=dtype, device=device).expand(B, D, D), zvec, zmat, zvec, zmat)
-    for l in range(L):
-        agg = _combine_filter(agg, _step_elements(A[l], a[l], Q[l], H[l], h[l], s[l], y[l]))
-    return _prefix_from(_prior_element(model.trans.x0, D, zmat), agg,
+    A, a, Q, e, y = blocked
+    agg = step_elements(A[0], a[0], Q[0], _at(e, 0), y[0])
+    for l in range(1, A.shape[0]):
+        agg = _combine_filter(agg, step_elements(A[l], a[l], Q[l], _at(e, l), y[l]))
+    return _prefix_from(_prior_element(model.trans.x0, model.latent_dim, agg[0]), agg,
                         lambda e: _phase2_prefix(e, phase2))
 
 
-def _kalman_steps(m, P, A, a, Q, H, h, s, y):
-    """Predict and scalar update of every block, (B, ...) tensors (the
-    reference's `lgc.predict` and `lgc.posterior_and_lml_scalar`)."""
-    return _scalar_update(_mv(A, m) + a, A @ symmetrize(P) @ _mT(A) + Q, H, h, s, y)
+def _kalman_steps(x, blocked, l):
+    """Predict and update of every block at step l, x a Gaussian of (B, ...)
+    states (the reference's `lgc.predict` and `emissions.step_posterior_and_lml`)."""
+    A, a, Q, e, y = blocked
+    pred = Gaussian(_mv(A[l], x.mean) + a[l], A[l] @ symmetrize(x.cov) @ _mT(A[l]) + Q[l])
+    return em.step_posterior_and_lml(pred, _at(e, l), y[l])
 
 
 def _logpdf_matrix(model, y, B, phase2=None):
     """lml on the matrix path (the reference's `_logpdf_xla` for models the
     lane path does not take)."""
     blocked, comp = _blocked_leaves(model, y, B)
-    m, P = _matrix_starts(model, blocked, phase2)
-    acc = m.new_zeros(m.shape[0])
-    for step in zip(*blocked):
-        m, P, lml = _kalman_steps(m, P, *step)
+    x = Gaussian(*_matrix_starts(model, blocked, phase2))
+    acc = x.mean.new_zeros(x.mean.shape[0])
+    for l in range(blocked[0].shape[0]):
+        x, lml = _kalman_steps(x, blocked, l)
         acc = acc + lml
     return acc.sum() + comp
 
@@ -553,12 +559,12 @@ def _filter_matrix(model, y, B) -> Gaussian:
     """Filtering states of every step on the matrix path (the reference's
     `block.filter_`), ((N, D), (N, D, D))."""
     blocked, _ = _blocked_leaves(model, y, B)
-    m, P = _matrix_starts(model, blocked)
+    x = Gaussian(*_matrix_starts(model, blocked))
     ms, Ps = [], []
-    for step in zip(*blocked):
-        m, P, _ = _kalman_steps(m, P, *step)
-        ms.append(m)
-        Ps.append(P)
+    for l in range(blocked[0].shape[0]):
+        x, _ = _kalman_steps(x, blocked, l)
+        ms.append(x.mean)
+        Ps.append(x.cov)
     N, D = len(model), model.latent_dim
     mean = torch.stack(ms, 1).reshape(-1, D)[:N]
     return Gaussian(mean, torch.stack(Ps, 1).reshape(-1, D, D)[:N])
@@ -616,7 +622,6 @@ def filter_(model, y, *, n_blocks=None, fused=None) -> Gaussian:
     padding steps observe nothing, so the real steps' states are exact. A
     reverse-ordered model's are those of its iteration view (`_forward_view`),
     flipped back to time order."""
-    check_scalar_emissions(model)
     view, y = _forward_view(model, y)
     if not _streamed_supported(view):
         xf = _filter_matrix(view, y, _blocks(view, n_blocks, False))
@@ -640,7 +645,6 @@ def posterior(model, y, *, n_blocks=None, fused=None):
     Cholesky inversion of models.lgssm (the reference's `block.posterior`).
     A reverse-ordered model's posterior is the associative engine's
     (ops/assoc.py), as the reference's block engine hands it there."""
-    check_scalar_emissions(model)
     if not model.trans.forward:
         return assoc.posterior(model, y)
     if not _streamed_supported(model):
@@ -704,15 +708,19 @@ def _affine_comps_iteration(model, B):
     return _rows_blocked(*_iteration_view(model), B)
 
 
+def _latent_marginals_matrix(model, n_blocks=None) -> Gaussian:
+    """Latent marginals in time order on the matrix `affine_prefix_states`."""
+    F, c, Q = _iteration_view(model)
+    x0 = model.trans.x0
+    x = affine_prefix_states(F, c, Q, x0.mean, x0.cov, n_blocks=n_blocks)
+    return x if model.trans.forward else Gaussian(x.mean.flip(0), x.cov.flip(0))
+
+
 def latent_marginal_comps(model, *, n_blocks=None, fused=None):
     """(SD, N) latent marginals in time order: on K8 -> K9 -> K10 for
     D <= 3, on the matrix `affine_prefix_states` otherwise."""
     if not _marginals_supported(model):
-        F, c, Q = _iteration_view(model)
-        x0 = model.trans.x0
-        x = affine_prefix_states(F, c, Q, x0.mean, x0.cov, n_blocks=n_blocks)
-        comps = _gaussian_to_comps(x)
-        return comps if model.trans.forward else comps.flip(1)
+        return _gaussian_to_comps(_latent_marginals_matrix(model, n_blocks))
     B = _blocks(model, n_blocks, True)
     return _affine_states(model, _affine_comps_iteration(model, B), fused)
 
@@ -725,7 +733,7 @@ def affine_prefix_states(F, c, Q, x0_mean, x0_cov, *, n_blocks=None) -> Gaussian
     each block replayed from its start. Inputs (N, ...) in iteration order;
     returns ((N, D), (N, D, D))."""
     N, D = F.shape[0], F.shape[-1]
-    B = min(n_blocks or _default_blocks(N, D), N)
+    B = min(n_blocks or _default_blocks(N), N)
     rows = _rows_blocked(F, c, Q, B)  # identity-padded (KT, L, B)
     L = rows.shape[1]
     Fb = rows[:D * D].permute(1, 2, 0).reshape(L, B, D, D)
@@ -767,24 +775,24 @@ def _affine_states(model, params, fused):
 
 
 def _emissions_iteration(model):
-    """The emission leaves (H, h, s) in iteration order: a Fill by its
-    value, a per-step leaf flipped for a reverse-ordered model."""
-    e = model.emis
+    """The emissions in iteration order: a Fill leaf by its value, a
+    per-step leaf flipped for a reverse-ordered model."""
     leaf = lambda x: x.value if is_fill(x) else (x if model.trans.forward else x.flip(0))
-    return leaf(e.H), leaf(e.h), leaf(e.s)
+    return em.map_leaves(leaf, model.emis)
 
 
 def rand_with_eps(model, eps_t, eps_e, x_init, *, n_blocks=None):
     """The joint sample of the observations that the standard normals eps_t
-    (N, D), eps_e (N,) and the initial state x_init give (the reference's
-    `block.rand_with_eps`): the iteration view's maps x -> F x + b with
-    b = c + chol(Q + RAND_JITTER I) eps_t (for a reverse-ordered model eps_t
-    flipped and shifted by one with a zero first, as its transitions are),
-    composed from x_init, then y = H x + h + sqrt(s) eps_e. For D <= 3 the
+    (N, D), eps_e ((N,) or (N, Dout)) and the initial state x_init give (the
+    reference's `block.rand_with_eps`): the iteration view's maps x -> F x + b
+    with b = c + chol(Q + RAND_JITTER I) eps_t (for a reverse-ordered model
+    eps_t flipped and shifted by one with a zero first, as its transitions
+    are), composed from x_init, then each step's observation given its state
+    (`emissions.step_conditional_rand`; y = H x + h + sqrt(s) eps_e for a
+    scalar one). For D <= 3 the
     states are the mean rows of K8 -> K9 -> K10 on the (KT, L, B) rows of
     (F, b, 0) from (x_init, 0): the covariance rows stay exactly zero and
     are dropped. For D > 3 the matrix `affine_prefix_states`."""
-    check_scalar_emissions(model)
     forward = model.trans.forward
     F, b = _sample_maps(model, eps_t)
     eps_e = eps_e if forward else eps_e.flip(0)
@@ -797,19 +805,25 @@ def rand_with_eps(model, eps_t, eps_e, x_init, *, n_blocks=None):
     else:
         xs = affine_prefix_states(F, b, torch.zeros_like(F), x_init, zero_cov,
                                   n_blocks=n_blocks).mean
-    ys = conditional_rand_scalar(eps_e, xs, *_emissions_iteration(model))
+    ys = em.step_conditional_rand(eps_e, xs, _emissions_iteration(model))
     return ys if forward else ys.flip(0)
 
 
 def latent_marginals(model, *, n_blocks=None, fused=None) -> Gaussian:
     """Marginals of the latent chain on the affine block schedule."""
+    if not _marginals_supported(model):
+        return _latent_marginals_matrix(model, n_blocks)
     comps = latent_marginal_comps(model, n_blocks=n_blocks, fused=fused)
     return _comps_to_gaussian(comps, model.latent_dim)
 
 
 def marginals_diag(model, *, n_blocks=None, fused=None):
-    """(means, variances) of the scalar observations, (H m + h, H P H^T + s)
-    on the component rows of the latent marginals."""
+    """(means, variances) of the observations. Scalar ones: (H m + h,
+    H P H^T + s) on the component rows of the latent marginals; vector ones:
+    `emissions.step_predict_marginals` of the latent marginals."""
+    if not isinstance(model.emis, ScalarEmissions):
+        return em.step_predict_marginals(latent_marginals(model, n_blocks=n_blocks, fused=fused),
+                                         em.map_leaves(tmaterialize, model.emis))
     return _project(model, latent_marginal_comps(model, n_blocks=n_blocks, fused=fused))
 
 

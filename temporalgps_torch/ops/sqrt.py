@@ -27,6 +27,7 @@ roots of zero-padded columns: differentiate the covariance-form engines.
 
 import torch
 
+from ..models import emissions as em
 from ..utils import psd
 from ..utils.gaussian import Gaussian
 from . import assoc
@@ -92,23 +93,41 @@ def _combine_sqrt(e_i, e_j):
     return (A, b, U, _mv(_mT(A_i), Mtw) + eta_i, Z)
 
 
-def _sqrt_elements(F, c, Q, H, h, s, y, x0):
-    """Per-step square-root filtering elements of scalar emissions, with the
-    prior element in front: the algebra of `assoc._filter_elements` with the
-    covariance legs as roots, U by the Joseph form tria([(I - K H) U_Q,
-    K sqrt(s)]) and Z = F^T H^T / sqrt(S), zero-padded to (D, D)."""
+def _sqrt_elements(F, c, Q, e, y, x0):
+    """Per-step square-root filtering elements, with the prior element in
+    front: the algebra of `assoc._filter_elements` with the covariance legs
+    as roots. Scalar emissions: U by the Joseph form tria([(I - K H) U_Q,
+    K sqrt(s)]) and Z = F^T H^T / sqrt(S), zero-padded to (D, D); vector
+    ones (the noise R dense, or diagonal as diag(s_diag)): U = tria([(I - K H)
+    U_Q, K U_R]) and Z = F^T H^T L_S^{-T}, padded or compressed to (D, D)."""
     D = F.shape[-1]
     I = torch.eye(D, dtype=F.dtype, device=F.device)
     U_Q = psd.psd_root(Q)
-    u = torch.einsum("nji,nj->ni", U_Q, H)  # U_Q^T H
-    S = (u * u).sum(-1) + s
-    K = _mv(Q, H) / S[:, None]
-    ImKH = I - K[:, :, None] * H[:, None, :]
-    resid = y - ((H * c).sum(-1) + h)
-    U_e = tria(torch.cat([ImKH @ U_Q, (K * torch.sqrt(s)[:, None])[:, :, None]], dim=-1))
-    w = torch.einsum("nji,nj->ni", F, H)  # F^T H
-    elems = (ImKH @ F, c + K * resid[:, None], U_e, w * (resid / S)[:, None],
-             _pad_root((w / torch.sqrt(S)[:, None])[:, :, None], D))
+    if isinstance(e, em.ScalarEmissions):
+        H, h, s = e.H, e.h, e.s
+        u = torch.einsum("nji,nj->ni", U_Q, H)  # U_Q^T H
+        S = (u * u).sum(-1) + s
+        K = _mv(Q, H) / S[:, None]
+        ImKH = I - K[:, :, None] * H[:, None, :]
+        resid = y - ((H * c).sum(-1) + h)
+        U_e = tria(torch.cat([ImKH @ U_Q, (K * torch.sqrt(s)[:, None])[:, :, None]], dim=-1))
+        w = torch.einsum("nji,nj->ni", F, H)  # F^T H
+        elems = (ImKH @ F, c + K * resid[:, None], U_e, w * (resid / S)[:, None],
+                 _pad_root((w / torch.sqrt(S)[:, None])[:, :, None], D))
+    else:
+        if isinstance(e, em.DenseEmissions):
+            H, d, R = e.H, e.h, e.S
+        else:
+            H, d, R = e.C, e.c, torch.diag_embed(e.s_diag)
+        HUq = H @ U_Q
+        Ls = psd.cholesky(psd.symmetrize(HUq @ _mT(HUq) + R))
+        K = _mT(psd.chol_solve(Ls, H @ Q))  # (N, D, Dout)
+        ImKH = I - K @ H
+        resid = y - (_mv(H, c) + d)
+        U_e = tria(torch.cat([ImKH @ U_Q, K @ psd.psd_root(R)], dim=-1))
+        Z_e = _pad_root(_mT(F) @ _mT(psd.tri_solve(Ls, H)), D)
+        Sinv_resid = psd.chol_solve(Ls, resid[..., None])[..., 0]
+        elems = (ImKH @ F, c + _mv(K, resid), U_e, _mv(_mT(F), _mv(_mT(H), Sinv_resid)), Z_e)
     z = F.new_zeros(1, D, D)
     prior = (z, x0.mean[None].to(F), psd.psd_root(x0.cov)[None].to(F), F.new_zeros(1, D), z)
     return tuple(torch.cat([p, e]) for p, e in zip(prior, elems))
@@ -130,11 +149,10 @@ def from_sqrt_element(e):
 def _filter_prefix(model, y):
     """`assoc._filter_prefix` on the square-root recursion: the covariances
     are formed as U U^T only at the output."""
-    assoc.check_scalar_emissions(model)
     check_dim(model.latent_dim)
     ev = assoc._iteration_view(model)
     it, emis_it, y_it = assoc._iteration_order(model, y)
-    elems = _sqrt_elements(*ev, *emis_it, y_it, model.trans.x0)
+    elems = _sqrt_elements(*ev, emis_it, y_it, model.trans.x0)
     _, b, U, _, _ = assoc._associative_scan(_combine_sqrt, elems)
     return Gaussian(b, U @ _mT(U)), ev, it, emis_it, y_it
 

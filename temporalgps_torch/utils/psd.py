@@ -20,6 +20,13 @@ def add_jitter(P, eps=IDENT_EPS):
     return P + eps * torch.eye(P.shape[-1], dtype=P.dtype, device=P.device)
 
 
+def dtype_jitter(dtype, f64_eps=IDENT_EPS, f32_eps=1e-5):
+    """A jitter for the storage dtype: the reference's 1e-12 constants
+    assume float64; a near-singular float32 gram (a dense EQ kernel matrix)
+    needs ~1e-5 relative regularisation to stay positive definite."""
+    return f64_eps if torch.finfo(dtype).bits >= 64 else f32_eps
+
+
 def cholesky(P):
     """Lower Cholesky factor, batched over leading axes."""
     return torch.linalg.cholesky(P)

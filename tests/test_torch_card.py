@@ -919,3 +919,45 @@ def test_block_posterior_of_a_reverse_model_on_card_matches_cpu(cuda_device):
         for a, b in zip(got, run("cpu", engine)):
             np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=rtol,
                                        atol=rtol * b.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["sequential", "block", "parallel"])
+def test_space_time_grid_on_card_matches_cpu(cuda_device, engine):
+    """c4's model (Separable(EQ().stretch(0.7), Matern52()), noise 0.1) on a
+    10 x 50 grid (D = 30, Dout = 10), one NaN, float64: logpdf, the
+    posterior marginals at the training inputs and at 20 new times, and
+    rand_with_eps on the same normals, on the card within 1e-10 of the CPU
+    port's same engine; no kernel launched (the matrix path)."""
+    from temporalgps_torch.gp import EQ
+    from temporalgps_torch.space_time import RectilinearGrid, Separable
+
+    ns, nt = 10, 50
+    rng = np.random.default_rng(15)
+    y = rng.standard_normal(ns * nt)
+    y[17] = np.nan
+    t_new = np.sort(rng.uniform(0.0, 0.6, 20))
+    D = 3 * ns
+    eps = [rng.standard_normal(s) for s in ((nt, D), (nt, ns), (D,))]
+
+    def run(device):
+        grid = lambda t: RectilinearGrid(torch.linspace(-3, 3, ns, dtype=torch.float64,
+                                                        device=device), t)
+        fx = to_sde(GP(Separable(EQ().stretch(0.7), Matern52())), device=device)(
+            grid(tt.RegularSpacing(0.0, 0.01, nt)), 0.1)
+        fp = tpost.posterior(fx, y)
+        out = [tt.logpdf(fx, y, engine=engine).reshape(1)]
+        out += tpost.marginals(fp(fx.x, 0.1), engine=engine)
+        out += tpost.marginals(fp(grid(torch.as_tensor(t_new, device=device)), 0.1),
+                               engine=engine)
+        out.append(tlgssm.rand_with_eps(build_lgssm(fx), *(torch.as_tensor(e, device=device)
+                                                           for e in eps), engine=engine))
+        return [t.cpu() for t in out]
+
+    tk.reset_launch_counts()
+    got = run(cuda_device)
+    assert sum(tk.launch_counts().values()) == 0
+    for a, b in zip(got, run("cpu")):
+        assert bool(torch.isfinite(a).all())
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-10,
+                                   atol=1e-10 * b.abs().max().item())

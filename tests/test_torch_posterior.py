@@ -35,6 +35,7 @@ from temporalgps_torch.gp import to_sde
 from temporalgps_torch.gp.lti_sde import build_lgssm
 from temporalgps_torch.models import lgssm as tlgssm
 from temporalgps_torch.models import missings as tmissings
+from temporalgps_torch.space_time import regular_in_time
 
 torch.set_num_threads(1)
 
@@ -211,10 +212,11 @@ def test_posterior_covariance_is_refused():
 
 
 def test_routes_the_port_does_not_take_raise():
-    """Engines not ported and grid inputs (item 7) raise
-    NotImplementedError; per-step transitions, refused by the blocked
-    filter before the general block schedule, now match the sequential
-    engine there."""
+    """Engines not ported and RegularInTime inputs (the pseudo-point route,
+    item 8) raise NotImplementedError, inputs of two dimensions that are no
+    grid ValueError; per-step transitions, refused by the blocked filter
+    before the general block schedule, now match the sequential engine
+    there."""
     _, tf, x_tr, noise_tr, y, *_ = _gp_setup("Matern32", seed=3)
     model = build_lgssm(tf(x_tr, noise_tr))
     y_f = torch.nan_to_num(torch.as_tensor(y))
@@ -227,5 +229,8 @@ def test_routes_the_port_does_not_take_raise():
         _close(got, want, rtol=1e-10)
     with pytest.raises(NotImplementedError, match="item 8"):
         tlgssm.marginals_diag(model, engine="lti")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 8"):
+        tpost.posterior(tf(x_tr, noise_tr), y)(regular_in_time(np.arange(2.0),
+                                                               [np.zeros(3), np.zeros(2)]))
+    with pytest.raises(ValueError, match="exact inference takes"):
         tpost.posterior(tf(x_tr, noise_tr), y)(np.zeros((3, 2)))
