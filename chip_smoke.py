@@ -249,6 +249,37 @@ Phases; any failure exits non-zero without the final result line:
      the LU inverse beside the program's, formed in float64 (a record, not
      a gate); torch.profiler over two calls of logpdf and of the posterior
      marginals (busy, idle share, the top device ops); the peak memory.
+ 19. The Kronecker-factored engine (engine="kron", space_time/kron.py),
+     through the public entry points, at c4 (50 x 1000) and at the
+     reference's big-space shape, c4's model on 247 points x
+     RegularSpacing(0, 0.01, 100) (D = 741), float32 and float64: logpdf,
+     the prior marginals, rand (n = None and n = 3, the same draws from the
+     same generator seed), the posterior marginals at the training inputs
+     and (c4) at 1200 new times, the float64 objective's autograd gradient;
+     beside "parallel" on the same inputs (at c4 phase 18's outputs and
+     times, its prior marginals apart), and at 247 x 100 beside "block" and
+     "sequential" (one call). No kernel of K1-K10 launches. engine=None's
+     posterior marginals and rand run at each shape and at 150 x 100
+     float32 (a raise fails the phase). Of the engines named, only the
+     calls in KRON_EXPECTED_RAISES may raise (the materialised engines'
+     float32 posterior and "parallel"'s float32 rand at 247 x 100: a
+     covariance that float32 storage leaves indefinite), and are recorded.
+     Gates: float64 kron within 1e-9 of float64 "parallel" (lml, prior
+     marginals, posterior means; the gradient 1e-8); its posterior variances
+     within 1e-8 + 1e-7 |v| elementwise (the reference's test of its kron
+     smoother against its sequential one: the kron smoother keeps
+     POSTERIOR_JITTER out of its backward recursion); float32 lml within
+     1e-3 of float64; float32 posterior means within 1e-3 (or F32_SPREAD
+     times the float32 sequential engine's distance, where that posterior
+     exists: at c4 phase 18's reading) of the float32 problem solved in
+     float64 by the same smoother; at 8 x 25 the card within 1e-9 of the CPU
+     port (float64: logpdf, marginals, posteriors, rand_with_eps). Every
+     call timed by CUDA events (median of batches of 1: 5 at 247 x 100, 3
+     at c4, where kron's new times and gradient take one, as the sequential
+     engine does; the script's time limit); torch.profiler over one float32
+     logpdf and one posterior call at each shape (busy, idle share, top
+     device ops); peak memory per shape; engine=None's choice at each shape
+     (the crossover behind it: probes/torch_kron_crossover.py).
 
 The third line from the end is the card's name and power limit, the second
 {"kernels": [...]} with the float32 numbers of all thirteen kernels (the
@@ -356,6 +387,21 @@ N_D5 = 100_000
 C4_NS, C4_NT, C4_DT, C4_NT_NEW, C4_NAN_AT, C4_NS_SMALL = 50, 1000, 0.01, 1200, 4321, 10
 C4_HYPER = (1.0, 0.7, 1.0, 0.1)
 C4_ENGINES = ("sequential", "block", "parallel")
+# The factored engine (engine="kron", phase 19) on KRON_SHAPES (points,
+# times): c4, and the reference's big-space shape (bench.py:641-668, after
+# its bench/lgssm.jl:69-160), c4's model on 247 points x RegularSpacing(0,
+# C4_DT, 100), D = 741; y from default_rng(SEED) with a NaN at C4_NAN_AT.
+# engine=None's posterior marginals and rand also at KRON_GAP (points,
+# times, float32), where the materialised engines' float32 posterior
+# raises and the speed rule alone would not take kron; the card against the
+# CPU at KRON_SMALL (points, times). The materialised engines' calls that
+# raise at the big shape (a float32 covariance that float32 storage leaves
+# indefinite; ROADMAP Queue 3): any other raise fails the phase.
+KRON_SHAPES = {"c4": (C4_NS, C4_NT), "big": (247, 100)}
+KRON_GAP = (150, 100)
+KRON_EXPECTED_RAISES = {"big_float32_posterior_marginals_parallel",
+                        "big_float32_posterior_marginals_block", "big_float32_rand_parallel"}
+KRON_SMALL = (8, 25)
 # The calls of sum-c2's main path and the launches each must show: the
 # filter (K1-K3), the forward-mode gradient (K4-K6), posterior marginals at
 # the training inputs (K1, K2, K7, K8-K10), the prior rand (K8-K10 on zero
@@ -566,6 +612,8 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smoke = Smoke()
+    # Phase 18's c4 outputs on "parallel", which phase 19 holds kron to.
+    c4_parallel = {}
     dtypes = {"float32": torch.float32, "float64": torch.float64}
     D, k = D_MAIN, K_TANGENTS
 
@@ -2322,10 +2370,64 @@ def main():
                     f"sequential engine rel={r5s:.3e} (tol 1e-10)")
 
     # ---- 18. exact space-time inference on the materialised grid (c4) ----
-    def phase_space_time():
+    # ---- space-time helpers (phases 18 and 19) ------------------------------
+    def grid(dtype, ns, times, device=DEVICE):
+        from temporalgps_torch.space_time import RectilinearGrid
+
+        return RectilinearGrid(torch.linspace(-3, 3, ns, dtype=dtype, device=device), times)
+
+    def make_c4(dtype, ns=C4_NS, hyper=C4_HYPER, nt=C4_NT, device=DEVICE):
+        """c4's model on ns points x nt times; `hyper` (kernel variance,
+        inverse lengthscales in space and time, noise) may be tensors, for a
+        gradient."""
         from temporalgps_torch.gp import EQ
+        from temporalgps_torch.space_time import Separable
+
+        var, inv_s, inv_t, noise = hyper
+        kern = var * Separable(EQ().stretch(inv_s), Matern52().stretch(inv_t))
+        times = RegularSpacing(torch.tensor(0.0, dtype=dtype), torch.tensor(C4_DT, dtype=dtype),
+                               nt)
+        return to_sde(GP(kern), ArrayStorage(dtype), device=device)(
+            grid(dtype, ns, times, device), noise)
+
+    def new_grid(dtype):
+        span = C4_DT * C4_NT
+        return grid(dtype, C4_NS, RegularSpacing(0.0, span / C4_NT_NEW, C4_NT_NEW))
+
+    def post_marginals(fx, y, engine, x_new=None):
+        fp = gpost.posterior(fx, y)
+        return gpost.marginals(fp(fx.x if x_new is None else x_new, NOISE), engine=engine)
+
+    def timed(rec, key, call, batches=5):
+        """The call's output; its median ms over `batches` batches of 1
+        (CUDA events, the first the call that gives the output) recorded
+        under key in rec, with that call's launches."""
+        kernels.reset_launch_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = call()
+        end.record()
+        end.synchronize()
+        counts = {kn: n for kn, n in kernels.launch_counts().items() if n}
+        times = [start.elapsed_time(end)]
+        if batches > 1:
+            times += [events_ms(call, reps=1, batches=1, warm_up=False)[0]
+                      for _ in range(batches - 1)]
+        ms = statistics.median(times)
+        rec.setdefault("ms", {})[key] = ms
+        rec.setdefault("launches", {})[key] = counts
+        print(f"  {key}: {ms!r} ms (range {min(times)!r}..{max(times)!r}, {batches} batches "
+              f"of 1), launches {counts}", flush=True)
+        return out
+
+    def batches_of(engine):
+        # The sequential engine's calls take seconds: one batch, not 5
+        # (3 batches spread 3-20% in earlier runs, against the 10-40x
+        # between it and the batched engines).
+        return 1 if engine == "sequential" else 5
+
+    def phase_space_time():
         from temporalgps_torch.ops import assoc
-        from temporalgps_torch.space_time import RectilinearGrid, Separable
 
         rec = smoke.record["c4"] = {}
         torch.cuda.reset_peak_memory_stats()
@@ -2333,53 +2435,6 @@ def main():
         y_np4[C4_NAN_AT] = np.nan
         y4 = {name: torch.as_tensor(y_np4, dtype=dtype, device=DEVICE)
               for name, dtype in dtypes.items()}
-
-        def grid(dtype, ns, times):
-            return RectilinearGrid(torch.linspace(-3, 3, ns, dtype=dtype, device=DEVICE), times)
-
-        def make_c4(dtype, ns=C4_NS, hyper=C4_HYPER):
-            var, inv_s, inv_t, noise = hyper
-            kern = var * Separable(EQ().stretch(inv_s), Matern52().stretch(inv_t))
-            times = RegularSpacing(torch.tensor(0.0, dtype=dtype), torch.tensor(C4_DT, dtype=dtype),
-                                   C4_NT)
-            return to_sde(GP(kern), ArrayStorage(dtype), device=DEVICE)(grid(dtype, ns, times),
-                                                                        noise)
-
-        def new_grid(dtype):
-            span = C4_DT * C4_NT
-            return grid(dtype, C4_NS, RegularSpacing(0.0, span / C4_NT_NEW, C4_NT_NEW))
-
-        def post_marginals(fx, y, engine, x_new=None):
-            fp = gpost.posterior(fx, y)
-            return gpost.marginals(fp(fx.x if x_new is None else x_new, NOISE), engine=engine)
-
-        def timed(key, call, batches=5):
-            """The call's output; its median ms over `batches` batches of 1
-            (CUDA events, the first the call that gives the output) recorded
-            under key, with that call's launches."""
-            kernels.reset_launch_counts()
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = call()
-            end.record()
-            end.synchronize()
-            counts = {kn: n for kn, n in kernels.launch_counts().items() if n}
-            times = [start.elapsed_time(end)]
-            if batches > 1:
-                times += [events_ms(call, reps=1, batches=1, warm_up=False)[0]
-                          for _ in range(batches - 1)]
-            ms = statistics.median(times)
-            rec.setdefault("ms", {})[key] = ms
-            rec.setdefault("launches", {})[key] = counts
-            print(f"  {key}: {ms!r} ms (range {min(times)!r}..{max(times)!r}, {batches} batches "
-                  f"of 1), launches {counts}", flush=True)
-            return out
-
-        def batches_of(engine):
-            # The sequential engine's calls take seconds: one batch, not 5
-            # (3 batches spread 3-20% in earlier runs, against the 10-40x
-            # between it and the batched engines).
-            return 1 if engine == "sequential" else 5
 
         def post_means_in_f64(fx, y, x_new=None):
             """The posterior means of fx's float32 problem (its model and
@@ -2409,14 +2464,14 @@ def main():
             fx = make_c4(dtype)
             for engine in C4_ENGINES + (None,):
                 outs[(name, "logpdf", engine)] = timed(
-                    f"{name}_logpdf_{engine}", lambda: logpdf(fx, y4[name], engine=engine),
+                    rec, f"{name}_logpdf_{engine}", lambda: logpdf(fx, y4[name], engine=engine),
                     batches_of(engine))
             for engine in C4_ENGINES:
                 outs[(name, "post", engine)] = timed(
-                    f"{name}_posterior_marginals_{engine}",
+                    rec, f"{name}_posterior_marginals_{engine}",
                     lambda: post_marginals(fx, y4[name], engine), batches_of(engine))
                 outs[(name, "post_new", engine)] = timed(
-                    f"{name}_posterior_marginals_new_{engine}",
+                    rec, f"{name}_posterior_marginals_new_{engine}",
                     lambda: post_marginals(fx, y4[name], engine, new_grid(dtype)),
                     batches_of(engine))
         smoke.check(all(v == {} for v in rec["launches"].values()),
@@ -2476,7 +2531,7 @@ def main():
         # Samples: the prior's rand; rand_with_eps on the card's engines
         # against its sequential engine on the same normals, float64.
         gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-        ys = timed("float32_rand", lambda: rand(gen, make_c4(torch.float32)))
+        ys = timed(rec, "float32_rand", lambda: rand(gen, make_c4(torch.float32)))
         smoke.check(finite(ys) and ys.shape == (C4_NS * C4_NT,),
                     f"c4 float32 prior rand: finite, shape {tuple(ys.shape)}")
         model64 = build_lgssm(make_c4(torch.float64))
@@ -2484,7 +2539,7 @@ def main():
         g = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
         eps = [torch.randn(shape, generator=g, dtype=torch.float64, device=DEVICE)
                for shape in ((C4_NT, D4), (C4_NT, C4_NS), (D4,))]
-        samples = {engine: timed(f"float64_rand_with_eps_{engine}",
+        samples = {engine: timed(rec, f"float64_rand_with_eps_{engine}",
                                  lambda: tlgssm.rand_with_eps(model64, *eps, engine=engine),
                                  batches_of(engine))
                    for engine in C4_ENGINES}
@@ -2509,10 +2564,16 @@ def main():
                 p.requires_grad_(True)
                 v = objective(engine)(p)
                 return v.detach(), torch.autograd.grad(v, p)[0]
-            grads[engine] = timed(f"float64_grad_{engine}", value_and_grad, batches_of(engine))
+            grads[engine] = timed(rec, f"float64_grad_{engine}", value_and_grad,
+                                  batches_of(engine))
         r_g = {e: rel_max(grads[e][1], grads["sequential"][1]) for e in ("block", "parallel")}
         rec["grad"] = {e: g.tolist() for e, (_, g) in grads.items()}
         rec["grad_f64_rel_vs_sequential"] = r_g
+        c4_parallel["outs"] = {(name, kind): outs[(name, short, "parallel")]
+                               for name in dtypes for kind, short in (
+                                   ("logpdf", "logpdf"), ("posterior_marginals", "post"),
+                                   ("posterior_marginals_new", "post_new"))}
+        c4_parallel["grad"] = grads["parallel"]
         smoke.check(all(finite(*grads[e]) and r <= 1e-8 for e, r in r_g.items()),
                     f"c4 float64 gradient vs the sequential engine's: {r_g} (tol 1e-8): "
                     f"{grads['block'][1].tolist()}")
@@ -2522,10 +2583,10 @@ def main():
         for name, dtype in dtypes.items():
             fx = make_c4(dtype, ns=C4_NS_SMALL)
             for engine in C4_ENGINES:
-                timed(f"{name}_ns{C4_NS_SMALL}_logpdf_{engine}",
+                timed(rec, f"{name}_ns{C4_NS_SMALL}_logpdf_{engine}",
                       lambda: logpdf(fx, y4[name][:C4_NS_SMALL * C4_NT], engine=engine),
                       batches_of(engine))
-                timed(f"{name}_ns{C4_NS_SMALL}_posterior_marginals_{engine}",
+                timed(rec, f"{name}_ns{C4_NS_SMALL}_posterior_marginals_{engine}",
                       lambda: post_marginals(fx, y4[name][:C4_NS_SMALL * C4_NT], engine),
                       batches_of(engine))
         table = {f"{name} D={3 * ns}": {
@@ -2583,6 +2644,257 @@ def main():
         rec["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
         print(f"  peak memory {rec['peak_memory_bytes']} bytes", flush=True)
 
+    # ---- 19. the Kronecker-factored engine -------------------------------
+    def phase_kron():
+        from temporalgps_torch.gp import lti_sde
+        from temporalgps_torch.space_time import kron
+
+        rec = smoke.record["kron"] = {}
+        r, tol, none_takes, raised = {}, {}, {}, {}
+        rec.update(rel=r, tol=tol, engine_none=none_takes, raises=raised)
+
+        def wide(v):
+            if isinstance(v, torch.Tensor):
+                return v.double()
+            if is_fill(v):
+                return dataclasses.replace(v, value=v.value.double())
+            if dataclasses.is_dataclass(v):  # the temporal prior, a Gaussian
+                return dataclasses.replace(v, mean=v.mean.double(), cov=v.cov.double())
+            return torch.float64  # the dtype field
+
+        def kron_f32_problem(fx, y):
+            """The posterior means of fx's float32 problem (its factors and
+            data as float32 stores them) solved in float64 by the kron
+            smoother."""
+            fac = kron._factors(fx)
+            fac = fac._replace(**{k: wide(v) for k, v in fac._asdict().items()})
+            return kron._posterior_marginals(fac, fx.x, y.double(), None)[0].reshape(-1)
+
+        def y_of(ns, nt, dtype):
+            y = np.random.default_rng(SEED).standard_normal(ns * nt)
+            y[C4_NAN_AT % (ns * nt)] = np.nan
+            return torch.as_tensor(y, dtype=dtype, device=DEVICE)
+
+        def choice(fx):
+            """The engine that engine=None takes for each of fx's verbs on
+            the card."""
+            other = tlgssm._resolve_engine(None, build_lgssm(fx))
+            return {verb: "kron" if lti_sde._route_kron(fx, None, verb) else other
+                    for verb in ("logpdf", "marginals", "rand", "posterior")}
+
+        def grad_call(engine, ns, nt, y):
+            def call():
+                p = torch.log(torch.tensor(C4_HYPER, dtype=torch.float64, device=DEVICE))
+                p.requires_grad_(True)
+                fx = make_c4(torch.float64, ns=ns, nt=nt, hyper=tuple(torch.exp(p)))
+                v = -logpdf(fx, y, engine=engine) / (ns * nt)
+                return v.detach(), torch.autograd.grad(v, p)[0]
+            return call
+
+        def profile(key, call):
+            """torch.profiler over one call; the idle share against the
+            call's median time above."""
+            ms = rec["ms"][key]
+            device_us, n_ops = device_profile(call, 1)
+            busy = sum(device_us.values())
+            top = sorted(device_us.items(), key=lambda kv: -kv[1])[:5]
+            summary = {"call_ms": ms, "device_busy_us": busy,
+                       "idle_share": 1.0 - busy / (1e3 * ms), "device_ops_per_call": n_ops,
+                       "top_device_us": {k[:80]: v for k, v in top}}
+            rec.setdefault("profile", {})[key] = summary
+            print(f"  {key} profile: {json.dumps(summary)}", flush=True)
+            smoke.check(busy > 0, f"{key}: the profiler saw device time")
+
+        def engine_none(key, fx, y, ns, nt):
+            """engine=None's posterior marginals and rand on fx: they must run
+            (a raise fails the phase) and be finite."""
+            none_takes[key] = choice(fx)
+            m, v = post_marginals(fx, y, None)
+            draw = rand(torch.Generator(device=DEVICE).manual_seed(SEED), fx)
+            smoke.check(m.shape == v.shape == draw.shape == (ns * nt,) and finite(m, v, draw)
+                        and bool((v > 0).all()),
+                        f"{key} engine=None ({none_takes[key]}): posterior marginals and rand "
+                        "run, finite, positive variances")
+
+        for shape, (ns, nt) in KRON_SHAPES.items():
+            torch.cuda.reset_peak_memory_stats()
+            c4 = shape == "c4"
+            # At c4 only kron runs here: "parallel"'s outputs and times are
+            # phase 18's, on the same model and data (its prior marginals
+            # apart). c4's kron calls take 0.2-2.6 s: 3 batches there, one
+            # for the new times and the gradient (the script's time limit).
+            engines = ("kron",) if c4 else ("kron", "parallel", "block", "sequential")
+            out = {}
+            if c4:
+                for (name, kind), o in c4_parallel["outs"].items():
+                    out[name, kind, "parallel"] = o
+                    rec.setdefault("ms", {})[f"c4_{name}_{kind}_parallel"] = \
+                        smoke.record["c4"]["ms"][f"{name}_{kind}_parallel"]
+            for name, dtype in dtypes.items():
+                fx, y, key = make_c4(dtype, ns=ns, nt=nt), y_of(ns, nt, dtype), f"{shape}_{name}"
+
+                def run(kind, engine, call, slow=False):
+                    """timed() into out; a raise listed in KRON_EXPECTED_RAISES
+                    is recorded, any other fails the phase."""
+                    k = f"{key}_{kind}_{engine}"
+                    try:
+                        out[name, kind, engine] = timed(
+                            rec, k, call, (1 if slow else 3) if c4 else batches_of(engine))
+                    except torch.linalg.LinAlgError as err:
+                        if k not in KRON_EXPECTED_RAISES:
+                            raise
+                        raised[k] = f"{type(err).__name__}: {str(err)[:160]}"
+                        print(f"  {k} raises, as expected: {raised[k]}", flush=True)
+
+                for engine in engines:
+                    run("logpdf", engine, lambda: logpdf(fx, y, engine=engine))
+                    run("posterior_marginals", engine, lambda: post_marginals(fx, y, engine))
+                for engine in ("kron", "parallel"):
+                    run("marginals", engine, lambda: marginals(fx, engine=engine))
+                if c4:
+                    run("posterior_marginals_new", "kron",
+                        lambda: post_marginals(fx, y, "kron", new_grid(dtype)), slow=True)
+                else:
+                    run("rand", "parallel", lambda: rand(
+                        torch.Generator(device=DEVICE).manual_seed(SEED), fx, engine="parallel"))
+                for n in (None, 3):
+                    def draw():
+                        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+                        return rand(gen, fx, n, engine="kron")
+                    ys = timed(rec, f"{key}_rand_n{n}_kron", draw, 3 if c4 else 5)
+                    want = (ns * nt,) if n is None else (n, ns * nt)
+                    smoke.check(ys.shape == want and finite(ys) and torch.equal(ys, draw()),
+                                f"{key} kron rand n={n}: shape {tuple(ys.shape)}, finite, "
+                                "the same draw from the same seed")
+                engine_none(key, fx, y, ns, nt)
+                if name == "float32":
+                    # float32 posterior means against the float32 problem (the
+                    # factors as float32 stores them) solved in float64 by
+                    # the same smoother; within 1e-3 or F32_SPREAD times the
+                    # float32 sequential engine's distance (phase 18's rule)
+                    # where that engine's posterior exists (at c4 phase 18's
+                    # reading of it, against the materialised float32 problem).
+                    f32_problem = kron_f32_problem(fx, y)
+                    d_seq = smoke.record["c4"]["rel"]["float32_post_means_sequential"] if c4 \
+                        else None
+                    for engine in engines:
+                        if (name, "posterior_marginals", engine) in out:
+                            d = rel_max(out[name, "posterior_marginals", engine][0].double(),
+                                        f32_problem)
+                            r_key = f"{shape}_float32_post_means_{engine}_vs_f32_problem"
+                            (r if engine == "kron" else rec)[r_key] = d
+                            d_seq = d if engine == "sequential" else d_seq
+                    tol[f"{shape}_float32_post_means_kron_vs_f32_problem"] = max(
+                        1e-3, F32_SPREAD * (d_seq or 0.0))
+            # Gates: float64 kron against float64 parallel; float32 lml
+            # against float64's; the other engines' distances printed.
+            ref = lambda kind: out["float64", kind, "parallel"]
+            kron64 = lambda kind: out["float64", kind, "kron"]
+            r[f"{shape}_float64_logpdf"] = rel(kron64("logpdf").item(), ref("logpdf").item())
+            posterior_kinds = ("posterior_marginals",) + ("posterior_marginals_new",) * c4
+            for kind in ("marginals",) + posterior_kinds:
+                r[f"{shape}_float64_{kind}_means"] = rel_max(kron64(kind)[0], ref(kind)[0])
+            r[f"{shape}_float64_marginals_vars"] = rel_max(kron64("marginals")[1],
+                                                           ref("marginals")[1])
+            r[f"{shape}_float32_logpdf_vs_f64"] = rel(out["float32", "logpdf", "kron"].item(),
+                                                      kron64("logpdf").item())
+            # The posterior variances by the reference's own test of its kron
+            # smoother against its sequential one (tests/test_space_time.py:
+            # |a - b| <= 1e-8 + 1e-7 |b| elementwise; recorded as the largest
+            # ratio of the two sides, gated at 1): both smoothers carry
+            # POSTERIOR_JITTER in their gains, the kron one (the reference's
+            # formula) not in its backward recursion, which moves the
+            # variances by ~1e-10 J J^T (CPU, float64, c4: 5.7e-8 of the
+            # largest at the training inputs, 1.24e-7 at the new times; the
+            # means 1e-12).
+            for kind in posterior_kinds:
+                a, b = kron64(kind)[1], ref(kind)[1]
+                r[f"{shape}_float64_{kind}_vars"] = (
+                    (a - b).abs() / (1e-8 + 1e-7 * b.abs())).max().item()
+                tol[f"{shape}_float64_{kind}_vars"] = 1.0
+            for k in r:
+                if k.startswith(shape):
+                    tol.setdefault(k, 1e-9 if "float64" in k else 1e-3)
+            for engine in engines[2:]:
+                rec[f"{shape}_float64_logpdf_{engine}_vs_parallel"] = rel(
+                    out["float64", "logpdf", engine].item(), ref("logpdf").item())
+            for (name, kind, engine), o in out.items():
+                if kind.startswith("posterior"):
+                    smoke.check(finite(*o) and bool((o[1] > 0).all()),
+                                f"{shape} {name} {kind} {engine}: finite, positive variances")
+
+            # The float64 objective's autograd gradient, kron against parallel
+            # (at c4 phase 18's).
+            y64 = y_of(ns, nt, torch.float64)
+            grads = {"kron": timed(rec, f"{shape}_float64_grad_kron",
+                                   grad_call("kron", ns, nt, y64), 1 if c4 else 5)}
+            if c4:
+                grads["parallel"] = c4_parallel["grad"]
+                rec["ms"]["c4_float64_grad_parallel"] = smoke.record["c4"]["ms"][
+                    "float64_grad_parallel"]
+            else:
+                grads["parallel"] = timed(rec, f"{shape}_float64_grad_parallel",
+                                          grad_call("parallel", ns, nt, y64), 5)
+            r[f"{shape}_float64_grad"] = rel_max(grads["kron"][1], grads["parallel"][1])
+            tol[f"{shape}_float64_grad"] = 1e-8
+            rec[f"{shape}_grad"] = {e: g[1].tolist() for e, g in grads.items()}
+            smoke.check(finite(*grads["kron"]), f"{shape} kron gradient finite")
+
+            fx32, y32 = make_c4(torch.float32, ns=ns, nt=nt), y_of(ns, nt, torch.float32)
+            for kind, call in (("logpdf", lambda: logpdf(fx32, y32, engine="kron")),
+                               ("posterior_marginals", lambda: post_marginals(fx32, y32, "kron"))):
+                profile(f"{shape}_float32_{kind}_kron", call)
+            rec[f"{shape}_peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+            print(f"  {shape} peak memory {rec[f'{shape}_peak_memory_bytes']} bytes", flush=True)
+
+        # engine=None where only the float32 rule takes kron.
+        ns, nt = KRON_GAP
+        engine_none(f"{ns}x{nt}_float32", make_c4(torch.float32, ns=ns, nt=nt),
+                    y_of(ns, nt, torch.float32), ns, nt)
+        table = {}
+        for key, ms in rec["ms"].items():
+            m = re.fullmatch(r"(.+)_(logpdf|posterior_marginals)_(kron|parallel)", key)
+            if m:
+                table.setdefault(m[1], {}).setdefault(m[2], {})[m[3]] = ms
+        rec["engine_table_ms"] = table
+        print(f"  engine choice (ms): {json.dumps(table)}", flush=True)
+        print(f"  engine=None takes: {json.dumps(none_takes)}", flush=True)
+
+        # The card against the CPU port at a small grid, float64.
+        ns, nt = KRON_SMALL
+        rng = np.random.default_rng(SEED + 19)
+        y_s = rng.standard_normal(ns * nt)
+        y_s[17] = np.nan
+        t_new = np.sort(rng.uniform(0.0, 0.3, 9))
+        eps = [rng.standard_normal(shp) for shp in ((3, ns), (nt, 3, ns), (nt, ns))]
+
+        def small(device):
+            fx = make_c4(torch.float64, ns=ns, nt=nt, device=device)
+            fp = gpost.posterior(fx, y_s)
+            x_new = grid(torch.float64, ns, torch.as_tensor(t_new, device=device), device)
+            got = [logpdf(fx, y_s, engine="kron").reshape(1), *marginals(fx, engine="kron"),
+                   *gpost.marginals(fp(fx.x, NOISE), engine="kron"),
+                   *gpost.marginals(fp(x_new, NOISE), engine="kron"),
+                   kron.rand_with_eps(fx, *(torch.as_tensor(e, device=device) for e in eps))]
+            return [t.cpu() for t in got]
+
+        kernels.reset_launch_counts()
+        on_card = small(DEVICE)
+        smoke.check(sum(kernels.launch_counts().values()) == 0, "kron launches no kernel")
+        r_small = max(rel_max(a, b) for a, b in zip(on_card, small("cpu")))
+        r["small_float64_card_vs_cpu"], tol["small_float64_card_vs_cpu"] = r_small, 1e-9
+
+        smoke.check(all(v == {} for v in rec["launches"].values()),
+                    "kron and the materialised engines launch no kernel of K1-K10")
+        print(f"  distances: {json.dumps(r)}", flush=True)
+        smoke.check(all(v <= tol[k] for k, v in r.items()),
+                    "kron: float64 within 1e-9 of float64 parallel (lml, prior marginals, "
+                    "posterior means; posterior variances within 1e-8 + 1e-7 |v|; the gradient "
+                    "1e-8) and of the CPU port; float32 lml within 1e-3 "
+                    "of float64; float32 posterior means within 1e-3 (or "
+                    f"{F32_SPREAD} times the float32 sequential engine's distance) of the "
+                    f"float32 problem solved in float64: {json.dumps(tol)}")
+
     smoke.phase("1. versions and card", phase_versions)
     smoke.phase("2. build", phase_build)
     smoke.phase("3. value kernels vs plain versions at N=1M", phase_compare)
@@ -2601,6 +2913,7 @@ def main():
     smoke.phase("16. the Fisher gradient at N=1M", phase_fisher)
     smoke.phase("17. engines parallel and sqrt, the reverse block posterior, D = 5", phase_engines)
     smoke.phase("18. c4: exact space-time inference on the materialised grid", phase_space_time)
+    smoke.phase("19. kron: the factored engine at c4 and 247 x 100", phase_kron)
 
     print("== detail", json.dumps(smoke.record, default=str))
     if smoke.failures:

@@ -37,3 +37,17 @@ def dense_logpdf(fx, y):
 def dense_marginals(fx):
     m, C = dense_mean_cov(fx)
     return m, torch.diagonal(C)
+
+
+def dense_posterior_marginals(fx, y, fx_pred):
+    """Posterior (means, variances) at fx_pred's inputs, fx_pred's noise
+    included, given y observed at fx's."""
+    t_tr, t_pr = _times(fx), _times(fx_pred)
+    kern, mean = fx.f.f.kernel, fx.f.f.mean
+    m_tr, m_pr = mean_vector(mean, t_tr), mean_vector(mean, t_pr)
+    C_tr = K.gram(kern, t_tr) + torch.diag(tmaterialize(fx.noise))
+    C_cross = K.gram(kern, t_pr, t_tr)
+    C_pr = K.gram(kern, t_pr) + torch.diag(tmaterialize(fx_pred.noise))
+    sol = torch.linalg.solve(C_tr, torch.as_tensor(y).to(m_tr) - m_tr)
+    cov = C_pr - C_cross @ torch.linalg.solve(C_tr, C_cross.T)
+    return m_pr + C_cross @ sol, torch.diagonal(cov)

@@ -10,7 +10,8 @@ children's chains (block-diagonal A, Q and x0 covariance, concatenated H,
 summed h); a CustomMean to a per-step emission offset h. A Separable kernel
 on a RectilinearGrid (space_time/) compiles to the space-time LGSSM of
 space_time/builder.py; `logpdf`, `marginals` and `rand` take and give flat
-(space-fastest) observations for it.
+(space-fastest) observations for it, and with engine="kron" run the
+factored engine of space_time/kron.py on it instead (_route_kron).
 
 The storage dtype and the device are explicit per model. The device is the
 CUDA card unless the caller asks for the CPU: `to_sde(f, ArrayStorage(
@@ -47,10 +48,18 @@ class ArrayStorage:
     dtype: torch.dtype = torch.float64
 
 
+@dataclasses.dataclass(frozen=True)
+class SArrayStorage:
+    """The reference's static-array storage tag; the same as ArrayStorage
+    here (its only payload is the dtype), kept for API parity."""
+
+    dtype: torch.dtype = torch.float64
+
+
 def _storage_dtype(storage):
     if storage is None:
         return torch.float64
-    if isinstance(storage, ArrayStorage):
+    if isinstance(storage, (ArrayStorage, SArrayStorage)):
         return storage.dtype
     return storage  # a raw torch dtype
 
@@ -234,14 +243,37 @@ def build_lgssm(fx: FiniteLTISDE) -> LGSSM:
     )
 
 
+def _route_kron(fx, engine, verb) -> bool:
+    """Whether `verb` ("logpdf", "marginals", "rand" or "posterior") takes
+    the factored space-time engine (space_time/kron.py). engine="kron"
+    forces it, and raises TypeError for a model it does not take;
+    engine=None takes it for a supported grid model on a CUDA device where
+    kron.takes_engine_none says (the card's rule, measured there), never on
+    the CPU."""
+    from ..space_time import kron
+
+    if engine == "kron":
+        if not kron.supports(fx):
+            raise TypeError("engine='kron' requires a (possibly Scaled) Separable model "
+                            "on a RectilinearGrid")
+        return True
+    return (engine is None and _is_grid(fx.x) and fx.f.device.type == "cuda"
+            and kron.supports(fx) and kron.takes_engine_none(fx, verb))
+
+
 def logpdf(fx: FiniteLTISDE, y, *, engine=None, **engine_kwargs):
     """Log marginal likelihood of y under fx; NaNs in y are missing
     observations. `engine=None` picks the block engine for a model on a CUDA
     device (its kernels, constant or streamed; the matrix path for D > 3),
-    the parallel engine for a grid's model there (models.lgssm.
-    _resolve_engine), and the sequential engine otherwise;
-    `engine_kwargs` (`fused`, `n_blocks`) go to models.lgssm.logpdf. On a
-    grid, y is flat (space fastest)."""
+    for a grid's model there the kron engine or the parallel one
+    (_route_kron, models.lgssm._resolve_engine), and the sequential engine
+    otherwise; `engine_kwargs` (`fused`, `n_blocks`) go to
+    models.lgssm.logpdf. On a grid, y is flat (space fastest);
+    engine="kron" runs the factored engine (space_time/kron.py) on it."""
+    if _route_kron(fx, engine, "logpdf"):
+        from ..space_time import kron
+
+        return kron.logpdf(fx, y)
     model = build_lgssm(fx)
     y = _to_time_form(fx.x, torch.as_tensor(y, dtype=model.dtype, device=model.device))
     return missings.logpdf_with_missings(model, y, engine=engine, **engine_kwargs)
@@ -253,7 +285,12 @@ def rand(generator, fx: FiniteLTISDE, n=None, *, engine=None):
     torch.Generator on the model's device (the reference takes a key).
     `engine=None` runs the affine block schedule (K8-K10 with zero process
     noise rows) for a model on a CUDA device (a grid's: the parallel
-    engine), the sequential engine otherwise."""
+    engine; engine="kron" the factored one), the sequential engine
+    otherwise."""
+    if _route_kron(fx, engine, "rand"):
+        from ..space_time import kron
+
+        return kron.rand(generator, fx, n).flatten(-2)  # flat per draw, space fastest
     model = build_lgssm(fx)
     draw = lambda: _destructure(fx.x, lgssm_mod.rand(generator, model, engine=engine))
     return draw() if n is None else torch.stack([draw() for _ in range(n)])
@@ -269,8 +306,13 @@ def cov(fx: FiniteLTISDE):
 def marginals(fx: FiniteLTISDE, *, engine=None):
     """Prior marginal (means, variances) of every observation, the noise
     included. `engine=None` runs the affine block schedule (K8-K10) for a
-    model on a CUDA device (a grid's: the parallel engine) and the
-    sequential engine otherwise."""
+    model on a CUDA device (a grid's: the parallel engine; engine="kron"
+    the factored one) and the sequential engine otherwise."""
+    if _route_kron(fx, engine, "marginals"):
+        from ..space_time import kron
+
+        m, v = kron.marginals(fx)
+        return _destructure(fx.x, m), _destructure(fx.x, v)
     m, v = lgssm_mod.marginals_diag(build_lgssm(fx), engine=engine)
     return _destructure(fx.x, m), _destructure(fx.x, v)
 

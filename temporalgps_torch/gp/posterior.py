@@ -22,8 +22,11 @@ in the reference.
 Grids (space_time/): a RectilinearGrid posterior merges along time only (the
 spatial points must agree) and indexes the flat (space-fastest) vectors;
 its model has D = Ns * Dt states and vector emissions, so it takes the
-matrix path. RegularInTime inputs are refused, as in the reference's exact
-inference (the pseudo-point route, ROADMAP Queue 1 item 8).
+matrix path, or with engine="kron" (on the card by default where
+space_time.kron.takes_engine_none says) the factored smoother of
+space_time/kron.py for `marginals`. RegularInTime inputs are refused, as in
+the reference's exact inference (the pseudo-point route, ROADMAP Queue 1
+item 8).
 
 Sampling and scoring new data (`rand`, `logpdf`) always merge, as the
 reference does, even at the training inputs (each time then appears twice:
@@ -49,7 +52,7 @@ from ..space_time import grids
 from ..utils.fill import is_fill
 from ..utils.regular_spacing import RegularSpacing, time_array
 from .lti_sde import (LTISDE, FiniteLTISDE, _canon_noise, _destructure, _flat_len, _is_grid,
-                      _storage_dtype, _to_time_form, build_lgssm)
+                      _route_kron, _storage_dtype, _to_time_form, build_lgssm)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -179,30 +182,53 @@ def _posterior_model(fp, x, noise, y, noise_pred, *, engine=None):
     return missings_mod.replace_observation_noise_cov(post, _noise_leaf_like(model, x, noise_pred))
 
 
-def _merged_posterior(fxp: FinitePosteriorLTISDE, engine):
-    """(posterior LGSSM over the merged inputs, with the prediction noise at
-    the prediction indices and zero at the training ones; the prediction
-    indices as a tensor on its device, into the flat outputs: a merged grid's
-    (Nt, Ns) outputs flattened, space fastest)."""
+def _merged_data(fxp: FinitePosteriorLTISDE):
+    """(merged inputs, their training noise, y with NaN at the prediction
+    points, the prediction noise at the prediction indices and zero at the
+    training ones, the prediction indices as a tensor on y's device), all
+    flat: a merged grid's (Nt, Ns) outputs flattened, space fastest."""
     fp = fxp.f
     x_sorted, noise_all, y_all, _tr_idx, pr_idx = _build_inference_data(fp, fxp.x)
     noise_pred = _pred_noise_full(pr_idx, len(y_all), fxp.noise,
                                   _storage_dtype(fp.prior.storage), y_all.device)
-    post = _posterior_model(fp, x_sorted, noise_all, y_all, noise_pred, engine=engine)
-    return post, torch.as_tensor(pr_idx, device=y_all.device)
+    return x_sorted, noise_all, y_all, noise_pred, torch.as_tensor(pr_idx, device=y_all.device)
+
+
+def _merged_posterior(fxp: FinitePosteriorLTISDE, engine):
+    """(posterior LGSSM over the merged inputs, with the prediction noise at
+    the prediction indices and zero at the training ones; the prediction
+    indices into its flat outputs)."""
+    x, noise, y, noise_pred, idx = _merged_data(fxp)
+    return _posterior_model(fxp.f, x, noise, y, noise_pred, engine=engine), idx
 
 
 def marginals(fxp: FinitePosteriorLTISDE, *, engine=None):
     """Posterior marginal (means, variances) at fxp.x, including the
-    prediction noise fxp.noise; flat on a grid."""
+    prediction noise fxp.noise; flat on a grid. A grid model that takes the
+    factored engine (engine="kron", or engine=None by lti_sde._route_kron)
+    runs its smoother (space_time/kron.py): at new times on the merged grid,
+    whose prediction steps are whole rows of missing observations."""
+    from ..space_time import kron
+
     fp = fxp.f
     if _same_inputs(fxp.x, fp.x):
         noise_pred = _noise_array(fxp.noise, _flat_len(fxp.x))
+        fx = fp.prior(fp.x, fp.noise)
+        if _route_kron(fx, engine, "posterior"):
+            m, v = kron.posterior_marginals(
+                fx, fp.y, noise_pred=grids.noise_var_to_time_form(fxp.x, noise_pred))
+            return _destructure(fxp.x, m), _destructure(fxp.x, v)
         post = _posterior_model(fp, fp.x, fp.noise, fp.y, noise_pred, engine=engine)
         m, v = lgssm_mod.marginals_diag(post, engine=engine)
         return _destructure(fxp.x, m), _destructure(fxp.x, v)
-    post, idx = _merged_posterior(fxp, engine)
-    m, v = lgssm_mod.marginals_diag(post, engine=engine)
+    x, noise, y, noise_pred, idx = _merged_data(fxp)
+    fx = fp.prior(x, noise)
+    if _route_kron(fx, engine, "posterior"):
+        m, v = kron.posterior_marginals(fx, y,
+                                        noise_pred=grids.noise_var_to_time_form(x, noise_pred))
+    else:
+        post = _posterior_model(fp, x, noise, y, noise_pred, engine=engine)
+        m, v = lgssm_mod.marginals_diag(post, engine=engine)
     return m.reshape(-1)[idx], v.reshape(-1)[idx]
 
 

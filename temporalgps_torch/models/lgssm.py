@@ -119,21 +119,27 @@ def _resolve_engine(engine, model=None):
     return "sequential"
 
 
-# ops/steady.py imports its pieces of ops/lti.py: both come with item 8; the
-# factored space-time filter (space_time/kron.py) with item 7b.
+# ops/steady.py imports its pieces of ops/lti.py: both come with item 8.
 _NOT_PORTED = {
     "lti": "ROADMAP Queue 1 item 8",
     "steady": "ROADMAP Queue 1 item 8",
-    "kron": "ROADMAP Queue 1 item 7b",
 }
 
 
 def _check_engine(engine):
-    """Raise for an engine the port does not have."""
+    """Raise for an engine the port does not have. "kron" is no engine of an
+    LGSSM: it factors a grid's Separable model before any LGSSM is built
+    (space_time/kron.py), so it is refused here rather than run on
+    another engine."""
     if engine in ("block", "sequential", "parallel", "sqrt"):
         return
     if engine in _NOT_PORTED:
         raise NotImplementedError(f"engine={engine!r} is not ported yet ({_NOT_PORTED[engine]})")
+    if engine == "kron":
+        raise ValueError(
+            "engine='kron' runs on a grid's fx, not on an LGSSM: call gp.logpdf, gp.marginals, "
+            "gp.rand or gp.posterior.marginals on to_sde(GP(Separable(...)))(grid, noise) with "
+            "engine='kron'")
     raise ValueError(f"unknown engine {engine!r}")
 
 

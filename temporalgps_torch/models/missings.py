@@ -12,7 +12,7 @@ import torch
 from ..config import LARGE_VAR
 from ..utils.fill import tmaterialize
 from . import emissions as em
-from .lgssm import LGSSM, logpdf, posterior
+from .lgssm import LGSSM, filter_, logpdf, posterior
 
 _HALF_LOG_2PI_LARGE_VAR = 0.5 * math.log(2.0 * math.pi * LARGE_VAR)
 
@@ -64,3 +64,10 @@ def posterior_with_missings(model: LGSSM, y, *, engine=None, **engine_kwargs):
     the missing observations."""
     model_f, y_f, _ = transform_model_and_obs(model, y)
     return posterior(model_f, y_f, engine=engine, **engine_kwargs)
+
+
+def filter_with_missings(model: LGSSM, y, *, engine=None, **engine_kwargs):
+    """The filtering distributions (models.lgssm.filter_) given y with NaNs
+    for the missing observations."""
+    model_f, y_f, _ = transform_model_and_obs(model, y)
+    return filter_(model_f, y_f, engine=engine, **engine_kwargs)

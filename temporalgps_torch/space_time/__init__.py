@@ -3,12 +3,14 @@
 tensored with the temporal state (D = Ns * Dt) and whose emissions are the
 Ns observations of each time step (DenseEmissions); the gp verbs
 (`to_sde(GP(k))(grid, noise)` -> `logpdf`, `marginals`, `rand`,
-`posterior`) take grids. The factored Kronecker engine (engine="kron") is
-ROADMAP Queue 1 item 7b; the pseudo-point models (`dtc`, `elbo`, `dtcify`,
-`DTCSeparable`, `approx_posterior_marginals(_at)`) and the use of
-`RegularInTime` inputs are item 8.
+`posterior`) take grids. `kron` is the factored engine of the same models,
+which never builds the D-state LGSSM (engine="kron" on those verbs). The
+pseudo-point models (`dtc`, `elbo`, `dtcify`, `DTCSeparable`,
+`approx_posterior_marginals(_at)`) and the use of `RegularInTime` inputs are
+ROADMAP Queue 1 item 8.
 """
 
+from . import kron
 from .grids import RectilinearGrid, RegularInTime, SpaceTimeGrid, regular_in_time
 from .separable import Separable
 
@@ -17,6 +19,7 @@ __all__ = [
     "RegularInTime",
     "SpaceTimeGrid",
     "Separable",
+    "kron",
     "regular_in_time",
 ]
 

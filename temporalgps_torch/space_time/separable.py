@@ -8,6 +8,7 @@ from typing import Any
 import torch
 
 from ..gp import kernels as K
+from ..utils import psd
 from ..utils.regular_spacing import time_array
 from . import grids
 
@@ -16,6 +17,15 @@ from . import grids
 class Separable(K.Kernel):
     l: Any  # spatial kernel
     r: Any  # temporal kernel
+
+
+def spatial_gram(k: Separable, x: grids.RectilinearGrid, dtype, device):
+    """The gram Kr of the spatial kernel at the grid's points, with the
+    dtype's jitter on its diagonal (dtype_jitter times its mean diagonal),
+    in the storage dtype: the spatial factor of the exact grid model."""
+    Kr = K.gram(k.l, torch.as_tensor(x.xl, device=device))
+    eps = psd.dtype_jitter(dtype) * torch.diagonal(Kr).mean()
+    return (Kr + eps * torch.eye(Kr.shape[0], dtype=Kr.dtype, device=device)).to(dtype)
 
 
 def gram_grid(k: Separable, x: grids.RectilinearGrid):

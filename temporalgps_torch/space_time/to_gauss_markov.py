@@ -18,7 +18,7 @@ from ..gp.lti_sde import _block_diag, _combine_leaves, _concat, lgssm_components
 from ..utils import psd
 from ..utils.gaussian import Gaussian
 from . import grids
-from .separable import Separable
+from .separable import Separable, spatial_gram
 
 
 def _kron(A, B):
@@ -54,9 +54,7 @@ def lgssm_components_spacetime(kernel, x, dtype, device):
         raise TypeError("exact spatio-temporal inference requires a RectilinearGrid")
 
     As_t, offs_t, Qs_t, (Hs_t, hs_t), x0_t = lgssm_components(kernel.r, x.xr, dtype, device)
-    Kr = K.gram(kernel.l, torch.as_tensor(x.xl, device=device))
-    eps = psd.dtype_jitter(dtype) * torch.diagonal(Kr).mean()
-    Kr = (Kr + eps * torch.eye(Kr.shape[0], dtype=Kr.dtype, device=device)).to(dtype)
+    Kr = spatial_gram(kernel, x, dtype, device)
     Ns = Kr.shape[0]
     ident = torch.eye(Ns, dtype=dtype, device=device)
 

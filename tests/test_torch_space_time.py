@@ -296,8 +296,8 @@ def test_missing_observation_matches_reference():
 
 def test_refusals():
     _, tfx = _fxs()
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        tt.logpdf(tfx, _y(), engine="kron")
+    with pytest.raises(ValueError, match="gp.logpdf"):
+        tlgssm.logpdf(tgp.build_lgssm(tfx), _y().reshape(NT, NS), engine="kron")
     with pytest.raises(NotImplementedError, match="item 8"):
         from temporalgps_torch.space_time import dtcify  # noqa: F401
     with pytest.raises(NotImplementedError, match="item 8"):
