@@ -147,8 +147,9 @@ Phases; any failure exits non-zero without the final result line:
      Matern52().stretch(3), assembled block-diagonally) at N = 100k on the
      matrix path: no kernel launched, finite; float64 at N = 2k within 1e-10
      of the CPU's matrix path. Every call timed by CUDA events (median of
-     batches); torch.profiler and host stages of the irregular logpdf and
-     the new-times posterior.
+     batches; vg(p0), ~20 s a call, by its gated call alone, not run
+     again); torch.profiler and host stages of the irregular logpdf and the
+     new-times posterior.
  15. sum-c2 through the public entry points: c2's inputs (N = 1M, one NaN)
      under 0.5 * Matern12().stretch(2.0) + Matern32().stretch(0.5) (a Sum,
      D = 3), float32 and float64. This slice's main path, each call with
@@ -261,9 +262,14 @@ Phases; any failure exits non-zero without the final result line:
      "sequential" (one call). No kernel of K1-K10 launches. engine=None's
      posterior marginals and rand run at each shape and at 150 x 100
      float32 (a raise fails the phase). Of the engines named, only the
-     calls in KRON_EXPECTED_RAISES may raise (the materialised engines'
-     float32 posterior and "parallel"'s float32 rand at 247 x 100: a
-     covariance that float32 storage leaves indefinite), and are recorded.
+     calls in KRON_EXPECTED_RAISES may raise, and are recorded. It is
+     empty: the materialised engines' float32 posterior and "parallel"'s
+     float32 rand at 247 x 100 raised (a float32 filter's covariances, and
+     a float32 factor of Kr (x) Q_t, not positive definite) until the
+     posterior's filter ran in float64 for a float32 model
+     (ops/assoc.posterior_filter_model) and samples factored in float64
+     (psd.sample_factor); those calls now run and their float32 posterior
+     means meet the float32 gate below.
      Gates: float64 kron within 1e-9 of float64 "parallel" (lml, prior
      marginals, posterior means; the gradient 1e-8); its posterior variances
      within 1e-8 + 1e-7 |v| elementwise (the reference's test of its kron
@@ -280,6 +286,33 @@ Phases; any failure exits non-zero without the final result line:
      logpdf and one posterior call at each shape (busy, idle share, top
      device ops); peak memory per shape; engine=None's choice at each shape
      (the crossover behind it: probes/torch_kron_crossover.py).
+ 20. c5, the pseudo-point models (space_time/pseudo_point.py, engines
+     "steady", "lti" and the exact ones), through the public verbs at full
+     width (50 points, 5 inducing points, D = 15): elbo and elbo + autograd
+     gradient in (log s2, log sc, log noise) on "steady" at Nt = 1M (50M
+     observations) and on "block" at Nt = 100k, float32 and float64; dtc and
+     approx_posterior_marginals (20 new points) on "steady" at 1M; the
+     ragged case of examples/approx_space_time_learning.py (float64) on
+     "block" and "parallel" at Nt = 1000 and 100k: elbo with its gradient
+     and approx_posterior_marginals at 25 points. No kernel of K1-K10
+     launches (no TPU kernel lies on this path). Gates: the bench's
+     steady-against-block cross-check at Nt = 100k in float64 (value 1e-9
+     relative or F32_SPREAD times "parallel"'s distance from "block", the
+     exact engines' own spread on this model, whichever is larger; gradient
+     1e-6 of each component plus 1e-8 of the largest);
+     float32 within 1e-3 of float64 (the elbo, the gradient as phase 6
+     gates it, the approximate posterior means relative to the largest);
+     the ragged block and parallel within 1e-9 (value), 1e-7 (gradient and
+     means, of the largest); finite values and positive variances; at the
+     bench's SMOKE sizes (5 x 2000, 3 inducing) float64 on the card within
+     1e-10 of the CPU port on every engine (gradients 1e-8), and the elbo
+     below the exact lml. Every call timed by CUDA events (median of 3
+     batches of 1; one for the ragged 100k calls); the peak memory of the
+     steady elbo and of its gradient at 1M; torch.profiler over one float32
+     steady elbo + gradient at 1M (busy, idle share, top device ops); the
+     float32 elbo at Nt = 100k on "parallel", "block", "lti" and "steady"
+     (engine=None takes "parallel" on the card; "lti" and "steady" are
+     opt-in).
 
 The third line from the end is the card's name and power limit, the second
 {"kernels": [...]} with the float32 numbers of all thirteen kernels (the
@@ -392,16 +425,30 @@ C4_ENGINES = ("sequential", "block", "parallel")
 # its bench/lgssm.jl:69-160), c4's model on 247 points x RegularSpacing(0,
 # C4_DT, 100), D = 741; y from default_rng(SEED) with a NaN at C4_NAN_AT.
 # engine=None's posterior marginals and rand also at KRON_GAP (points,
-# times, float32), where the materialised engines' float32 posterior
-# raises and the speed rule alone would not take kron; the card against the
-# CPU at KRON_SMALL (points, times). The materialised engines' calls that
-# raise at the big shape (a float32 covariance that float32 storage leaves
-# indefinite; ROADMAP Queue 3): any other raise fails the phase.
+# times, float32), where the materialised engines' float32 posterior raised
+# before its filter ran in float64 and the speed rule alone would not take
+# kron; the card against the CPU at KRON_SMALL (points, times). The calls
+# that may raise: none since that repair (ROADMAP Queue 3); any raise fails
+# the phase.
 KRON_SHAPES = {"c4": (C4_NS, C4_NT), "big": (247, 100)}
 KRON_GAP = (150, 100)
-KRON_EXPECTED_RAISES = {"big_float32_posterior_marginals_parallel",
-                        "big_float32_posterior_marginals_block", "big_float32_rand_parallel"}
+KRON_EXPECTED_RAISES = set()
 KRON_SMALL = (8, 25)
+# c5 (bench.py:675-751, examples/approx_space_time_learning.py): the
+# pseudo-point model s2 * Separable(EQ().stretch(sc), Matern52()) on C5_NS
+# points linspace(-3, 3) x RegularSpacing(0, 0.01, Nt), C5_M inducing points
+# linspace(-3, 3), at log (s2, sc, noise) = C5_P0; y the standard normals of
+# default_rng(SEED), drawn for C5_NT_BLOCK then for C5_NT_STEADY, as the
+# bench draws them. The bench's SMOKE sizes (points, times, inducing) for
+# the card against the CPU; the ragged case of the example (25-50 points at
+# cumsum(0.01 + U(0, 0.01)) times, 5 inducing, 25 new points) at
+# C5_RAGGED_NT times.
+C5_NS, C5_M, C5_P0 = 50, 5, (0.0, 0.0, -2.3)
+C5_NT_STEADY, C5_NT_BLOCK = 1_000_000, 100_000
+C5_NEW = 20
+C5_SMOKE = (5, 2000, 3)
+C5_RAGGED_NT = (1000, 100_000)
+C5_ENGINES = ("sequential", "block", "parallel", "lti", "steady")
 # The calls of sum-c2's main path and the launches each must show: the
 # filter (K1-K3), the forward-mode gradient (K4-K6), posterior marginals at
 # the training inputs (K1, K2, K7, K8-K10), the prior rand (K8-K10 on zero
@@ -1711,9 +1758,21 @@ def main():
                     f"vs the sequential engine rel={r_seq:.3e} (tol 1e-9)")
 
         # The gradient on the general schedule's forward mode (k = 3).
+        # Each call takes ~20 s: the gated calls are the timed ones (CUDA
+        # events, one call each), not run again below.
         vg = {name: value_and_grad_fwd_lgssm(make_irregular_fn(dtypes[name], N_MAIN, DEVICE),
                                              y_dev[name]) for name in dtypes}
-        (v32g, g32), (v64g, g64) = vg["float32"](p0), vg["float64"](p0)
+        vg_out = {}
+        for name in dtypes:
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            vg_out[name] = vg[name](p0)
+            end.record()
+            end.synchronize()
+            ms = start.elapsed_time(end)
+            rec.setdefault("ms", {}).setdefault(name, {})["irregular_value_and_grad"] = ms
+            print(f"  {name} irregular_value_and_grad: {ms!r} ms (1 call)", flush=True)
+        (v32g, g32), (v64g, g64) = vg_out["float32"], vg_out["float64"]
         r_vg = max(rel(v32g.item(), v64g.item()),
                    ((g32.double() - g64).abs().max() / g64.abs().max()).item())
         rec.update({"vg_f32": [v32g.item(), g32.tolist()], "vg_f64": [v64g.item(), g64.tolist()],
@@ -1783,15 +1842,12 @@ def main():
                 "irregular_filter": (lambda: filter_states(fx, y), 5, 5),
                 "irregular_posterior_marginals": (lambda: posterior_marginals(fx, y), 5, 5),
                 "irregular_posterior_new_times": (lambda: new_times(fx, y), 3, 3),
-                # One call, no warm-up: vg ran above (each call is ~20 s).
-                "irregular_value_and_grad": (lambda: vg[name](p0), 1, 1),
                 "d6_logpdf": (lambda: logpdf_with_missings(d6[name], y6n), 3, 3),
                 "d6_latent_marginals": (lambda: tlgssm.latent_marginals(d6[name]), 3, 3),
             }
             for cname, (call, batches, reps) in calls.items():
                 with torch.no_grad():
-                    ms = events_ms(call, reps=reps, batches=batches,
-                                   warm_up=cname != "irregular_value_and_grad")
+                    ms = events_ms(call, reps=reps, batches=batches)
                 rec.setdefault("ms", {}).setdefault(name, {})[cname] = ms[0]
                 print(f"  {name} {cname}: {ms[0]!r} ms (range {ms[1]!r}..{ms[2]!r}, "
                       f"{batches} batches of {reps})", flush=True)
@@ -2895,6 +2951,243 @@ def main():
                     f"{F32_SPREAD} times the float32 sequential engine's distance) of the "
                     f"float32 problem solved in float64: {json.dumps(tol)}")
 
+    # ---- 20. c5: the pseudo-point models --------------------------------
+    def phase_c5():
+        from temporalgps_torch.gp import EQ
+        from temporalgps_torch.space_time import (RectilinearGrid, Separable,
+                                                  approx_posterior_marginals, dtc, elbo,
+                                                  regular_in_time)
+
+        rec = smoke.record["c5"] = {}
+        r, tol = {}, {}
+        rec.update(rel=r, tol=tol)
+
+        def make_c5(dtype, nt, p, ns=C5_NS, device=DEVICE):
+            s2, sc, noise = torch.exp(p)
+            kern = s2 * Separable(EQ().stretch(sc), Matern52())
+            times = RegularSpacing(torch.tensor(0.0, dtype=dtype, device=device),
+                                   torch.tensor(0.01, dtype=dtype, device=device), nt)
+            x = RectilinearGrid(torch.linspace(-3, 3, ns, dtype=dtype, device=device), times)
+            return to_sde(GP(kern), ArrayStorage(dtype), device=device)(x, noise)
+
+        def inducing(dtype, m=C5_M, device=DEVICE):
+            return torch.linspace(-3, 3, m, dtype=dtype, device=device)
+
+        def p_at(dtype, device=DEVICE, grad=False):
+            return torch.tensor(C5_P0, dtype=dtype, device=device, requires_grad=grad)
+
+        def vg(fx_of, y, z, engine, device=DEVICE, dtype=torch.float32):
+            """elbo and its autograd gradient in log (s2, sc, noise)."""
+            def call():
+                p = p_at(dtype, device, grad=True)
+                v = elbo(fx_of(p), y, z, engine=engine, nan_fallback=False)
+                return v.detach(), torch.autograd.grad(v, p)[0]
+            return call
+
+        def grad_excess(g32, g64):
+            """phase 6's rule: 1e-3 of each component, a floor of 1e-6 of the
+            largest; <= 0 passes."""
+            floor = 1e-6 * g64.abs().max().item()
+            return ((g32.double() - g64).abs() - (1e-3 * g64.abs() + floor)).max().item()
+
+        rng0 = np.random.default_rng(SEED)
+        y_np = {"block": rng0.standard_normal(C5_NT_BLOCK * C5_NS),
+                "steady": rng0.standard_normal(C5_NT_STEADY * C5_NS)}
+        nts = {"block": C5_NT_BLOCK, "steady": C5_NT_STEADY}
+        x_new = {name: torch.linspace(-3.5, 3.5, C5_NEW, dtype=dtype, device=DEVICE)
+                 for name, dtype in dtypes.items()}
+        out = {}
+        for name, dtype in dtypes.items():
+            z = inducing(dtype)
+            for engine in ("steady", "block"):
+                y = torch.as_tensor(y_np[engine], dtype=dtype, device=DEVICE)
+                fx_of = functools.partial(make_c5, dtype, nts[engine])
+                if engine == "steady":
+                    torch.cuda.reset_peak_memory_stats()
+                    out[name, "elbo", engine] = timed(rec, f"{name}_elbo_{engine}", lambda: elbo(
+                        fx_of(p_at(dtype)), y, z, engine=engine, nan_fallback=False), 3)
+                    rec[f"{name}_elbo_steady_peak_bytes"] = torch.cuda.max_memory_allocated()
+                    torch.cuda.reset_peak_memory_stats()
+                out[name, "vg", engine] = timed(rec, f"{name}_elbo_grad_{engine}",
+                                                vg(fx_of, y, z, engine, dtype=dtype), 3)
+                if engine == "steady":
+                    rec[f"{name}_elbo_grad_steady_peak_bytes"] = torch.cuda.max_memory_allocated()
+                    out[name, "dtc", engine] = timed(rec, f"{name}_dtc_{engine}", lambda: dtc(
+                        fx_of(p_at(dtype)), y, z, engine=engine), 3)
+                    out[name, "apm", engine] = timed(
+                        rec, f"{name}_approx_posterior_marginals_{engine}",
+                        lambda: approx_posterior_marginals(fx_of(p_at(dtype)), y, z,
+                                                           x_new[name], engine=engine), 3)
+                del y
+        for name in dtypes:
+            for what in ("elbo", "elbo_grad"):
+                key = f"{name}_{what}_steady_peak_bytes"
+                print(f"  {key}: {rec[key]}", flush=True)
+        for (name, kind, engine), o in out.items():
+            vals = o if isinstance(o, tuple) else (o,)
+            smoke.check(finite(*vals), f"c5 {name} {kind} {engine}: finite")
+            if kind == "apm":
+                smoke.check(o[0].shape == (C5_NEW * nts[engine],) and bool((o[1] > 0).all()),
+                            f"c5 {name} approx posterior {engine}: shape, positive variances")
+        for engine in ("steady", "block"):
+            (v32, g32), (v64, g64) = out["float32", "vg", engine], out["float64", "vg", engine]
+            r[f"float32_elbo_{engine}_vs_f64"] = rel(v32.item(), v64.item())
+            rec[f"float32_grad_{engine}_excess_over_phase6_gate"] = grad_excess(g32, g64)
+            smoke.check(grad_excess(g32, g64) <= 0, f"c5 float32 {engine} gradient within 1e-3 "
+                        f"of float64's per component: {g32.tolist()} vs {g64.tolist()}")
+        r["float32_dtc_steady_vs_f64"] = rel(out["float32", "dtc", "steady"].item(),
+                                             out["float64", "dtc", "steady"].item())
+        r["float32_apm_means_steady_vs_f64"] = rel_max(out["float32", "apm", "steady"][0].double(),
+                                                       out["float64", "apm", "steady"][0])
+        rec["values"] = {f"{n}_{k_}_{e}": (o[0].item() if k_ == "vg" else o.item())
+                         for (n, k_, e), o in out.items() if k_ in ("vg", "elbo", "dtc")}
+        rec["grads"] = {f"{n}_{e}": o[1].tolist() for (n, k_, e), o in out.items() if k_ == "vg"}
+        del out
+
+        # The bench's cross-check: steady against block at Nt = 100k, float64.
+        y64 = torch.as_tensor(y_np["block"], dtype=torch.float64, device=DEVICE)
+        fx_of = functools.partial(make_c5, torch.float64, C5_NT_BLOCK)
+        z64 = inducing(torch.float64)
+        v_st, g_st = timed(rec, "float64_elbo_grad_steady_nt100k",
+                           vg(fx_of, y64, z64, "steady", dtype=torch.float64), 3)
+        v_bl, g_bl = vg(fx_of, y64, z64, "block", dtype=torch.float64)()
+        # The exact engines themselves part at ~1e-9 on this model in float64
+        # (CPU, 50 x 3000: "parallel" 9.2e-10 and "lti" 8.6e-10 from "block",
+        # steady 1.4e-9, 1.1e-9 with a 2048-step warmup): the value is gated
+        # at 1e-9 or F32_SPREAD times "parallel"'s distance from "block".
+        v_pa = timed(rec, "float64_elbo_parallel_nt100k", lambda: elbo(
+            fx_of(p_at(torch.float64)), y64, z64, engine="parallel", nan_fallback=False), 1)
+        r["float64_parallel_vs_block_nt100k_value"] = rel(v_pa.item(), v_bl.item())
+        r["float64_steady_vs_block_nt100k_value"] = rel(v_st.item(), v_bl.item())
+        tol["float64_steady_vs_block_nt100k_value"] = max(
+            1e-9, F32_SPREAD * r["float64_parallel_vs_block_nt100k_value"])
+        tol["float64_parallel_vs_block_nt100k_value"] = 1e-8
+        excess = ((g_st - g_bl).abs() - (1e-6 * g_bl.abs() + 1e-8 * g_bl.abs().max())).max().item()
+        rec["float64_steady_vs_block_nt100k_grad_excess"] = excess
+        smoke.check(excess <= 0, f"c5 steady-vs-block gradient at Nt = 100k, float64: "
+                    f"{g_st.tolist()} vs {g_bl.tolist()} (1e-6 of each + 1e-8 of the largest)")
+
+        # The engine readings at Nt = 100k: the float32 elbo.
+        y32 = torch.as_tensor(y_np["block"], dtype=torch.float32, device=DEVICE)
+        del y_np
+        fx_of = functools.partial(make_c5, torch.float32, C5_NT_BLOCK)
+        readings = {}
+        for engine in ("parallel", "block", "lti", "steady"):
+            readings[engine] = timed(rec, f"float32_elbo_nt100k_{engine}", lambda: elbo(
+                fx_of(p_at(torch.float32)), y32, inducing(torch.float32), engine=engine,
+                nan_fallback=False), 3).item()
+        rec["engine_readings_ms"] = {e: rec["ms"][f"float32_elbo_nt100k_{e}"] for e in readings}
+        r["float32_elbo_nt100k_spread"] = max(rel(v, readings["block"])
+                                              for v in readings.values())
+        print(f"  engine readings at Nt = 100k (ms): {json.dumps(rec['engine_readings_ms'])}",
+              flush=True)
+        del y32, y64
+
+        # The ragged case (examples/approx_space_time_learning.py), float64.
+        for nt in C5_RAGGED_NT:
+            rng = np.random.default_rng(SEED)
+            ts = np.cumsum(0.01 + rng.random(nt) * 0.01)
+            counts = rng.integers(25, 51, nt)
+            splits = np.split(rng.uniform(-3, 3, counts.sum()), np.cumsum(counts)[:-1])
+            x = regular_in_time(ts, [np.sort(v) for v in splits])
+            y = torch.as_tensor(rng.standard_normal(len(x)), device=DEVICE)
+            z = inducing(torch.float64)
+            r_pr = torch.linspace(-3, 3, 25, dtype=torch.float64, device=DEVICE)
+
+            def fx_of(p, x=x):
+                s2, sc, noise = torch.exp(p)
+                kern = s2 * Separable(EQ().stretch(sc), Matern52())
+                return to_sde(GP(kern), device=DEVICE)(x, noise)
+
+            got, batches = {}, 3 if nt <= 1000 else 1
+            for engine in ("block", "parallel"):
+                got[engine] = (
+                    timed(rec, f"ragged{nt}_elbo_grad_{engine}",
+                          vg(fx_of, y, z, engine, dtype=torch.float64), batches),
+                    timed(rec, f"ragged{nt}_approx_posterior_marginals_{engine}",
+                          lambda: approx_posterior_marginals(fx_of(p_at(torch.float64)), y, z,
+                                                             r_pr, engine=engine), batches))
+                (v, g), (m, var) = got[engine]
+                smoke.check(finite(v, g, m, var) and bool((var > 0).all())
+                            and m.shape == (25 * nt,),
+                            f"c5 ragged Nt={nt} {engine}: finite, positive variances")
+            (vb, gb), (mb, _) = got["block"]
+            (vp, gp), (mp, _) = got["parallel"]
+            for what, value, t in (("value", rel(vp.item(), vb.item()), 1e-9),
+                                   ("grad", rel_max(gp, gb), 1e-7),
+                                   ("means", rel_max(mp, mb), 1e-7)):
+                r[f"ragged{nt}_{what}_parallel_vs_block"] = value
+                tol[f"ragged{nt}_{what}_parallel_vs_block"] = t
+            rec[f"ragged{nt}_observations"] = len(x)
+            del got, y
+
+        # The card against the CPU port at the bench's SMOKE sizes, float64;
+        # the elbo below the exact lml.
+        ns, nt, m = C5_SMOKE
+        y_s = np.random.default_rng(SEED + 20).standard_normal(ns * nt)
+        new_s = np.linspace(-3.5, 3.5, 4)
+
+        def small(device):
+            fx_of = lambda p: make_c5(torch.float64, nt, p, ns=ns, device=device)
+            z = inducing(torch.float64, m, device)
+            res = {}
+            for engine in C5_ENGINES:
+                v, g = vg(fx_of, y_s, z, engine, device, torch.float64)()
+                res[engine] = [v.reshape(1), g]
+                if engine in ("block", "parallel", "steady"):
+                    res[engine] += list(approx_posterior_marginals(
+                        fx_of(p_at(torch.float64, device)), y_s, z,
+                        torch.as_tensor(new_s, device=device), engine=engine))
+            exact = logpdf(fx_of(p_at(torch.float64, device)), y_s, engine="parallel").item()
+            return {e: [t.detach().cpu() for t in ts] for e, ts in res.items()}, exact
+
+        kernels.reset_launch_counts()
+        on_card, exact = small(DEVICE)
+        rec["launches"]["smoke_sizes"] = {kn: n for kn, n in kernels.launch_counts().items() if n}
+        on_cpu, _ = small("cpu")
+        for engine in C5_ENGINES:
+            card, cpu = on_card[engine], on_cpu[engine]
+            r[f"smoke_float64_{engine}_value_card_vs_cpu"] = rel(card[0].item(), cpu[0].item())
+            r[f"smoke_float64_{engine}_grad_card_vs_cpu"] = rel_max(card[1], cpu[1])
+            tol[f"smoke_float64_{engine}_value_card_vs_cpu"] = 1e-10
+            tol[f"smoke_float64_{engine}_grad_card_vs_cpu"] = 1e-8
+            for i, what in ((2, "means"), (3, "vars")):
+                if len(card) > i:
+                    r[f"smoke_float64_{engine}_apm_{what}_card_vs_cpu"] = rel_max(card[i], cpu[i])
+                    tol[f"smoke_float64_{engine}_apm_{what}_card_vs_cpu"] = 1e-10
+        rec["smoke_exact_lml"] = exact
+        rec["smoke_elbo"] = {e: on_card[e][0].item() for e in C5_ENGINES}
+        smoke.check(all(on_card[e][0].item() <= exact + 1e-8 for e in C5_ENGINES),
+                    f"c5 at {ns} x {nt}: the elbo {json.dumps(rec['smoke_elbo'])} below the "
+                    f"exact lml {exact!r} on every engine")
+
+        # Where the time goes: one float32 steady elbo + gradient at 1M.
+        y = torch.as_tensor(np.random.default_rng(SEED + 21).standard_normal(C5_NT_STEADY * C5_NS),
+                            dtype=torch.float32, device=DEVICE)
+        call = vg(functools.partial(make_c5, torch.float32, C5_NT_STEADY), y,
+                  inducing(torch.float32), "steady")
+        ms = events_ms(call, reps=1, batches=3)[0]
+        device_us, n_ops = device_profile(call, 1)
+        busy = sum(device_us.values())
+        top = sorted(device_us.items(), key=lambda kv: -kv[1])[:6]
+        rec["profile"] = {"call_ms": ms, "device_busy_us": busy,
+                          "idle_share": 1.0 - busy / (1e3 * ms), "device_ops_per_call": n_ops,
+                          "top_device_us": {k_[:80]: v for k_, v in top}}
+        print(f"  float32 steady elbo + grad profile: {json.dumps(rec['profile'])}", flush=True)
+        smoke.check(busy > 0, "c5: the profiler saw device time")
+
+        for k_ in r:
+            tol.setdefault(k_, 1e-3)
+        print(f"  distances: {json.dumps(r)}", flush=True)
+        smoke.check(all(v == {} for v in rec["launches"].values()),
+                    "c5 launches no kernel of K1-K10")
+        smoke.check(all(v <= tol[k_] for k_, v in r.items()),
+                    "c5: float32 within 1e-3 of float64 (elbo, dtc, approximate posterior "
+                    "means); the steady-block cross-check (value 1e-9, or F32_SPREAD times the "
+                    "exact engines' own spread); the ragged block and "
+                    "parallel within 1e-9 (value) and 1e-7 (gradient, means); the card within "
+                    f"1e-10 of the CPU port at the SMOKE sizes (gradients 1e-8): {json.dumps(tol)}")
+
     smoke.phase("1. versions and card", phase_versions)
     smoke.phase("2. build", phase_build)
     smoke.phase("3. value kernels vs plain versions at N=1M", phase_compare)
@@ -2914,6 +3207,8 @@ def main():
     smoke.phase("17. engines parallel and sqrt, the reverse block posterior, D = 5", phase_engines)
     smoke.phase("18. c4: exact space-time inference on the materialised grid", phase_space_time)
     smoke.phase("19. kron: the factored engine at c4 and 247 x 100", phase_kron)
+    smoke.phase("20. c5: the pseudo-point models on steady, block and the ragged case",
+                phase_c5)
 
     print("== detail", json.dumps(smoke.record, default=str))
     if smoke.failures:

@@ -37,12 +37,16 @@ Space-time GPs (space_time/): `Separable(EQ().stretch(0.7), Matern52())` on a
 `RectilinearGrid(points, times)` compiles to an LGSSM of D = Ns * Dt states
 with Ns observations a step (DenseEmissions); the same verbs take and give
 flat (space-fastest) vectors, and `posterior` predicts at new times on the
-same spatial points.
+same spatial points. The pseudo-point models keep the process at M spatial
+pseudo-inputs z: `dtc(fx, y, z)`, `elbo(fx, y, z)` and
+`approx_posterior_marginals(fx, y, z, points)`, on a grid or a
+`RegularInTime` (other points at each time).
 
 Engines: "block" (the kernels), "sequential" (the ground truth, a loop over
 time), "parallel" (an associative scan over all N steps, ops/assoc.py) and
-"sqrt" (the same in square-root form, ops/sqrt.py), chosen per call with
-`engine=`.
+"sqrt" (the same in square-root form, ops/sqrt.py), and for time-invariant
+models "lti" (ops/lti.py) and "steady" (ops/steady.py, the converged
+covariance after a warmup), chosen per call with `engine=`.
 
 The JAX package temporalgps_tpu is the reference this port is held to.
 """
@@ -50,6 +54,9 @@ The JAX package temporalgps_tpu is the reference this port is held to.
 from . import space_time
 from .gp.lti_sde import logpdf, marginals, mean, mean_and_var, rand, var
 from .gp.posterior import posterior
+from .space_time import (DTCSeparable, RectilinearGrid, RegularInTime, Separable,
+                         approx_posterior_marginals, approx_posterior_marginals_at, dtc, dtcify,
+                         elbo, regular_in_time)
 from .learning import (
     constrained,
     fit,
@@ -78,4 +85,14 @@ __all__ = [
     "value_and_grad_fwd",
     "value_and_grad_fwd_lgssm",
     "value_and_grad_fisher",
+    "Separable",
+    "DTCSeparable",
+    "RectilinearGrid",
+    "RegularInTime",
+    "regular_in_time",
+    "dtc",
+    "dtcify",
+    "elbo",
+    "approx_posterior_marginals",
+    "approx_posterior_marginals_at",
 ]

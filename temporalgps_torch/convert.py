@@ -69,7 +69,8 @@ def kernel_from_spec(spec):
     """The port's kernel from a nested spec of names and numpy scalars:
     ("Matern12",), ("Matern32",), ("Matern52",), ("EQ",), ("Scaled", child,
     sigma2), ("Stretched", child, s), ("Sum", (child, ...)), ("Product",
-    (child, ...)) or ("Separable", space_child, time_child).
+    (child, ...)), ("Separable", space_child, time_child) or
+    ("DTCSeparable", z, separable_spec), z the pseudo-inputs (a tensor).
     Hyperparameters become Python floats."""
     name = spec[0]
     if name in _ATOMS:
@@ -79,7 +80,9 @@ def kernel_from_spec(spec):
 
         return Separable(kernel_from_spec(spec[1]), kernel_from_spec(spec[2]))
     if name == "DTCSeparable":
-        raise NotImplementedError("DTCSeparable is not ported yet (ROADMAP Queue 1 item 8)")
+        from .space_time import DTCSeparable
+
+        return DTCSeparable(torch.tensor(np.asarray(spec[1])), kernel_from_spec(spec[2]))
     if name == "Scaled":
         return K.Scaled(kernel_from_spec(spec[1]), float(np.asarray(spec[2])))
     if name == "Stretched":

@@ -25,8 +25,8 @@ its model has D = Ns * Dt states and vector emissions, so it takes the
 matrix path, or with engine="kron" (on the card by default where
 space_time.kron.takes_engine_none says) the factored smoother of
 space_time/kron.py for `marginals`. RegularInTime inputs are refused, as in
-the reference's exact inference (the pseudo-point route, ROADMAP Queue 1
-item 8).
+the reference's exact inference: they take the pseudo-point verbs
+(space_time/pseudo_point.py).
 
 Sampling and scoring new data (`rand`, `logpdf`) always merge, as the
 reference does, even at the training inputs (each time then appears twice:
@@ -78,11 +78,12 @@ class FinitePosteriorLTISDE:
 
 def _check_inputs(x):
     """The inputs of exact inference: RegularSpacing, a vector of times or a
-    RectilinearGrid."""
+    RectilinearGrid (a RegularInTime takes the pseudo-point verbs, as the
+    reference's exact compiler refuses it)."""
     if isinstance(x, grids.RegularInTime):
-        raise NotImplementedError(
-            "RegularInTime inputs take the pseudo-point (DTC) route, not exact inference "
-            "(ROADMAP Queue 1 item 8)")
+        raise TypeError(
+            "exact inference takes no RegularInTime inputs: use the pseudo-point verbs "
+            "(space_time.dtc, elbo, approx_posterior_marginals)")
     ndim = x.ndim if hasattr(x, "ndim") else np.ndim(x)
     if isinstance(x, (RegularSpacing, grids.RectilinearGrid)) or ndim == 1:
         return

@@ -1,4 +1,4 @@
-from .emissions import DenseEmissions, LargeEmissions, ScalarEmissions
+from .emissions import BottleneckEmissions, DenseEmissions, LargeEmissions, ScalarEmissions
 from .gauss_markov import GaussMarkov
 from .lgssm import (
     LGSSM,
@@ -17,6 +17,7 @@ __all__ = [
     "ScalarEmissions",
     "DenseEmissions",
     "LargeEmissions",
+    "BottleneckEmissions",
     "filter_",
     "latent_marginals",
     "logpdf",
@@ -26,10 +27,3 @@ __all__ = [
     "rand",
 ]
 
-
-def __getattr__(name):
-    if name == "BottleneckEmissions":
-        from . import emissions
-
-        return emissions.BottleneckEmissions  # raises, naming its ROADMAP item
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

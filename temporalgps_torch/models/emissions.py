@@ -5,10 +5,13 @@ functions that dispatch on them. Ported:
   * DenseEmissions  — a vector y[t] = H[t] x[t] + h[t] + N(0, S[t]) with a
                       dense noise covariance (the exact space-time models);
   * LargeEmissions  — the same with a diagonal noise s_diag[t], conditioned in
-                      the input space (Dout >> D).
+                      the input space (Dout >> D);
+  * BottleneckEmissions — y[t] = C[t] (H[t] x[t] + h[t]) + c[t] + N(0,
+                      diag(s_diag[t])): the pseudo-point models, whose state
+                      projects to the M inducing points before it fans out
+                      to the observations.
 
-BottleneckEmissions waits for the pseudo-point models (ROADMAP Queue 1
-item 8). Every leaf carries a leading time axis or is a Fill; the step
+Every leaf carries a leading time axis or is a Fill; the step
 functions take one step's slice of the leaves and broadcast over leading
 batch axes, so the sequential, block and parallel engines share them.
 """
@@ -44,7 +47,17 @@ class LargeEmissions:
     s_diag: Any  # (N, Dout) or Fill((Dout,)): diagonal observation noise
 
 
-_NOISE = {ScalarEmissions: "s", DenseEmissions: "S", LargeEmissions: "s_diag"}
+@dataclasses.dataclass(frozen=True, eq=False)
+class BottleneckEmissions:
+    H: Any       # (N, M, D) or Fill((M, D)): projection to the pseudo-point space
+    h: Any       # (N, M) or Fill((M,))
+    C: Any       # (N, Dout, M) or Fill((Dout, M)): fan-out
+    c: Any       # (N, Dout) or Fill((Dout,))
+    s_diag: Any  # (N, Dout) or Fill((Dout,)): diagonal observation noise
+
+
+_NOISE = {ScalarEmissions: "s", DenseEmissions: "S", LargeEmissions: "s_diag",
+          BottleneckEmissions: "s_diag"}
 
 
 def map_leaves(fn, e):
@@ -59,7 +72,7 @@ def leaves(e):
 
 
 def num_steps(e) -> int:
-    leaf = e.H if isinstance(e, (ScalarEmissions, DenseEmissions)) else e.C
+    leaf = noise_cov(e)
     return leaf.N if is_fill(leaf) else leaf.shape[0]
 
 
@@ -81,6 +94,8 @@ def step_posterior_and_lml(x: Gaussian, e, y):
         return lgc.posterior_and_lml_small(x, e.H, e.h, e.S, y)
     if isinstance(e, LargeEmissions):
         return lgc.posterior_and_lml_large(x, e.C, e.c, e.s_diag, y)
+    if isinstance(e, BottleneckEmissions):
+        return lgc.posterior_and_lml_bottleneck(x, e.H, e.h, e.C, e.c, e.s_diag, y)
     raise TypeError(type(e))
 
 
@@ -93,6 +108,8 @@ def step_predict(x: Gaussian, e) -> Gaussian:
         return lgc.predict(x, e.H, e.h, e.S)
     if isinstance(e, LargeEmissions):
         return lgc.predict(x, e.C, e.c, torch.diag_embed(e.s_diag))
+    if isinstance(e, BottleneckEmissions):
+        return lgc.predict_bottleneck(x, e.H, e.h, e.C, e.c, e.s_diag)
     raise TypeError(type(e))
 
 
@@ -105,6 +122,8 @@ def step_predict_marginals(x: Gaussian, e):
         return lgc.predict_marginals(x, e.H, e.h, torch.diagonal(e.S, dim1=-2, dim2=-1))
     if isinstance(e, LargeEmissions):
         return lgc.predict_marginals(x, e.C, e.c, e.s_diag)
+    if isinstance(e, BottleneckEmissions):
+        return lgc.predict_marginals_bottleneck(x, e.H, e.h, e.C, e.c, e.s_diag)
     raise TypeError(type(e))
 
 
@@ -118,6 +137,8 @@ def step_conditional_rand(eps, x_point, e):
         return lgc.conditional_rand(eps, x_point, e.H, e.h, e.S)
     if isinstance(e, LargeEmissions):
         return lgc.mv(e.C, x_point) + e.c + torch.sqrt(e.s_diag) * eps
+    if isinstance(e, BottleneckEmissions):
+        return lgc.conditional_rand_bottleneck(eps, x_point, e.H, e.h, e.C, e.c, e.s_diag)
     raise TypeError(type(e))
 
 
@@ -129,8 +150,13 @@ def dim_out(e) -> int:
     return (h.value if is_fill(h) else h).shape[-1]
 
 
-def __getattr__(name):
-    if name == "BottleneckEmissions":
-        raise NotImplementedError("BottleneckEmissions (the pseudo-point models' emissions) "
-                                  "are not ported yet (ROADMAP Queue 1 item 8)")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+def diag_noise_params(e):
+    """(H, d, s_diag) of vector emissions with diagonal noise, y = H x + d +
+    N(0, diag(s_diag)), batched over leading axes: LargeEmissions as they
+    are, BottleneckEmissions composed exactly (H = C H_z, d = C h + c); None
+    for any other container."""
+    if isinstance(e, LargeEmissions):
+        return e.C, e.c, e.s_diag
+    if isinstance(e, BottleneckEmissions):
+        return e.C @ e.H, lgc.mv(e.C, e.h) + e.c, e.s_diag
+    return None

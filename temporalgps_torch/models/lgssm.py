@@ -15,6 +15,12 @@ Engines ported:
     logpdf, filter_ and posterior; the data-free functions (marginals,
     latent_marginals, rand) run the sequential engine for it, as in the
     reference.
+  * "lti"        — the time-invariant pipeline of a Fill forward model
+    (ops/lti.py): logpdf, posterior, marginals, latent_marginals, rand;
+    exact. Opt-in.
+  * "steady"     — the steady-state engine of the same models
+    (ops/steady.py): logpdf, marginals, latent_marginals, rand (exact); its
+    covariances converged after `n_warmup` steps. Opt-in.
 
 Emissions are any container of models/emissions.py: scalar observations
 (a time series) or vector ones (a space-time grid's Ns observations a step,
@@ -29,6 +35,7 @@ ordering:
 
 import dataclasses
 import itertools
+import warnings
 from typing import Any
 
 import torch
@@ -45,7 +52,7 @@ from .gauss_markov import GaussMarkov
 @dataclasses.dataclass(frozen=True, eq=False)
 class LGSSM:
     trans: GaussMarkov
-    emis: Any  # ScalarEmissions, DenseEmissions or LargeEmissions
+    emis: Any  # a container of models/emissions.py
 
     def __len__(self):
         return len(self.trans)
@@ -111,7 +118,9 @@ def _resolve_engine(engine, model=None):
     its iteration view, where the reference's filtering functions fall back
     to their sequential scan, a Python loop of N steps in the port. Its own
     `posterior` is the exception: `posterior` passes no model for a
-    reverse-ordered one, so `None` picks "sequential" there."""
+    reverse-ordered one, so `None` picks "sequential" there. "lti" and
+    "steady" stay opt-in (the reference takes "lti" for data-free marginals
+    only on its TPU)."""
     if engine is not None:
         return engine
     if model is not None and model.device.type == "cuda":
@@ -119,22 +128,21 @@ def _resolve_engine(engine, model=None):
     return "sequential"
 
 
-# ops/steady.py imports its pieces of ops/lti.py: both come with item 8.
-_NOT_PORTED = {
-    "lti": "ROADMAP Queue 1 item 8",
-    "steady": "ROADMAP Queue 1 item 8",
-}
-
-
-def _check_engine(engine):
-    """Raise for an engine the port does not have. "kron" is no engine of an
-    LGSSM: it factors a grid's Separable model before any LGSSM is built
-    (space_time/kron.py), so it is refused here rather than run on
-    another engine."""
+def _check_engine(engine, model=None):
+    """Raise for an engine the port does not have, or, for "lti" and
+    "steady", a model they do not take. "kron" is no engine of an LGSSM: it
+    factors a grid's Separable model before any LGSSM is built
+    (space_time/kron.py), so it is refused here rather than run on another
+    engine."""
     if engine in ("block", "sequential", "parallel", "sqrt"):
         return
-    if engine in _NOT_PORTED:
-        raise NotImplementedError(f"engine={engine!r} is not ported yet ({_NOT_PORTED[engine]})")
+    if engine in ("lti", "steady"):
+        from ..ops import lti
+
+        if model is not None and not lti.supported(model):
+            raise ValueError(f"engine={engine!r} requires a forward model with all-Fill "
+                             "(time-invariant) transition and emission parameters")
+        return
     if engine == "kron":
         raise ValueError(
             "engine='kron' runs on a grid's fx, not on an LGSSM: call gp.logpdf, gp.marginals, "
@@ -151,15 +159,34 @@ def _obs(model, y):
 # logpdf / filter / posterior
 # ---------------------------------------------------------------------------
 
-def logpdf(model: LGSSM, y, *, engine=None, fused=None, n_blocks=None, phase2=None):
+def logpdf(model: LGSSM, y, *, engine=None, fused=None, n_blocks=None, phase2=None,
+           n_warmup=None):
     """Log marginal likelihood via the Kalman filter, either ordering. For
     engine="block", `fused=False` runs the plain PyTorch blocked schedule
     instead of the kernels, `n_blocks` overrides the block count and
     `phase2="sqrt"` takes the square-root prefix across the blocks (in
-    tensor ops, in place of K2)."""
+    tensor ops, in place of K2). `n_warmup` is the steady engine's exactly
+    filtered head (ops/steady.suggest_warmup chooses one at small
+    lambda dt). A float32 model on "lti" warns, as the reference does: its
+    reverse-mode gradients through the power chain drift with N."""
     engine = _resolve_engine(engine, model)
-    _check_engine(engine)
+    _check_engine(engine, model)
     y = _obs(model, y)
+    if engine == "lti":
+        from ..ops import lti
+
+        if model.dtype == torch.float32:
+            warnings.warn(
+                "logpdf(engine='lti') at float32: reverse-mode hyperparameter gradients "
+                "through the lti power chain are numerically untrustworthy (the reference "
+                "measured 22% relative error at N=4096). Use engine='steady'/'block', "
+                "forward mode (learning.value_and_grad_fwd), or float64.",
+                UserWarning, stacklevel=2)
+        return lti.logpdf(model, y, n_blocks=n_blocks)
+    if engine == "steady":
+        from ..ops import steady
+
+        return steady.logpdf(model, y, n_warmup=n_warmup, n_blocks=n_blocks)
     if engine == "block":
         from ..ops import block
 
@@ -181,6 +208,8 @@ def filter_(model: LGSSM, y, *, engine=None, n_blocks=None) -> Gaussian:
     ((N, D) means, (N, D, D) covariances)."""
     engine = _resolve_engine(engine, model)
     _check_engine(engine)
+    if engine in ("lti", "steady"):
+        raise ValueError(f"filter_ has no engine {engine!r} (the reference's neither)")
     y = _obs(model, y)
     if engine == "block":
         from ..ops import block
@@ -223,10 +252,19 @@ def posterior(model: LGSSM, y, *, engine=None, n_blocks=None) -> LGSSM:
     the inverted dynamics of every step; its x0 is the last filtering
     distribution and its emissions are the model's. `None` picks
     "sequential" for a reverse-ordered model on any device (engine="block"
-    takes the associative engine for one)."""
+    takes the associative engine for one). "lti" inverts every step's
+    dynamics at once from its filter (ops/lti.py); "steady" has no posterior
+    LGSSM (its smoother gives marginals: ops/steady.posterior_marginals_diag)."""
     engine = _resolve_engine(engine, model if model.trans.forward else None)
-    _check_engine(engine)
+    _check_engine(engine, model)
     y = _obs(model, y)
+    if engine == "lti":
+        from ..ops import lti
+
+        return lti.posterior(model, y, n_blocks=n_blocks)
+    if engine == "steady":
+        raise ValueError("posterior has no engine 'steady' (the reference's neither); "
+                         "ops.steady.posterior_marginals_diag gives its smoothed marginals")
     if engine == "block":
         from ..ops import block
 
@@ -273,11 +311,19 @@ def marginals(model: LGSSM, *, engine=None, n_blocks=None) -> Gaussian:
                            em.map_leaves(tmaterialize, model.emis))
 
 
-def marginals_diag(model: LGSSM, *, engine=None, n_blocks=None):
+def marginals_diag(model: LGSSM, *, engine=None, n_blocks=None, n_warmup=None):
     """Observation-space marginal (means, variances), each (N,) for scalar
     emissions, (N, Dout) for vector ones."""
     engine = _resolve_engine(engine, model)
-    _check_engine(engine)
+    _check_engine(engine, model)
+    if engine == "lti":
+        from ..ops import lti
+
+        return lti.marginals_diag(model)
+    if engine == "steady":
+        from ..ops import steady
+
+        return steady.marginals_diag(model, n_warmup=n_warmup)
     if engine == "block":
         from ..ops import block
 
@@ -291,10 +337,18 @@ def marginals_diag(model: LGSSM, *, engine=None, n_blocks=None):
         [v for _, v in out], model.trans.forward)
 
 
-def latent_marginals(model: LGSSM, *, engine=None, n_blocks=None) -> Gaussian:
+def latent_marginals(model: LGSSM, *, engine=None, n_blocks=None, n_warmup=None) -> Gaussian:
     """Marginals of the latent chain itself, a stacked Gaussian."""
     engine = _resolve_engine(engine, model)
-    _check_engine(engine)
+    _check_engine(engine, model)
+    if engine == "lti":
+        from ..ops import lti
+
+        return lti.latent_marginals(model, n_blocks=n_blocks)
+    if engine == "steady":
+        from ..ops import steady
+
+        return steady.latent_marginals(model, n_warmup=n_warmup)
     if engine == "block":
         from ..ops import block
 
@@ -396,9 +450,15 @@ def rand_with_eps(model: LGSSM, eps_t, eps_e, x_init, *, engine=None, n_blocks=N
     (N, Dout)) and the initial state x_init give, each indexed by time. engine="block" runs
     the affine block schedule (ops/block.rand_with_eps: K8-K10 for D <= 3);
     "sequential" the reference's steps: forward, transition then emit;
-    reverse, emit then transition (eps_t of step 0 unused)."""
+    reverse, emit then transition (eps_t of step 0 unused); "lti" and
+    "steady" (Fill forward models) the constant-matrix affine recursion
+    of ops/steady.rand_with_eps, exact."""
     engine = _resolve_engine(engine, model)
-    _check_engine(engine)
+    _check_engine(engine, model)
+    if engine in ("lti", "steady"):
+        from ..ops import steady
+
+        return steady.rand_with_eps(model, eps_t, eps_e, x_init)
     if engine == "block":
         from ..ops import block
 

@@ -54,7 +54,18 @@ def transform_model_and_obs(model: LGSSM, y):
     return replace_observation_noise_cov(model, noise_filled), y_filled, comp
 
 
-def logpdf_with_missings(model: LGSSM, y, *, engine=None, **engine_kwargs):
+def logpdf_with_missings(model: LGSSM, y, *, engine=None, nan_fallback=True, **engine_kwargs):
+    """The lml of y with NaNs for the missing observations. engine="lti" and
+    "steady" take no missing data (the large-variance fill makes the noise
+    leaf per step): they run on y as it is, and a NaN in it raises
+    ValueError. The reference, under jit, falls back to the block engine's
+    missing-data path instead; the port is eager, its y always concrete, so
+    `nan_fallback` (kept for the signature) never acts."""
+    if engine in ("lti", "steady"):
+        if bool(torch.isnan(torch.as_tensor(y)).any()):
+            raise ValueError(f"engine={engine!r} requires fully-observed data (no NaNs); "
+                             "use engine='block'/'sequential' for missing data")
+        return logpdf(model, y, engine=engine, **engine_kwargs)
     model_f, y_f, comp = transform_model_and_obs(model, y)
     return logpdf(model_f, y_f, engine=engine, **engine_kwargs) + comp
 

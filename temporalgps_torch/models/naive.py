@@ -32,6 +32,9 @@ def _effective_emission(e, t):
         return _at(e.H, t), _at(e.h, t), _at(e.S, t)
     if isinstance(e, em.LargeEmissions):
         return _at(e.C, t), _at(e.c, t), np.diag(_at(e.s_diag, t))
+    if isinstance(e, em.BottleneckEmissions):
+        C = _at(e.C, t)
+        return C @ _at(e.H, t), C @ _at(e.h, t) + _at(e.c, t), np.diag(_at(e.s_diag, t))
     raise TypeError(type(e))
 
 

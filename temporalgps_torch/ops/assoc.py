@@ -28,7 +28,8 @@ with the identity first (`_iteration_view`), which turns emit-then-transition
 into transition-then-emit. A step's element (`step_elements`) takes any
 emission container of models/emissions.py: a scalar observation, a vector
 one with dense noise (the Cholesky factor of its innovation covariance) or
-with diagonal noise (every factor in the input space, `element_dense_diag`).
+with diagonal noise (every factor in the input space, `element_dense_diag`;
+a bottleneck's composed to the observations, `emissions.diag_noise_params`).
 """
 
 import torch
@@ -38,7 +39,7 @@ from ..models import emissions as em
 from ..models.gauss_markov import GaussMarkov
 from ..models.lgssm import LGSSM, _invert_dynamics
 from ..utils import psd
-from ..utils.fill import is_fill, tmaterialize
+from ..utils.fill import Fill, is_fill, tmaterialize
 from ..utils.gaussian import Gaussian
 from ..utils.psd import symmetrize
 
@@ -187,8 +188,9 @@ def _sample_maps(model, eps_t):
     sample that the normals eps_t (N, D, indexed by time) give,
     b = c + chol(Q + RAND_JITTER I) eps_t; a reverse-ordered model's eps_t
     flipped and shifted by one with a zero first, as its transitions are.
-    The factor is psd.cholesky's, as in the sequential engine's
-    `lgc.conditional_rand`: a Q that is not positive definite raises. A
+    The factor is `psd.sample_factor`'s (formed in float64), as in the
+    sequential engine's `lgc.conditional_rand`: a Q that is not positive
+    definite there raises. A
     forward model's constant (Fill) Q is factored once, the same factor as
     each of the sequential engine's steps takes (a batch of copies may be
     factored otherwise by the library: a Q as ill-conditioned as a space-time
@@ -198,7 +200,7 @@ def _sample_maps(model, eps_t):
         Q = model.trans.Qs.value
     elif not model.trans.forward:
         eps_t = torch.cat([torch.zeros_like(eps_t[:1]), eps_t.flip(0)[:-1]])
-    return F, c + _mv(psd.cholesky(psd.add_jitter(symmetrize(Q), RAND_JITTER)), eps_t)
+    return F, c + _mv(psd.sample_factor(Q, RAND_JITTER), eps_t)
 
 
 # ---------------------------------------------------------------------------
@@ -226,8 +228,8 @@ def step_elements(F, c, Q, e, y):
         return (ImKH @ F, c + K * resid[..., None], symmetrize(ImKH @ Q),
                 w * (resid / S)[..., None],
                 symmetrize(w[..., :, None] * w[..., None, :] / S[..., None, None]))
-    if isinstance(e, em.LargeEmissions):
-        return element_dense_diag(F, c, Q, e.C, e.c, e.s_diag, y)
+    if (diag := em.diag_noise_params(e)) is not None:  # Large, Bottleneck
+        return element_dense_diag(F, c, Q, *diag, y)
     H, d, R = e.H, e.h, e.S
     Ls = psd.cholesky(symmetrize(H @ Q @ _mT(H) + R))
     K = _mT(psd.chol_solve(Ls, H @ Q))  # (..., D, Dout)
@@ -294,6 +296,29 @@ def _logpdf_from_prefix(outs, ev, emis_it, y_it):
     return em.step_posterior_and_lml(pre, emis_it, y_it)[1].sum()
 
 
+def widened(model):
+    """The model with every leaf in float64, a Fill still a Fill: the
+    float32 model's problem as float32 stores it, solved in float64."""
+    wide = lambda leaf: (Fill(leaf.value.double(), leaf.N) if is_fill(leaf) else leaf.double())
+    t = model.trans
+    trans = GaussMarkov(As=wide(t.As), offs=wide(t.offs), Qs=wide(t.Qs),
+                        x0=Gaussian(t.x0.mean.double(), t.x0.cov.double()), forward=t.forward)
+    return LGSSM(trans, em.map_leaves(wide, model.emis))
+
+
+def posterior_filter_model(model, y):
+    """(model, y) as the posterior's filter takes them: a float32 model's
+    widened to float64 (`widened`). The reversal factors each step's
+    prediction F P F^T + Q; a float32 filter's covariances at D = 375 (the
+    parallel scan) or 600 (the block matrix path) are indefinite beyond
+    POSTERIOR_JITTER (a space-time model's, whose Q = Kr (x) Q_t has
+    eigenvalues far below float32's resolution of its largest), so the
+    filter that feeds it runs in float64, as the reversal itself does."""
+    if model.dtype != torch.float32:
+        return model, y
+    return widened(model), y.double()
+
+
 def _reversed_model_matrix(model, xf: Gaussian, jitter=POSTERIOR_JITTER):
     """(posterior, predictions): the reverse-ordered posterior LGSSM of a
     forward-ordered model from its stacked filtering states, and the
@@ -310,8 +335,8 @@ def _reversed_model_matrix(model, xf: Gaussian, jitter=POSTERIOR_JITTER):
     F, c, Q = (wide(tmaterialize(leaf)) for leaf in (t.As, t.offs, t.Qs))
     xp = _batched_predict(prev, F, c, Q)
     A_rev, a_rev, Q_rev = (x.to(model.dtype) for x in _invert_dynamics(prev, xp, F, jitter))
-    trans = GaussMarkov(As=A_rev, offs=a_rev, Qs=Q_rev,
-                        x0=Gaussian(xf.mean[-1], xf.cov[-1]), forward=False)
+    trans = GaussMarkov(As=A_rev, offs=a_rev, Qs=Q_rev, forward=False,
+                        x0=Gaussian(xf.mean[-1].to(model.dtype), xf.cov[-1].to(model.dtype)))
     return LGSSM(trans, model.emis), xp
 
 
@@ -353,9 +378,10 @@ def logpdf(model, y):
 
 def posterior(model, y):
     """The smoother as a reverse-ordered (for a reverse model, forward-
-    ordered) LGSSM: the prefix filter, then the batched inversion of the
+    ordered) LGSSM: the prefix filter (in float64 for a float32 model,
+    `posterior_filter_model`), then the batched inversion of the
     dynamics."""
-    outs, _, it, _, _ = _filter_prefix(model, y)
+    outs, _, it, _, _ = _filter_prefix(*posterior_filter_model(model, y))
     return _posterior_from_prefix(model, outs, it)
 
 

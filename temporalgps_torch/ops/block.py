@@ -93,7 +93,8 @@ from ..utils.gaussian import Gaussian
 from ..utils.psd import symmetrize
 from . import assoc, kernels, lanes, sqrt
 from .assoc import (_associative_scan, _combine_affine, _combine_filter, _iteration_view, _mT,
-                    _mv, _prior_element, _reversed_model_matrix, _sample_maps, step_elements)
+                    _mv, _prior_element, _reversed_model_matrix, _sample_maps, posterior_filter_model,
+                    step_elements)
 
 
 
@@ -641,15 +642,17 @@ def posterior(model, y, *, n_blocks=None, fused=None):
     filtering states from K1, K2, K7, then the dynamics of every step
     inverted in plain tensor ops on (N,) component vectors, with the
     adjugate inverse of ops/lanes.py and POSTERIOR_JITTER (the reference's
-    `_posterior_pallas`). Otherwise the matrix filter and the batched
-    Cholesky inversion of models.lgssm (the reference's `block.posterior`).
+    `_posterior_pallas`). Otherwise the matrix filter (in float64 for a
+    float32 model, `assoc.posterior_filter_model`) and the batched Cholesky
+    inversion of models.lgssm (the reference's `block.posterior`).
     A reverse-ordered model's posterior is the associative engine's
     (ops/assoc.py), as the reference's block engine hands it there."""
     if not model.trans.forward:
         return assoc.posterior(model, y)
     if not _streamed_supported(model):
+        view, y_view = posterior_filter_model(model, y)
         return _reversed_model_matrix(
-            model, _filter_matrix(model, y, _blocks(model, n_blocks, False)))[0]
+            model, _filter_matrix(view, y_view, _blocks(model, n_blocks, False)))[0]
     return _reversed_model(model, _filter_state_comps(model, y, n_blocks, fused))[0]
 
 

@@ -8,8 +8,11 @@ them.
 
 The updates by observation type: a scalar y (`posterior_and_lml_scalar`, a
 square root), a small vector y with dense noise (`posterior_and_lml_small`,
-the Cholesky factor of the innovation covariance) and a large vector y with
-diagonal noise (`posterior_and_lml_large`, every factor in the input space).
+the Cholesky factor of the innovation covariance), a large vector y with
+diagonal noise (`posterior_and_lml_large`, every factor in the input space)
+and a vector y seen through a bottleneck z = H x + h, y = C z + c + noise
+(`posterior_and_lml_bottleneck`, the pseudo-point models: the large update
+of z, carried back to x).
 """
 
 import math
@@ -50,9 +53,9 @@ def predict_marginals(x: Gaussian, A, a, Q_diag):
 
 
 def conditional_rand(eps, x_point, A, a, Q):
-    """A x + a + chol(Q + RAND_JITTER I) eps."""
-    L = psd.cholesky(psd.add_jitter(symmetrize(Q), RAND_JITTER))
-    return mv(A, x_point) + a + mv(L, eps)
+    """A x + a + chol(Q + RAND_JITTER I) eps, the factor formed in float64
+    (`psd.sample_factor`)."""
+    return mv(A, x_point) + a + mv(psd.sample_factor(Q, RAND_JITTER), eps)
 
 
 def posterior_and_lml_small(x: Gaussian, A, a, Q, y):
@@ -114,3 +117,40 @@ def predict_marginals_scalar(x: Gaussian, H, h, s):
 def conditional_rand_scalar(eps, x_point, H, h, s):
     """H x + h + sqrt(s) eps, batched over leading axes."""
     return (H * x_point).sum(-1) + h + torch.sqrt(s) * eps
+
+
+# ---------------------------------------------------------------------------
+# The bottleneck: project to the pseudo-point space, then fan out
+# ---------------------------------------------------------------------------
+
+def project_bottleneck(x: Gaussian, H, h, eps=1e-12) -> Gaussian:
+    """z = N(H m + h, H P H^T + eps I), the low-dimensional intermediate."""
+    return Gaussian(mv(H, x.mean) + h, psd.add_jitter(H @ symmetrize(x.cov) @ _mT(H), eps))
+
+
+def posterior_and_lml_bottleneck(x: Gaussian, H, h, C, c, Q_diag, y):
+    """The update through the bottleneck: z's update by the large rule
+    (`posterior_and_lml_large`), then x given z's posterior, with Gt =
+    zP^{-1} H P: m + Gt^T (z'.m - z.m), P + Gt^T (z'.P - z.P) Gt."""
+    z = project_bottleneck(x, H, h)
+    z_post, lml = posterior_and_lml_large(z, C, c, Q_diag, y)
+    xP = symmetrize(x.cov)
+    Gt = psd.chol_solve(psd.cholesky(psd.add_jitter(z.cov, 1e-12)), H @ xP)
+    return Gaussian(x.mean + mv(_mT(Gt), z_post.mean - z.mean),
+                    xP + _mT(Gt) @ (z_post.cov - z.cov) @ Gt), lml
+
+
+def predict_bottleneck(x: Gaussian, H, h, C, c, Q_diag) -> Gaussian:
+    """The observation-space predictive through the bottleneck, dense."""
+    return predict(project_bottleneck(x, H, h), C, c, torch.diag_embed(Q_diag))
+
+
+def predict_marginals_bottleneck(x: Gaussian, H, h, C, c, Q_diag):
+    """Mean and variance diagonal of the predictive through the
+    bottleneck."""
+    return predict_marginals(project_bottleneck(x, H, h), C, c, Q_diag)
+
+
+def conditional_rand_bottleneck(eps, x_point, H, h, C, c, Q_diag):
+    """C (H x + h) + c + sqrt(Q_diag + RAND_JITTER) eps."""
+    return mv(C, mv(H, x_point) + h) + c + torch.sqrt(Q_diag + RAND_JITTER) * eps

@@ -117,8 +117,9 @@ def _sqrt_elements(F, c, Q, e, y, x0):
     else:
         if isinstance(e, em.DenseEmissions):
             H, d, R = e.H, e.h, e.S
-        else:
-            H, d, R = e.C, e.c, torch.diag_embed(e.s_diag)
+        else:  # Large, Bottleneck
+            H, d, s_diag = em.diag_noise_params(e)
+            R = torch.diag_embed(s_diag)
         HUq = H @ U_Q
         Ls = psd.cholesky(psd.symmetrize(HUq @ _mT(HUq) + R))
         K = _mT(psd.chol_solve(Ls, H @ Q))  # (N, D, Dout)

@@ -5,13 +5,16 @@ Ns observations of each time step (DenseEmissions); the gp verbs
 (`to_sde(GP(k))(grid, noise)` -> `logpdf`, `marginals`, `rand`,
 `posterior`) take grids. `kron` is the factored engine of the same models,
 which never builds the D-state LGSSM (engine="kron" on those verbs). The
-pseudo-point models (`dtc`, `elbo`, `dtcify`, `DTCSeparable`,
-`approx_posterior_marginals(_at)`) and the use of `RegularInTime` inputs are
-ROADMAP Queue 1 item 8.
+pseudo-point models (pseudo_point.py: `dtcify`, `DTCSeparable`, `dtc`,
+`elbo`, `approx_posterior_marginals(_at)`) keep the process at M spatial
+pseudo-inputs (D = M * Dt) and take a grid or a `RegularInTime` (other
+points at each time).
 """
 
 from . import kron
 from .grids import RectilinearGrid, RegularInTime, SpaceTimeGrid, regular_in_time
+from .pseudo_point import (DTCSeparable, approx_posterior_marginals,
+                           approx_posterior_marginals_at, dtc, dtcify, elbo)
 from .separable import Separable
 
 __all__ = [
@@ -19,17 +22,12 @@ __all__ = [
     "RegularInTime",
     "SpaceTimeGrid",
     "Separable",
+    "DTCSeparable",
     "kron",
     "regular_in_time",
+    "dtc",
+    "dtcify",
+    "elbo",
+    "approx_posterior_marginals",
+    "approx_posterior_marginals_at",
 ]
-
-_PSEUDO_POINT = ("dtc", "elbo", "dtcify", "DTCSeparable", "approx_posterior_marginals",
-                 "approx_posterior_marginals_at")
-
-
-def __getattr__(name):
-    if name in _PSEUDO_POINT:
-        raise NotImplementedError(
-            f"space_time.{name}: the pseudo-point (DTC) models are not ported yet "
-            "(ROADMAP Queue 1 item 8)")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

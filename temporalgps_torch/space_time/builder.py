@@ -1,5 +1,5 @@
-"""The space-time LGSSM builder: a grid FiniteLTISDE -> LGSSM
-(temporalgps_tpu/space_time/builder.py)."""
+"""The space-time LGSSM builder: a grid's (or a RegularInTime's)
+FiniteLTISDE -> LGSSM (temporalgps_tpu/space_time/builder.py)."""
 
 import torch
 
@@ -10,6 +10,7 @@ from ..models.gauss_markov import GaussMarkov
 from ..models.lgssm import LGSSM
 from ..utils.fill import Fill, is_fill
 from . import grids
+from .pseudo_point import build_dtc_lgssm, contains_dtc
 from .to_gauss_markov import lgssm_components_spacetime
 
 
@@ -18,9 +19,9 @@ def build_lgssm_spacetime(fx) -> LGSSM:
     the Ns observations of the grid, their noise the diagonal covariance of
     the per-observation variances. Homoscedastic noise on a grid stays a
     per-time Fill, so every emission leaf of a regular grid is constant.
-    Mean functions: ZeroMean and ConstMean. The pseudo-point (DTC) kernels,
-    whose builder this is in the reference too, are ROADMAP Queue 1 item 8:
-    the port has no DTC kernel to build."""
+    Mean functions: ZeroMean and ConstMean. A kernel with a DTCSeparable
+    (space_time/pseudo_point.py) builds the pseudo-point LGSSM with
+    BottleneckEmissions instead, on a grid or a RegularInTime."""
     f = fx.f
     dtype, device = _storage_dtype(f.storage), f.device
     x = fx.x
@@ -32,6 +33,8 @@ def build_lgssm_spacetime(fx) -> LGSSM:
         flat = noise.value.expand(noise.N) if is_fill(noise) else noise
         noise_tf = grids.noise_var_to_time_form(x, flat)  # (Nt, Ns)
 
+    if contains_dtc(f.f.kernel):
+        return build_dtc_lgssm(f.f.kernel, x, noise_tf, f.f.mean, dtype, device)
     As, offs, Qs, (Hs, hs), x0 = lgssm_components_spacetime(f.f.kernel, x, dtype, device)
     mean_fn = f.f.mean
     if isinstance(mean_fn, ConstMean):

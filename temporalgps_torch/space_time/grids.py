@@ -5,8 +5,8 @@ A flat vector of observations indexes space fastest, so it reshapes to
 (Nt, Ns) time-major blocks. `RegularInTime` (other spatial points at each
 time) is stored padded to the longest slice with per-time counts; its
 padding observes nothing (NaN, the missing-data fill). Exact inference
-takes a `RectilinearGrid`; a `RegularInTime` is a container here, for the
-pseudo-point models (ROADMAP Queue 1 item 8).
+takes a `RectilinearGrid`; the pseudo-point models (pseudo_point.py) take
+either.
 """
 
 import dataclasses

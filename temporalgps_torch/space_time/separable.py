@@ -58,12 +58,14 @@ def gram_diag_points(k: Separable, x, y=None):
     return _elementwise_k(k.l, xl, yl) * _elementwise_k(k.r, xr, yr)
 
 
-def gram_diag_grid(k: Separable, x):
+def gram_diag_grid(k: Separable, x, device=None):
     """(Nt, Ns) per-time diagonal of the kernel over a grid or a
-    RegularInTime's padded slices."""
+    RegularInTime's padded slices (one gram of all of them), on `device`
+    where one is given."""
+    dt = K.gram_diag(k.r, time_array(grids.get_times(x), device))
     if isinstance(x, grids.RectilinearGrid):
-        return K.gram_diag(k.r, time_array(x.xr))[:, None] * K.gram_diag(k.l, x.xl)[None, :]
+        return dt[:, None] * K.gram_diag(k.l, torch.as_tensor(x.xl, device=device))[None, :]
     if isinstance(x, grids.RegularInTime):
-        dr = torch.stack([K.gram_diag(k.l, v) for v in x.vs_padded])
-        return K.gram_diag(k.r, time_array(x.ts))[:, None] * dr
+        vs = torch.as_tensor(x.vs_padded, device=device)
+        return dt[:, None] * K.gram_diag(k.l, vs.flatten(0, 1)).reshape(vs.shape[:2])
     raise TypeError(type(x))

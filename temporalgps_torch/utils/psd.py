@@ -32,6 +32,16 @@ def cholesky(P):
     return torch.linalg.cholesky(P)
 
 
+def sample_factor(Q, jitter):
+    """chol(Q + jitter I), the factor a sample draws its noise through,
+    batched: formed in float64 from Q as it is stored, then stored in Q's
+    dtype. A float32 covariance whose smallest eigenvalues lie below
+    float32's resolution of its largest (a space-time model's Kr (x) Q_t at
+    D = 741) has no float32 factor with the reference's jitter; widened, the
+    same stored values factor."""
+    return cholesky(add_jitter(symmetrize(Q).to(torch.float64), jitter)).to(Q.dtype)
+
+
 def tri_solve(L, B):
     """Solve L X = B for lower-triangular L; batched."""
     return torch.linalg.solve_triangular(L, B, upper=False)

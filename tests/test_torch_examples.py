@@ -15,6 +15,8 @@ EXAMPLES = [
     "augmented_inference",
     "exact_space_time_inference",
     "exact_space_time_learning",
+    "approx_space_time_inference",
+    "approx_space_time_learning",
 ]
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

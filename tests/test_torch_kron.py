@@ -13,6 +13,8 @@ against the sequential engine, whose smoother carries POSTERIOR_JITTER in
 another place.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -37,8 +39,10 @@ from temporalgps_torch.gp import dense as tdense
 from temporalgps_torch.gp import posterior as tpost
 from temporalgps_torch.models import lgssm as tlgssm
 from temporalgps_torch.models import missings as tmissings
+from temporalgps_torch.models.emissions import map_leaves
 from temporalgps_torch.space_time import RectilinearGrid, Separable, kron
 from temporalgps_torch.utils import Gaussian, gaussian_logpdf, gaussian_marginals
+from temporalgps_torch.utils.fill import Fill, is_fill
 
 torch.set_num_threads(1)
 
@@ -313,3 +317,41 @@ def test_dense_posterior_marginals_matches_reference():
     # and the state-space posterior of the port agrees with the dense oracle
     for g, ss in zip(got, tpost.marginals(tpost.posterior(tfx, y)(tpr.x, 0.05))):
         _close(g, ss, 1e-8)
+
+
+@pytest.mark.parametrize("engine, ns, nt", [("parallel", 125, 3), ("block", 150, 5)])
+def test_float32_grid_posterior_of_the_materialised_engines(engine, ns, nt):
+    """The materialised engines' float32 posterior on a grid whose D = ns * 3
+    is where their float32 filter's covariances were indefinite beyond
+    POSTERIOR_JITTER, so the reversal's Cholesky raised (the smallest CPU
+    grids that showed it; on the card "parallel" from 125 x 1000 and "block"
+    from 200 x 1000). c4's model (chip_smoke.py phase 19). The posterior
+    means against the float32 problem (its stored leaves) solved in float64,
+    within phase 18's gate: 1e-3, or 4 times the float32 sequential engine's
+    distance."""
+    kern = tgp.Scaled(Separable(tgp.EQ().stretch(0.7), tgp.Matern52()), 1.0)
+    times = tt.RegularSpacing(torch.tensor(0.0, dtype=torch.float32),
+                              torch.tensor(0.01, dtype=torch.float32), nt)
+    fx = tgp.to_sde(tgp.GP(kern), tgp.ArrayStorage(torch.float32), device="cpu")(
+        RectilinearGrid(torch.linspace(-3, 3, ns), times), 0.1)
+    y = np.random.default_rng(0).standard_normal(ns * nt)
+    y[4321 % (ns * nt)] = np.nan
+    model = tgp.build_lgssm(fx)
+    y_tf = torch.as_tensor(y, dtype=torch.float32).reshape(nt, ns)
+
+    def means(m, y_, eng):
+        post = tmissings.posterior_with_missings(m, y_, engine=eng)
+        return tlgssm.marginals_diag(type(m)(post.trans, m.emis), engine="sequential")[0]
+
+    def wide(leaf):
+        return Fill(leaf.value.double(), leaf.N) if is_fill(leaf) else leaf.double()
+
+    t = model.trans
+    model64 = type(model)(
+        dataclasses.replace(t, As=wide(t.As), offs=wide(t.offs), Qs=wide(t.Qs),
+                            x0=Gaussian(t.x0.mean.double(), t.x0.cov.double())),
+        map_leaves(wide, model.emis))
+    truth = means(model64, y_tf.double(), "sequential")
+    dist = lambda a: ((a.double() - truth).abs().max() / truth.abs().max()).item()
+    got = dist(means(model, y_tf, engine))
+    assert got <= max(1e-3, 4.0 * dist(means(model, y_tf, "sequential"))), got

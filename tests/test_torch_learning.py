@@ -126,9 +126,10 @@ def test_positive_and_constrained_match_reference():
 
 def test_value_and_grad_fisher_names_what_it_waits_for():
     """value_and_grad_fisher runs (tests/test_torch_fisher.py); on an engine
-    not ported yet it raises naming the roadmap item."""
+    that has no filter and posterior LGSSM (engine="lti", whose filter the
+    reference has neither) it raises, naming the engine."""
     vg = learning.value_and_grad_fisher(lambda p: build_lgssm(_torch_fx(p)), _y(), engine="lti")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
+    with pytest.raises(ValueError, match="'lti'"):
         vg(torch.from_numpy(P0))
 
 

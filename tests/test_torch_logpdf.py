@@ -109,8 +109,15 @@ def test_engine_resolution_on_cpu_is_sequential():
     model = build_lgssm(_torch_fx("Matern52", torch.float64))
     assert tlgssm._resolve_engine(None, model) == "sequential"
     assert tlgssm._resolve_engine("block", model) == "block"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlgssm.logpdf(model, torch.zeros(N, dtype=torch.float64), engine="steady")
+    # engine="steady" is opt-in: it runs when asked (here the lti engine's
+    # lml: N is below its warmup) and refuses a model whose leaves are per step.
+    y0 = torch.zeros(N, dtype=torch.float64)
+    np.testing.assert_allclose(tlgssm.logpdf(model, y0, engine="steady").item(),
+                               tlgssm.logpdf(model, y0).item(), rtol=1e-12)
+    irregular = build_lgssm(_torch_fx("Matern52", torch.float64,
+                                      x=torch.arange(N, dtype=torch.float64) ** 1.1))
+    with pytest.raises(ValueError, match="all-Fill"):
+        tlgssm.logpdf(irregular, y0, engine="steady")
 
 
 def _spec(k):

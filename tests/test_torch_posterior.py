@@ -212,11 +212,11 @@ def test_posterior_covariance_is_refused():
 
 
 def test_routes_the_port_does_not_take_raise():
-    """Engines not ported and RegularInTime inputs (the pseudo-point route,
-    item 8) raise NotImplementedError, inputs of two dimensions that are no
-    grid ValueError; per-step transitions, refused by the blocked filter
-    before the general block schedule, now match the sequential engine
-    there."""
+    """engine="lti" on per-step transitions raises ValueError, RegularInTime
+    inputs (the pseudo-point verbs') TypeError, inputs of two dimensions
+    that are no grid ValueError; per-step transitions, refused by the
+    blocked filter before the general block schedule, now match the
+    sequential engine there."""
     _, tf, x_tr, noise_tr, y, *_ = _gp_setup("Matern32", seed=3)
     model = build_lgssm(tf(x_tr, noise_tr))
     y_f = torch.nan_to_num(torch.as_tensor(y))
@@ -227,9 +227,9 @@ def test_routes_the_port_does_not_take_raise():
     for got, want in ((post.trans.As, post_seq.trans.As), (post.trans.offs, post_seq.trans.offs),
                       (post.trans.Qs, post_seq.trans.Qs)):
         _close(got, want, rtol=1e-10)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="all-Fill"):
         tlgssm.marginals_diag(model, engine="lti")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(TypeError, match="pseudo-point"):
         tpost.posterior(tf(x_tr, noise_tr), y)(regular_in_time(np.arange(2.0),
                                                                [np.zeros(3), np.zeros(2)]))
     with pytest.raises(ValueError, match="exact inference takes"):

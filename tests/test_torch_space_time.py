@@ -41,7 +41,7 @@ from temporalgps_torch.models import missings as tmissings
 from temporalgps_torch.models import naive as tnaive
 from temporalgps_torch.models.emissions import LargeEmissions, map_leaves
 from temporalgps_torch.models.gauss_markov import GaussMarkov
-from temporalgps_torch.space_time import RectilinearGrid, Separable
+from temporalgps_torch.space_time import RectilinearGrid, Separable, regular_in_time
 from temporalgps_torch.utils.fill import Fill, is_fill, tmaterialize
 from temporalgps_torch.utils.gaussian import Gaussian
 
@@ -298,12 +298,15 @@ def test_refusals():
     _, tfx = _fxs()
     with pytest.raises(ValueError, match="gp.logpdf"):
         tlgssm.logpdf(tgp.build_lgssm(tfx), _y().reshape(NT, NS), engine="kron")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        from temporalgps_torch.space_time import dtcify  # noqa: F401
-    with pytest.raises(NotImplementedError, match="item 8"):
-        convert.kernel_from_spec(("DTCSeparable", ("EQ",), ("Matern32",)))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        from temporalgps_torch.models import BottleneckEmissions  # noqa: F401
+    # A RegularInTime takes the pseudo-point verbs only; the pseudo-point
+    # model takes no mean function.
+    rit = regular_in_time(np.arange(2.0), [np.zeros(3), np.zeros(2)])
+    with pytest.raises(TypeError, match="RectilinearGrid"):
+        tgp.build_lgssm(tgp.to_sde(tgp.GP(Separable(tgp.EQ(), tgp.Matern32())),
+                                   device="cpu")(rit, 0.1))
+    with pytest.raises(NotImplementedError, match="zero mean"):
+        tt.dtc(tgp.to_sde(tgp.GP(Separable(tgp.EQ(), tgp.Matern32()), tgp.ConstMean(1.0)),
+                          device="cpu")(tfx.x, NOISE), _y(), torch.zeros(2, dtype=torch.float64))
     with pytest.raises(NotImplementedError, match="item 9"):
         tt.logpdf(tgp.to_sde(tgp.GP(tgp.EQ()), device="cpu")(torch.arange(3.0), 0.1),
                   np.zeros(3))
