@@ -145,7 +145,7 @@ Phases; any failure exits non-zero without the final result line:
      float64, and at N = 20k the float64 gradient within 1e-6 of the
      sequential engine's autograd. The D = 6 model (Matern52() +
      Matern52().stretch(3), assembled block-diagonally) at N = 100k on the
-     matrix path: no kernel launched, finite; float64 at N = 2k within 1e-10
+     matrix path (engine="block"): no kernel launched, finite; float64 at N = 2k within 1e-10
      of the CPU's matrix path. Every call timed by CUDA events (median of
      batches; vg(p0), ~20 s a call, by its gated call alone, not run
      again); torch.profiler and host stages of the irregular logpdf and the
@@ -180,7 +180,8 @@ Phases; any failure exits non-zero without the final result line:
      Beside it at N = 1M: the Product Matern12() * Matern32() (D = 2),
      logpdf and rand; sum-c2 with the mean function 0.3 sin(t) (its per-step
      h moved into y), logpdf and posterior marginals; the D = 5 sum
-     Matern52() + Matern32() at N = 100k on the matrix path (no kernel).
+     Matern52() + Matern32() at N = 100k on the matrix path (engine="block",
+     no kernel).
      Every call timed by CUDA events (median of 5 batches, 3 for the new
      times); each of sum-c2's seven calls under torch.profiler (device busy
      by kernel, idle share).
@@ -213,7 +214,7 @@ Phases; any failure exits non-zero without the final result line:
      the largest entry); c2's posterior (reverse-ordered) conditioned again
      with engine="block" (the associative engine, no kernel), at N = 20k in
      float64 within 1e-9 of the CPU's sequential engine; the D = 5 sum at
-     N = 100k on the matrix path, float32 posterior means within 1e-3 of
+     N = 100k on the matrix path (engine="block"), float32 posterior means within 1e-3 of
      float64, and float64 at N = 2k within 1e-10 of the CPU's sequential
      engine. Each call timed by CUDA events (median of 3 batches of 1).
 
@@ -313,6 +314,40 @@ Phases; any failure exits non-zero without the final result line:
      float32 elbo at Nt = 100k on "parallel", "block", "lti" and "steady"
      (engine=None takes "parallel" on the card; "lti" and "steady" are
      opt-in).
+ 21. c3, deterministic components and the basis engine (bench.py:15,
+     360-410), through the public entry points: s2 * Matern52() + 0.6 *
+     Matern32().stretch(sc) + 0.3 * ApproxPeriodic(0.5) (D = 19; the basis
+     engine's reduced model D = 5 with 15 basis columns) on
+     RegularSpacing(0, 1e-3, 1M) at (1, 0.5, 0.1), y from default_rng(0):
+     logpdf(engine="basis", sub_engine="steady", n_warmup=k), k the bench's
+     suggest_warmup(tol=1e-2) (2688), and its reverse-mode gradient in log
+     (s2, sc, noise), float32 and float64, timed (median of 5 batches of 1),
+     profiled (busy, idle share, device ops), with peak memory. No kernel of
+     K1-K10 launches. Gates: float32 lml within 1e-4 of float64, its
+     gradient within 1e-3 of the largest entry of float64's; at N = 100k in
+     float64 steady with suggest_warmup(tol=1e-10) within 1e-9 (lml) and
+     1e-6 (gradient, of the largest entry) of sub_engine="block" (tol=1e-2
+     recorded), basis/block within 1e-8 of the full D = 19 model on
+     "block"; at the bench's SMOKE size (N = 5000) the card within 1e-12 of
+     the CPU port (block and steady, lml and gradient). The engine rule's
+     table: the full D = 19 model at N = 100k on "block" and "parallel",
+     logpdf and posterior marginals, both dtypes (NaN or not, float32
+     against float64 and against the float32 problem solved in float64,
+     ms), the same calls' ms on two models with no deterministic block (c3
+     without its ApproxPeriodic, D = 5, and with seven Matern32 summands in
+     its place, D = 19), and engine=None's choice ("parallel" at D = 19 and
+     at D = 5 without a det block, "block" for the D = 3 det model). The
+     kernels on a block of no process noise: Matern12() + 0.5 * Cosine().stretch(2.0)
+     (D = 3, float32 floored) on c2's inputs and y: logpdf (K1-K3), vg(p0)
+     with k = 3 (K4-K6) and posterior marginals (K1, K2, K7, K8-K10) on
+     "block", each kernel's launch count moving; every kernel held against
+     its plain version on the inputs these calls hand it at 1e-10 / 1e-4,
+     except where the plain versions themselves part by more: float32
+     K4-K10 against the float64 plain rows of the same inputs (phase 4's
+     sum-c2 rule), float64 K8 within F32_SPREAD times the serial plain
+     schedule's distance from the chunked one; the float64 full-state lml
+     within 1e-9 of the basis engine's. The default gp-level logpdf of that
+     model (engine=None: the basis engine) is timed beside "block".
 
 The third line from the end is the card's name and power limit, the second
 {"kernels": [...]} with the float32 numbers of all thirteen kernels (the
@@ -449,6 +484,19 @@ C5_NEW = 20
 C5_SMOKE = (5, 2000, 3)
 C5_RAGGED_NT = (1000, 100_000)
 C5_ENGINES = ("sequential", "block", "parallel", "lti", "steady")
+# c3 (bench.py:15, 360-410): s2 * Matern52() + 0.6 * Matern32().stretch(sc)
+# + 0.3 * ApproxPeriodic(0.5) (D = 19; the basis engine's reduced model D = 5
+# and R = 15 basis columns) on RegularSpacing(0, 1e-3, N_MAIN) at (s2, sc,
+# noise) = C3_HYPER, y the standard normals of default_rng(SEED). Its gates
+# against sub_engine="block" and the full model at C3_N_GATE; the card
+# against the CPU at the bench's SMOKE size C3_SMOKE. The full D = 19 model
+# on "block" and "parallel" at C3_N_GATE (the engine rule's table). The
+# kernels on a deterministic block: DET_KERNEL's model, (s1 * Matern12()) +
+# (s2 * Cosine()).stretch(2.0) (D = 3) at DET_HYPER = (s1, s2, noise), on
+# c2's inputs and y (one NaN).
+C3_HYPER = (1.0, 0.5, 0.1)
+C3_N_GATE, C3_SMOKE = 100_000, 5_000
+DET_HYPER = (1.0, 0.5, 0.1)
 # The calls of sum-c2's main path and the launches each must show: the
 # filter (K1-K3), the forward-mode gradient (K4-K6), posterior marginals at
 # the training inputs (K1, K2, K7, K8-K10), the prior rand (K8-K10 on zero
@@ -773,7 +821,9 @@ def main():
         within F32_SPREAD times the distance of `plain` (the float32 plain
         version's rows) from it where that is larger; the kernel about as
         accurate as its plain version where float32 arithmetic conditions
-        the rows worse than KERNEL_RTOL (a Sum's stretch tangents)."""
+        the rows worse than KERNEL_RTOL (a Sum's stretch tangents). `truth`
+        may also be the chunk-ordered plain rows and `plain` the serial
+        plain schedule's, in the same dtype (compare_affine's `spread`)."""
         finite = bool(torch.isfinite(k_out).all())
         max_abs = (k_out - p_out).abs().max().item()
 
@@ -800,8 +850,8 @@ def main():
         bound = max(tol, F32_SPREAD * r_p)
         entry.update(kernel_vs_f64_rel=r_k, plain_vs_f64_rel=r_p)
         smoke.check(finite and r_k <= bound,
-                    f"{kname} {key}: finite={finite} {label} rel to the float64 plain version "
-                    f"{r_k:.3e}, the float32 plain version's {r_p:.3e} (tol {bound:.3e}: {tol:g} "
+                    f"{kname} {key}: finite={finite} {label} rel to the reference rows "
+                    f"{r_k:.3e}, the plain version's {r_p:.3e} (tol {bound:.3e}: {tol:g} "
                     f"or {F32_SPREAD} times the plain version's; kernel vs plain {r:.3e})")
 
     def ragged_streams(name, L, B):
@@ -1305,12 +1355,16 @@ def main():
         return to(rows.transpose(2, 0, 1)), to(0.1 * rng.standard_normal(D)), to(np.eye(D))
 
     # ---- 9. state-emitting kernels against their plain versions ---------
-    def compare_affine(name, params, m0, P0, shape=None, wide=False):
+    def compare_affine(name, params, m0, P0, shape=None, wide=False, spread=False):
         """K8-K10 against their plain versions (K8's and K10's in their chunk
         order) on the same inputs, each held on the state rows downstream:
         K8's block aggregates and run aggregates, K9's starts, and K10 fed
         K8's run aggregates; with `wide`, against the plain rows of the same
-        inputs in float64 (record_comparison's `truth`)."""
+        inputs in float64 (record_comparison's `truth`); with `spread`,
+        K8's records against the chunk-ordered plain rows within KERNEL_RTOL
+        or F32_SPREAD times the serial plain schedule's distance from them
+        (the plain versions' own spread on rows that their dtype conditions
+        worse than KERNEL_RTOL); K9's and K10's keep KERNEL_RTOL."""
         rows = lambda t: t.reshape(D + D * D, -1)
         truth = None
         if wide:
@@ -1329,10 +1383,14 @@ def main():
             params, kernels.affine_phase2_starts_plain(k8, m0, P0, D), D, p_runs)
         via_k_runs = kernels.affine_phase3_states_plain(params, p9, D, k_runs)
         via_k9 = kernels.affine_phase3_states_plain(params, k9, D, p_runs)
-        ref = dict(shape=shape, truth=truth, plain=rows(p10))
-        record_comparison("affine_phase1", name, k8, p8, rows(via_k8), rows(p10), "states", **ref)
+        ref = ref8 = dict(shape=shape, truth=truth, plain=rows(p10))
+        if spread:
+            s8, _ = kernels.affine_phase1_plain(params, D)
+            ref8 = dict(ref, truth=rows(p10), plain=rows(kernels.affine_phase3_states_plain(
+                params, kernels.affine_phase2_starts_plain(s8, m0, P0, D), D)))
+        record_comparison("affine_phase1", name, k8, p8, rows(via_k8), rows(p10), "states", **ref8)
         record_comparison("affine_phase1", name, k_runs, p_runs, rows(via_k_runs), rows(p10),
-                          "states", part="runs", **ref)
+                          "states", part="runs", **ref8)
         record_comparison("affine_phase2_starts", name, k9, p9, rows(via_k9), rows(p10),
                           "states", **ref)
         record_comparison("affine_phase3_states", name, k10, via_k_runs, rows(k10),
@@ -1798,8 +1856,9 @@ def main():
         y6 = y_np[:N_D6]
         d6 = {name: make_d6(dtypes[name], N_D6, DEVICE) for name in dtypes}
         kernels.reset_launch_counts()
-        lml6 = {name: logpdf_with_missings(d6[name], y_dev[name][:N_D6]).item() for name in dtypes}
-        lat6 = {name: tlgssm.latent_marginals(d6[name]) for name in dtypes}
+        lml6 = {name: logpdf_with_missings(d6[name], y_dev[name][:N_D6], engine="block").item()
+                for name in dtypes}
+        lat6 = {name: tlgssm.latent_marginals(d6[name], engine="block") for name in dtypes}
         torch.cuda.synchronize()
         counts = kernels.launch_counts()
         r6 = rel(lml6["float32"], lml6["float64"])
@@ -1823,7 +1882,7 @@ def main():
             lat = tlgssm.latent_marginals(model, engine=engine)
             return [logpdf_with_missings(model, y, engine=engine).reshape(1), lat.mean, lat.cov]
 
-        got = d6_small(small_k, y6s.to(DEVICE), None)
+        got = d6_small(small_k, y6s.to(DEVICE), "block")
         r6b = max(rel_max(g.cpu(), w) for g, w in zip(got, d6_small(small_c, y6s, "block")))
         r6s = max(rel_max(g.cpu(), w) for g, w in zip(got, d6_small(small_c, y6s, "sequential")))
         rec["d6"].update({"f64_small_rel_vs_cpu_matrix_path": r6b,
@@ -1842,8 +1901,9 @@ def main():
                 "irregular_filter": (lambda: filter_states(fx, y), 5, 5),
                 "irregular_posterior_marginals": (lambda: posterior_marginals(fx, y), 5, 5),
                 "irregular_posterior_new_times": (lambda: new_times(fx, y), 3, 3),
-                "d6_logpdf": (lambda: logpdf_with_missings(d6[name], y6n), 3, 3),
-                "d6_latent_marginals": (lambda: tlgssm.latent_marginals(d6[name]), 3, 3),
+                "d6_logpdf": (lambda: logpdf_with_missings(d6[name], y6n, engine="block"), 3, 3),
+                "d6_latent_marginals": (lambda: tlgssm.latent_marginals(d6[name], engine="block"),
+                                        3, 3),
             }
             for cname, (call, batches, reps) in calls.items():
                 with torch.no_grad():
@@ -2106,7 +2166,7 @@ def main():
             for name, dtype in dtypes.items():
                 fx = make_other(kind, dtype, N, DEVICE)
                 y = y_dev[name][:N]
-                call = {"logpdf": lambda: logpdf(fx, y),
+                call = {"logpdf": lambda: logpdf(fx, y, engine="block" if kind == "d5" else None),
                         "prior_rand": lambda: rand(gen.manual_seed(SEED), fx),
                         "posterior_marginals": lambda: posterior_marginals(fx, y)}[cname]
                 kernels.reset_launch_counts()
@@ -2404,18 +2464,20 @@ def main():
         for name, dtype in dtypes.items():
             fx5 = make_other("d5", dtype, N_D5, DEVICE)
             kernels.reset_launch_counts()
-            means[name] = posterior_marginals(fx5, y_dev[name][:N_D5])[0].double()
+            means[name] = posterior_marginals(fx5, y_dev[name][:N_D5], "block")[0].double()
             torch.cuda.synchronize()
             counts = {kn: n for kn, n in kernels.launch_counts().items() if n}
             smoke.check(counts == {} and finite(means[name]),
                         f"D = 5 {name} N={N_D5} posterior means: the matrix path (no kernel "
                         f"launched), finite: {counts}")
-            ms = events_ms(lambda: posterior_marginals(fx5, y_dev[name][:N_D5]), reps=1, batches=3)
+            ms = events_ms(lambda: posterior_marginals(fx5, y_dev[name][:N_D5], "block"), reps=1,
+                           batches=3)
             rec.setdefault("ms", {}).setdefault(name, {})["d5_posterior_marginals"] = ms[0]
             print(f"  {name} d5_posterior_marginals N={N_D5}: {ms[0]!r} ms", flush=True)
         r5 = rel_max(means["float32"], means["float64"])
         y5 = y_np[:N_D6_SMALL]
-        m_k = posterior_marginals(make_other("d5", torch.float64, N_D6_SMALL, DEVICE), y5)[0]
+        m_k = posterior_marginals(make_other("d5", torch.float64, N_D6_SMALL, DEVICE), y5,
+                                  "block")[0]
         m_c = posterior_marginals(make_other("d5", torch.float64, N_D6_SMALL, "cpu"), y5,
                                   "sequential")[0]
         r5s = rel_max(m_k.cpu(), m_c)
@@ -3188,6 +3250,264 @@ def main():
                     "parallel within 1e-9 (value) and 1e-7 (gradient, means); the card within "
                     f"1e-10 of the CPU port at the SMOKE sizes (gradients 1e-8): {json.dumps(tol)}")
 
+    # ---- 21. c3: deterministic components and the basis engine ----------
+    def phase_c3():
+        from temporalgps_torch.gp import ApproxPeriodic, Cosine, basis_setup
+        from temporalgps_torch.ops import assoc, steady
+
+        rec = smoke.record["c3"] = {}
+        r, tol = {}, {}
+        rec.update(rel=r, tol=tol)
+        p_c3 = torch.log(torch.tensor(C3_HYPER, dtype=torch.float64, device=DEVICE))
+        p_det = torch.log(torch.tensor(DET_HYPER, dtype=torch.float64, device=DEVICE))
+        rows = lambda t: t.reshape(D + D * D, -1)
+
+        def make_c3(dtype, N, p, device=DEVICE, periodic="approx"):
+            """c3; with periodic="none" without its ApproxPeriodic (D = 5),
+            with "matern" seven Matern32 summands in its place (D = 19):
+            the same state sizes with no deterministic block."""
+            s2, sc, noise = torch.exp(p)
+            kern = s2 * Matern52() + 0.6 * Matern32().stretch(sc)
+            if periodic == "approx":
+                kern = kern + 0.3 * ApproxPeriodic(0.5)
+            elif periodic == "matern":
+                for i in range(7):
+                    kern = kern + (0.3 / 7) * Matern32().stretch(0.5 + 0.25 * i)
+            return to_sde(GP(kern), ArrayStorage(dtype), device=device)(
+                RegularSpacing(0.0, 1e-3, N), noise)
+
+        def make_det(dtype, N, p, device=DEVICE):
+            s1, s2, noise = torch.exp(p)
+            kern = s1 * Matern12() + (s2 * Cosine()).stretch(2.0)
+            return to_sde(GP(kern), ArrayStorage(dtype), device=device)(
+                RegularSpacing(0.0, 1e-3, N), noise)
+
+        def c3_vg(dtype, N, y, device=DEVICE, **kw):
+            """The basis engine's lml and its reverse-mode gradient in
+            log (s2, sc, noise)."""
+            def call():
+                p = p_c3.to(device).clone().requires_grad_()
+                v = logpdf(make_c3(dtype, N, p, device), y, engine="basis", **kw)
+                return v.detach(), torch.autograd.grad(v, p)[0]
+            return call
+
+        def profile(key, call):
+            """Busy, idle share (against the key's timed median), device ops
+            and the top device ops of one call under torch.profiler."""
+            device_us, n_ops = device_profile(call, 1)
+            busy = sum(device_us.values())
+            top = sorted(device_us.items(), key=lambda kv: -kv[1])[:5]
+            prof = rec.setdefault("profile", {})[key] = {
+                "call_ms": rec["ms"][key], "device_busy_us": busy,
+                "idle_share": 1.0 - busy / (1e3 * rec["ms"][key]), "device_ops_per_call": n_ops,
+                "top_device_us": {k_[:80]: v for k_, v in top}}
+            print(f"  profile {key}: {json.dumps(prof)}", flush=True)
+            smoke.check(busy > 0, f"c3 {key}: the profiler saw device time")
+
+        # c3 at N = 1M on the steady sub-engine, its warmup the bench's.
+        k_c3 = steady.suggest_warmup(basis_setup(make_c3(torch.float32, N_MAIN, p_c3))[0],
+                                     tol=1e-2)
+        rec["n_warmup"] = k_c3
+        smoke.check(k_c3 == 2688, f"c3: suggest_warmup(tol=1e-2) gives {k_c3} (the bench's 2688)")
+        y_np = np.random.default_rng(SEED).standard_normal(N_MAIN)
+        out = {}
+        for name, dtype in dtypes.items():
+            y = torch.as_tensor(y_np, dtype=dtype, device=DEVICE)
+            lml_call = lambda: logpdf(make_c3(dtype, N_MAIN, p_c3), y, engine="basis",
+                                      sub_engine="steady", n_warmup=k_c3)
+            vg_call = c3_vg(dtype, N_MAIN, y, sub_engine="steady", n_warmup=k_c3)
+            for what, call in (("logpdf", lml_call), ("logpdf_grad", vg_call)):
+                torch.cuda.reset_peak_memory_stats()
+                out[name, what] = timed(rec, f"{name}_{what}", call, 5)
+                rec[f"{name}_{what}_peak_bytes"] = torch.cuda.max_memory_allocated()
+                print(f"  {name}_{what} peak bytes: {rec[f'{name}_{what}_peak_bytes']}", flush=True)
+                profile(f"{name}_{what}", call)
+            del y
+        (v32, g32), (v64, g64) = out["float32", "logpdf_grad"], out["float64", "logpdf_grad"]
+        smoke.check(finite(v32, g32, v64, g64, out["float32", "logpdf"], out["float64", "logpdf"]),
+                    "c3: finite lml and gradient, both dtypes")
+        rec["values"] = {f"{n}_{w}": (o[0] if isinstance(o, tuple) else o).item()
+                         for (n, w), o in out.items()}
+        rec["grads"] = {"float32": g32.tolist(), "float64": g64.tolist()}
+        r["float32_lml_vs_f64"] = rel(out["float32", "logpdf"].item(), out["float64", "logpdf"].item())
+        tol["float32_lml_vs_f64"] = 1e-4
+        r["float32_grad_vs_f64_of_largest"] = rel_max(g32.double(), g64)
+        tol["float32_grad_vs_f64_of_largest"] = 1e-3
+
+        # Gates at N = 100k, float64: steady (a tight warmup) against block;
+        # basis/block against the full D = 19 model on "block".
+        y_g = torch.as_tensor(y_np[:C3_N_GATE], dtype=torch.float64, device=DEVICE)
+        del y_np
+        k_tight = steady.suggest_warmup(
+            basis_setup(make_c3(torch.float64, C3_N_GATE, p_c3))[0], tol=1e-10)
+        rec["n_warmup_tol_1e-10"] = k_tight
+        v_bl, g_bl = timed(rec, "float64_logpdf_grad_block_n100k",
+                           c3_vg(torch.float64, C3_N_GATE, y_g, sub_engine="block"), 3)
+        v_st, g_st = timed(rec, "float64_logpdf_grad_steady_tight_n100k",
+                           c3_vg(torch.float64, C3_N_GATE, y_g, sub_engine="steady",
+                                 n_warmup=k_tight), 3)
+        v_lo, g_lo = c3_vg(torch.float64, C3_N_GATE, y_g, sub_engine="steady", n_warmup=k_c3)()
+        r["float64_steady_vs_block_n100k_lml"] = rel(v_st.item(), v_bl.item())
+        tol["float64_steady_vs_block_n100k_lml"] = 1e-9
+        r["float64_steady_vs_block_n100k_grad"] = rel_max(g_st, g_bl)
+        tol["float64_steady_vs_block_n100k_grad"] = 1e-6
+        rec["float64_steady_tol_1e-2_vs_block_n100k"] = {"lml": rel(v_lo.item(), v_bl.item()),
+                                                         "grad": rel_max(g_lo, g_bl)}
+
+        # The engine rule's table: the full D = 19 model at N = 100k.
+        full, table = {}, {}
+        # The float32 model (its floored Q) as float32 stores it, solved in
+        # float64 on "block": what float32 arithmetic is held to.
+        wide32 = assoc.widened(build_lgssm(make_c3(torch.float32, C3_N_GATE, p_c3)))
+        problem32 = (tlgssm.logpdf(wide32, y_g, engine="block"), *tlgssm.marginals_diag(
+            tlgssm.posterior(wide32, y_g, engine="block"), engine="block"))
+        del wide32
+        for name, dtype in dtypes.items():
+            fx_f, y_f = make_c3(dtype, C3_N_GATE, p_c3), y_g.to(dtype)
+            for engine in ("block", "parallel"):
+                lml = timed(rec, f"full_{name}_logpdf_{engine}",
+                            lambda: logpdf(fx_f, y_f, engine=engine), 3)
+                m, v = timed(rec, f"full_{name}_posterior_marginals_{engine}",
+                             lambda: posterior_marginals(fx_f, y_f, engine), 3)
+                full[name, engine] = (lml, m, v)
+        for engine in ("block", "parallel"):
+            (l32, m32, v32_), (l64, m64, v64_) = full["float32", engine], full["float64", engine]
+            table[engine] = {
+                "finite_float32": finite(l32, m32, v32_), "finite_float64": finite(l64, m64, v64_),
+                "float32_lml_vs_f64": rel(l32.item(), l64.item()),
+                "float32_means_vs_f64": rel_max(m32.double(), m64),
+                "float32_lml_vs_f32_problem": rel(l32.item(), problem32[0].item()),
+                "float32_means_vs_f32_problem": rel_max(m32.double(), problem32[1]),
+                "ms": {f"{n}_{w}": rec["ms"][f"full_{n}_{w}_{engine}"] for n in dtypes
+                       for w in ("logpdf", "posterior_marginals")}}
+        rec["engine_table"] = table
+        print(f"  engine table, full D = 19 at N = {C3_N_GATE}: {json.dumps(table)}", flush=True)
+        # The same calls with no deterministic block, at D = 5 and D = 19:
+        # whether the rule follows det_blocks or the state dimension.
+        nodet = rec["engine_table_no_det"] = {}
+        for variant in ("none", "matern"):
+            for name, dtype in dtypes.items():
+                fx_f, y_f = make_c3(dtype, C3_N_GATE, p_c3, periodic=variant), y_g.to(dtype)
+                D_f = build_lgssm(make_c3(dtype, 64, p_c3, periodic=variant)).latent_dim
+                for engine in ("block", "parallel"):
+                    key = f"no_det_D{D_f}_{name}_{{}}_{engine}"
+                    lml = timed(rec, key.format("logpdf"),
+                                lambda: logpdf(fx_f, y_f, engine=engine), 3)
+                    m, v = timed(rec, key.format("posterior_marginals"),
+                                 lambda: posterior_marginals(fx_f, y_f, engine), 3)
+                    nodet[key.format("finite")] = finite(lml, m, v)
+        print(f"  no-det finite: {json.dumps(nodet)}", flush=True)
+        smoke.check(all(nodet.values()), "c3: the no-det models finite on block and parallel")
+        none_takes = lambda fx: tlgssm._resolve_engine(None, build_lgssm(fx))
+        rec["engine_none"] = {
+            "full_d19": none_takes(make_c3(torch.float32, 64, p_c3)),
+            "no_det_d5": none_takes(make_c3(torch.float32, 64, p_c3, periodic="none")),
+            "det_d3": none_takes(make_det(torch.float32, 64, p_det))}
+        smoke.check(rec["engine_none"] == {"full_d19": "parallel", "no_det_d5": "parallel",
+                                           "det_d3": "block"},
+                    f"c3: engine=None takes {rec['engine_none']} (the kernels' models on block)")
+        r["float64_full_block_vs_basis_block_n100k_lml"] = rel(full["float64", "block"][0].item(),
+                                                               v_bl.item())
+        tol["float64_full_block_vs_basis_block_n100k_lml"] = 1e-8
+        rec["float64_full_parallel_vs_basis_block_n100k_lml"] = rel(
+            full["float64", "parallel"][0].item(), v_bl.item())
+        del full, y_g
+
+        # The card against the CPU port at the bench's SMOKE size, float64.
+        y_s = np.random.default_rng(SEED + 22).standard_normal(C3_SMOKE)
+
+        def small(device):
+            y = torch.as_tensor(y_s, device=device)
+            return {sub: [t.cpu() for t in c3_vg(torch.float64, C3_SMOKE, y, device,
+                                                  sub_engine=sub, **kw)()]
+                    for sub, kw in (("block", {}), ("steady", {"n_warmup": k_c3}))}
+
+        kernels.reset_launch_counts()
+        on_card = small(DEVICE)
+        rec["launches"]["smoke_size"] = {kn: n for kn, n in kernels.launch_counts().items() if n}
+        on_cpu = small("cpu")
+        for sub in on_card:
+            r[f"smoke_float64_{sub}_lml_card_vs_cpu"] = rel(on_card[sub][0].item(),
+                                                            on_cpu[sub][0].item())
+            r[f"smoke_float64_{sub}_grad_card_vs_cpu"] = rel_max(on_card[sub][1], on_cpu[sub][1])
+            tol[f"smoke_float64_{sub}_lml_card_vs_cpu"] = 1e-12
+            tol[f"smoke_float64_{sub}_grad_card_vs_cpu"] = 1e-12
+        smoke.check(all(v == {} for v in rec["launches"].values()),
+                    "c3: the basis engine and the full D = 19 model launch no kernel of K1-K10")
+
+        # The kernels on a deterministic block: the D = 3 full-state model.
+        det_fn = lambda dtype: (lambda p: build_lgssm(make_det(dtype, N_MAIN, p)))
+        det, det_launch = {}, {}
+        B = block._pallas_blocks(N_MAIN)
+        for name, dtype in dtypes.items():
+            fx_d, y = make_det(dtype, N_MAIN, p_det), y_dev[name]
+            vg = value_and_grad_fwd_lgssm(det_fn(dtype), y)
+            for what, call, kns in (
+                    ("logpdf_block", lambda: logpdf(fx_d, y, engine="block"), VALUE_KERNELS),
+                    ("vg", lambda: vg(p_det), JVP_KERNELS),
+                    ("posterior_marginals_block", lambda: posterior_marginals(fx_d, y, "block"),
+                     POSTERIOR_KERNELS),
+                    # engine=None: the gp-level default, the basis route
+                    ("logpdf_basis", lambda: logpdf(fx_d, y), ())):
+                key = f"det_{name}_{what}"
+                det[name, what] = timed(rec, key, call, 5 if kns else 3)
+                if not kns:
+                    profile(key, call)
+                det_launch[key] = rec["launches"][key]
+                smoke.check(all(rec["launches"][key].get(kn, 0) >= 1 for kn in kns),
+                            f"c3 det model {name} {what}: launches {rec['launches'][key]} "
+                            f"(must move: {list(kns)})")
+            # Each kernel against its plain version on the inputs of these calls.
+            model_f, y_f, _ = transform_model_and_obs(build_lgssm(fx_d), y)
+            A, a, Q, H, h, s, yk, m0, P0 = block._fused_leaves(model_f, y_f)
+            y_main, s_main, _ = block._blocked_streams(yk, s, B)
+            packed = kernels.pack_params(A, a, Q, H, h, dtype)
+            P0 = symmetrize(P0)
+            wide = name == "float32"
+            compare_values(name, y_main, s_main, packed, m0, P0, shape="det")
+            compare_jvp(name, *jvp_inputs(name, det_fn(dtype), p_det), shape="det", k=len(p_det),
+                        wide=wide)
+            starts = kernels.phase2_starts(
+                kernels.phase1_aggregate(y_main, s_main, packed, D)[0], m0, P0, D)
+            p7 = kernels.phase3_states_plain(y_main, s_main, packed, starts, D,
+                                             chunks=kernels.PHASE3_STATES_CHUNKS)
+            k7 = kernels.phase3_states(y_main, s_main, packed, starts, D)
+            torch.cuda.synchronize()
+            truth = dict(truth=rows(kernels.phase3_states_plain(
+                *(t.double() for t in (y_main, s_main, packed, starts)), D,
+                chunks=kernels.PHASE3_STATES_CHUNKS)), plain=rows(p7)) if wide else {}
+            record_comparison("phase3_states", name, k7, p7, rows(k7), rows(p7), "states",
+                              shape="det", **truth)
+            post = posterior_with_missings(build_lgssm(fx_d), y)
+            affine_in = (block._affine_comps_iteration(post, B), post.trans.x0.mean,
+                         symmetrize(post.trans.x0.cov))
+            compare_affine(name, *affine_in, shape="det", wide=wide, spread=not wide)
+            del post, model_f
+        rec["det_launches"] = det_launch
+        for name in dtypes:
+            m, v = det[name, "posterior_marginals_block"]
+            smoke.check(finite(det[name, "logpdf_block"], *det[name, "vg"], m, v)
+                        and bool((v > 0).all()), f"c3 det model {name}: finite, positive variances")
+        r["det_float64_block_vs_basis_lml"] = rel(det["float64", "logpdf_block"].item(),
+                                                  det["float64", "logpdf_basis"].item())
+        tol["det_float64_block_vs_basis_lml"] = 1e-9
+        rec["det_float32_vs_f64"] = {
+            "lml": rel(det["float32", "logpdf_block"].item(), det["float64", "logpdf_block"].item()),
+            "vg_grad": rel_max(det["float32", "vg"][1].double(), det["float64", "vg"][1]),
+            "posterior_means": rel_max(det["float32", "posterior_marginals_block"][0].double(),
+                                       det["float64", "posterior_marginals_block"][0]),
+            "float32_block_vs_basis_lml": rel(det["float32", "logpdf_block"].item(),
+                                              det["float32", "logpdf_basis"].item())}
+        print(f"  det model float32 against float64 (recorded): "
+              f"{json.dumps(rec['det_float32_vs_f64'])}", flush=True)
+        print(f"  distances: {json.dumps(r)}", flush=True)
+        smoke.check(all(v <= tol[k_] for k_, v in r.items()),
+                    "c3: float32 lml within 1e-4 of float64 and its gradient within 1e-3 of the "
+                    "largest entry; at N = 100k float64 steady within 1e-9 (lml) and 1e-6 "
+                    "(gradient) of block, basis/block within 1e-8 of the full model on block; "
+                    "the card within 1e-12 of the CPU at the SMOKE size; the det model's "
+                    f"float64 full-state lml within 1e-9 of the basis engine's: {json.dumps(tol)}")
+
     smoke.phase("1. versions and card", phase_versions)
     smoke.phase("2. build", phase_build)
     smoke.phase("3. value kernels vs plain versions at N=1M", phase_compare)
@@ -3209,6 +3529,7 @@ def main():
     smoke.phase("19. kron: the factored engine at c4 and 247 x 100", phase_kron)
     smoke.phase("20. c5: the pseudo-point models on steady, block and the ragged case",
                 phase_c5)
+    smoke.phase("21. c3: deterministic components and the basis engine", phase_c3)
 
     print("== detail", json.dumps(smoke.record, default=str))
     if smoke.failures:

@@ -14,7 +14,11 @@ card unless the caller asks for the CPU with `to_sde(..., device="cpu")`:
 
 Kernels compose: `0.5 * Matern12().stretch(2.0) + Matern32()` is a Sum
 (the direct sum of the two state spaces), `Matern12() * Matern32()` a
-Product; `GP(k, CustomMean(fn))` takes a mean function of the times.
+Product; `GP(k, CustomMean(fn))` takes a mean function of the times. The
+deterministic kernels Cosine, Constant and ApproxPeriodic (no process
+noise) join a sum as basis functions: `logpdf` marginalises them against
+the model of the stochastic summands (engine="basis", ops/basis.py,
+`basis_setup`; sub-engines "sequential", "block" and "steady").
 
 Prediction: `marginals(fx)` gives the prior's (means, variances), and
 `gp.posterior.marginals(posterior(fx, y)(x_new, noise))` the posterior's at
@@ -52,7 +56,8 @@ The JAX package temporalgps_tpu is the reference this port is held to.
 """
 
 from . import space_time
-from .gp.lti_sde import logpdf, marginals, mean, mean_and_var, rand, var
+from .gp.kernels import ApproxPeriodic, Constant, Cosine
+from .gp.lti_sde import basis_setup, logpdf, marginals, mean, mean_and_var, rand, var
 from .gp.posterior import posterior
 from .space_time import (DTCSeparable, RectilinearGrid, RegularInTime, Separable,
                          approx_posterior_marginals, approx_posterior_marginals_at, dtc, dtcify,
@@ -71,6 +76,10 @@ from .utils.regular_spacing import RegularSpacing
 __all__ = [
     "space_time",
     "RegularSpacing",
+    "Cosine",
+    "Constant",
+    "ApproxPeriodic",
+    "basis_setup",
     "logpdf",
     "rand",
     "posterior",

@@ -1,20 +1,26 @@
 """Temporal kernels: their dense grams (the O(N^3) oracle) and LTI-SDE atoms
 (temporalgps_tpu/gp/kernels.py).
 
-Ported: Matern12 (state dim 1), Matern32 (2), Matern52 (3), and the
-combinators Scaled (`sigma2 * k`), Stretched (`k.stretch(s)`), Sum
-(`k1 + k2`, the direct sum of the children's state spaces, composed by
-gp.lti_sde.lgssm_components) and Product (`k1 * k2`, the Kronecker product
-of their states). EQ has its dense gram, the spatial factor of a space-time
-`Separable` kernel (space_time/); its SDE, Cosine, Constant and
-ApproxPeriodic wait for ROADMAP Queue 1 item 9. Hyperparameters are stored as
-given (Python floats or tensors, which may require grad); they are cast to
-the model's dtype and device where the model is built.
+Matern12 (state dim 1), Matern32 (2), Matern52 (3), Cosine (2), Constant
+(1), ApproxPeriodic (2 n_cos), and the combinators Scaled (`sigma2 * k`),
+Stretched (`k.stretch(s)`), Sum (`k1 + k2`, the direct sum of the children's
+state spaces, composed by gp.lti_sde.lgssm_components) and Product (`k1 *
+k2`, the Kronecker product of their states). EQ has its dense gram, the
+spatial factor of a space-time `Separable` kernel (space_time/), and no
+finite SDE: its SDE functions raise TypeError, as the reference's do.
+Hyperparameters are stored as given (Python floats or tensors, which may
+require grad); they are cast to the model's dtype and device where the
+model is built.
+
+Cosine, Constant and ApproxPeriodic are deterministic: their SDE has no
+diffusion (Q = 0), so a sample is a finite sum of basis functions with
+Gaussian weights (`det_basis_columns`); `split_deterministic` separates
+them from the stochastic summands for the basis engine (ops/basis.py).
 
 Discretisation uses closed forms: for a Matern, F + lam I is nilpotent, so
-expm(F dt) = e^{-lam dt} sum_{j<d} (F + lam I)^j dt^j / j!; a Product's
-transition is the Kronecker product of its children's (the exponential of a
-Kronecker sum).
+expm(F dt) = e^{-lam dt} sum_{j<d} (F + lam I)^j dt^j / j!; Cosine and
+ApproxPeriodic are 2 x 2 rotations; a Product's transition is the Kronecker
+product of its children's (the exponential of a Kronecker sum).
 """
 
 import dataclasses
@@ -24,9 +30,6 @@ from typing import Any, Callable, NamedTuple, Tuple
 import torch
 
 from ..utils import psd
-
-_NOT_PORTED = ("is not ported yet: Cosine, Constant, ApproxPeriodic and EQ's SDE wait for "
-               "ROADMAP Queue 1 item 9")
 
 
 class Kernel:
@@ -69,6 +72,28 @@ class Matern52(Kernel):
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
+class Cosine(Kernel):
+    """k(t, t') = cos(t - t'), in the gram and the SDE alike (the
+    reference's convention; KernelFunctions' CosineKernel is cospi)."""
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Constant(Kernel):
+    c: Any  # the variance of the constant function
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ApproxPeriodic(Kernel):
+    """The periodic kernel exp(-sin^2(pi tau) / (2 r^2)) (period 1) as
+    `n_cos` cosine processes at the harmonics 2 pi j with Bessel-function
+    weights (after Benavoli & Corani). Its gram is the exact periodic
+    kernel; the truncation error is ~e^-x I_n(x), x = 1 / (4 r^2)."""
+
+    r: Any
+    n_cos: int = 7
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
 class EQ(Kernel):
     """The squared-exponential kernel exp(-|x - y|^2 / 2), spatial use only:
     it has no finite SDE."""
@@ -108,6 +133,10 @@ def _pairwise_dist(x, y):
     return torch.sqrt(torch.clamp((d * d).sum(-1), min=0.0))
 
 
+def _as_like(v, x):
+    return torch.as_tensor(v, dtype=x.dtype, device=x.device)
+
+
 def gram(k: Kernel, x, y=None):
     """Dense kernel matrix k(x, y)."""
     x = torch.as_tensor(x)
@@ -123,6 +152,14 @@ def gram(k: Kernel, x, y=None):
     if isinstance(k, EQ):
         tau = _pairwise_dist(x, y)
         return torch.exp(-0.5 * tau * tau)
+    if isinstance(k, Cosine):
+        return torch.cos(x[:, None] - y[None, :])
+    if isinstance(k, Constant):
+        return _as_like(k.c, x) * torch.ones_like(_pairwise_dist(x, y))
+    if isinstance(k, ApproxPeriodic):
+        # The exact periodic kernel.
+        tau = x[:, None] - y[None, :]
+        return torch.exp(-torch.sin(math.pi * tau) ** 2 / (2.0 * _as_like(k.r, x) ** 2))
     if isinstance(k, Scaled):
         return k.sigma2 * gram(k.kernel, x, y)
     if isinstance(k, Stretched):
@@ -134,14 +171,16 @@ def gram(k: Kernel, x, y=None):
         for c in k.kernels[1:]:
             out = out * gram(c, x, y)
         return out
-    raise NotImplementedError(f"the gram of {type(k).__name__} {_NOT_PORTED}")
+    raise TypeError(type(k))
 
 
 def gram_diag(k: Kernel, x):
     """diag(gram(k, x, x)) without the O(N^2) matrix."""
     x = torch.as_tensor(x)
-    if isinstance(k, (Matern12, Matern32, Matern52, EQ)):
+    if isinstance(k, (Matern12, Matern32, Matern52, EQ, Cosine, ApproxPeriodic)):
         return torch.ones(x.shape[0], dtype=x.dtype, device=x.device)
+    if isinstance(k, Constant):
+        return _as_like(k.c, x) * torch.ones(x.shape[0], dtype=x.dtype, device=x.device)
     if isinstance(k, Scaled):
         return k.sigma2 * gram_diag(k.kernel, x)
     if isinstance(k, Stretched):
@@ -153,7 +192,7 @@ def gram_diag(k: Kernel, x):
         for c in k.kernels[1:]:
             out = out * gram_diag(c, x)
         return out
-    raise NotImplementedError(f"the gram of {type(k).__name__} {_NOT_PORTED}")
+    raise TypeError(type(k))
 
 
 # ---------------------------------------------------------------------------
@@ -196,6 +235,67 @@ def _matern_atoms(lam: float, d: int, P_inf, dtype, device) -> SDEAtoms:
     return SDEAtoms(torch.tensor(P_inf, dtype=dtype, device=device), H, transition)
 
 
+def _rotation(omega, dt, dtype, device):
+    """expm(omega [[0, -1], [1, 0]] dt): a 2 x 2 rotation, batched over dt."""
+    th = omega * torch.as_tensor(dt, dtype=dtype, device=device)
+    c, s = torch.cos(th), torch.sin(th)
+    return torch.stack([torch.stack([c, -s], dim=-1), torch.stack([s, c], dim=-1)], dim=-2)
+
+
+def _besseli_scaled(n: int, x):
+    """e^{-x} I_n(x) on the whole range: the ascending series (positive
+    terms, no cancellation; enough terms for a truncation below 1e-12 at the
+    switch) up to x_s(n) = max(30, n^2), the Hankel asymptotic expansion
+    beyond, as the reference's. Each branch is evaluated on an argument
+    clamped to its own side of the switch, so the branch not taken gives no
+    inf or NaN that would reach the gradient in x through torch.where."""
+    x = torch.as_tensor(x)
+    const = lambda v: torch.tensor(v, dtype=x.dtype, device=x.device)
+    mu = 4.0 * n * n
+    x_s = max(30.0, mu / 4.0)
+    ks = range(int(x_s / 2.0 + 6.0 * math.sqrt(x_s)) + 10)
+
+    # sum_k (x/2)^(n + 2k) / (k! (n + k)!) e^-x, all terms at once, summed
+    # in order (cumsum: the reference's rounding on the CPU).
+    x_lo = torch.clamp(x, max=x_s)[..., None]
+    log_norm = const([math.lgamma(k + 1) + math.lgamma(n + k + 1) for k in ks])
+    series = torch.exp(const([n + 2.0 * k for k in ks]) * torch.log(x_lo / 2.0) - log_norm
+                       - x_lo).cumsum(-1)[..., -1]
+
+    # e^{-x} I_n(x) ~ (2 pi x)^{-1/2} sum_k (-1)^k prod_{j<k} (mu - (2j+1)^2) / (k! (8x)^k)
+    x_hi = torch.clamp(x, min=x_s)
+    ks = range(1, 13)
+    terms = torch.cumprod(const([-(mu - (2 * k - 1) ** 2) for k in ks])
+                          / (const([8.0 * k for k in ks]) * x_hi[..., None]), dim=-1)
+    asym = torch.cat([torch.ones_like(terms[..., :1]), terms], dim=-1).cumsum(-1)[..., -1]
+    return torch.where(x <= x_s, series, asym / torch.sqrt(2.0 * math.pi * x_hi))
+
+
+def _periodic_cov(k, dtype, device):
+    """The stationary covariance of an ApproxPeriodic's n_cos harmonics,
+    diagonal: (2 - [j = 0]) e^{-x} I_j(x) twice for harmonic j, x = 1 /
+    (4 r^2). A Python float r is evaluated on the host (about 20 small ops
+    a harmonic), a tensor r where it lies, differentiably."""
+    r = k.r if torch.is_tensor(k.r) else torch.tensor(k.r, dtype=torch.float64)
+    inv_l2 = 1.0 / (4.0 * r.to(dtype) ** 2)
+    w = torch.stack([(2.0 - (j == 0)) * _besseli_scaled(j, inv_l2) for j in range(k.n_cos)])
+    return torch.diag_embed(w.repeat_interleave(2)).to(dtype=dtype, device=device)
+
+
+def has_deterministic_component(k) -> bool:
+    """Whether the kernel's SDE has state blocks without diffusion (Cosine,
+    Constant, ApproxPeriodic): their information grows without bound along
+    the filter, which the covariance-form element algebra cannot carry in
+    float32 at large N."""
+    if isinstance(k, (Cosine, Constant, ApproxPeriodic)):
+        return True
+    if isinstance(k, (Scaled, Stretched)):
+        return has_deterministic_component(k.kernel)
+    if isinstance(k, (Sum, Product)):
+        return any(has_deterministic_component(c) for c in k.kernels)
+    return False
+
+
 def sde_atoms(k: Kernel, dtype=torch.float64, device="cuda") -> SDEAtoms:
     """Recursive SDE construction (standard Matern state-space results,
     Sarkka & Solin, Applied SDEs, ch. 12)."""
@@ -209,6 +309,23 @@ def sde_atoms(k: Kernel, dtype=torch.float64, device="cuda") -> SDEAtoms:
         kappa = lam**2 / 3.0
         P = [[1.0, 0.0, -kappa], [0.0, kappa, 0.0], [-kappa, 0.0, lam**4]]
         return _matern_atoms(lam, 3, P, dtype, device)
+    if isinstance(k, Cosine):
+        H = torch.tensor([1.0, 0.0], dtype=dtype, device=device)
+        return SDEAtoms(torch.eye(2, dtype=dtype, device=device), H,
+                        lambda dt: _rotation(1.0, dt, dtype, device))
+    if isinstance(k, Constant):
+        P = torch.as_tensor(k.c, dtype=dtype, device=device).reshape(1, 1)
+        one = torch.ones((1, 1), dtype=dtype, device=device)
+
+        def transition(dt):
+            dt = torch.as_tensor(dt, dtype=dtype, device=device)
+            return one.expand(*dt.shape, 1, 1)
+
+        return SDEAtoms(P, torch.ones(1, dtype=dtype, device=device), transition)
+    if isinstance(k, ApproxPeriodic):
+        H = torch.tensor([1.0, 0.0], dtype=dtype, device=device).repeat(k.n_cos)
+        return SDEAtoms(_periodic_cov(k, dtype, device), H, lambda dt: psd.block_diag(
+            [_rotation(2.0 * math.pi * j, dt, dtype, device) for j in range(k.n_cos)]))
     if isinstance(k, Scaled):
         child = sde_atoms(k.kernel, dtype, device)
         sigma = torch.sqrt(torch.as_tensor(k.sigma2, dtype=dtype, device=device))
@@ -236,7 +353,7 @@ def sde_atoms(k: Kernel, dtype=torch.float64, device="cuda") -> SDEAtoms:
             "Sum kernels are combined at the lgssm_components level "
             "(block-diagonal direct sum), as in the reference"
         )
-    raise NotImplementedError(f"the SDE of {type(k).__name__} {_NOT_PORTED}")
+    raise TypeError(f"no SDE representation for {type(k).__name__}")
 
 
 def _batched_kron(A, B):
@@ -248,19 +365,21 @@ def _batched_kron(A, B):
 
 
 def state_dim(k: Kernel) -> int:
-    if isinstance(k, Matern12):
+    if isinstance(k, (Matern12, Constant)):
         return 1
-    if isinstance(k, Matern32):
+    if isinstance(k, (Matern32, Cosine)):
         return 2
     if isinstance(k, Matern52):
         return 3
+    if isinstance(k, ApproxPeriodic):
+        return 2 * k.n_cos
     if isinstance(k, (Scaled, Stretched)):
         return state_dim(k.kernel)
     if isinstance(k, Sum):
         return sum(state_dim(c) for c in k.kernels)
     if isinstance(k, Product):
         return math.prod(state_dim(c) for c in k.kernels)
-    raise NotImplementedError(f"the SDE of {type(k).__name__} {_NOT_PORTED}")
+    raise TypeError(type(k))
 
 
 def to_sde_matrices(k: Kernel, dtype=torch.float64, device="cuda"):
@@ -280,6 +399,16 @@ def to_sde_matrices(k: Kernel, dtype=torch.float64, device="cuda"):
         # (2 lam)^5 (2!)^2 / 4! = 16 lam^5 / 3, the q of F P_inf + P_inf F^T +
         # q L L^T = 0, as in the reference.
         return F, 16 * lam**5 / 3.0, tensor([1.0, 0.0, 0.0])
+    if isinstance(k, Cosine):
+        return tensor([[0.0, -1.0], [1.0, 0.0]]), 0.0, tensor([1.0, 0.0])
+    if isinstance(k, Constant):
+        return tensor([[0.0]]), 0.0, tensor([1.0])
+    if isinstance(k, ApproxPeriodic):
+        # Cosine SDEs at the harmonics 2 pi j, j < n_cos; no diffusion (the
+        # harmonics' weights are in P_inf, sde_atoms).
+        Fc, _, Hc = to_sde_matrices(Cosine(), dtype, device)
+        return (psd.block_diag([2.0 * math.pi * j * Fc for j in range(k.n_cos)]), 0.0,
+                Hc.repeat(k.n_cos))
     if isinstance(k, Scaled):
         F, q, H = to_sde_matrices(k.kernel, dtype, device)
         sigma = torch.sqrt(torch.as_tensor(k.sigma2, dtype=dtype, device=device))
@@ -301,4 +430,72 @@ def to_sde_matrices(k: Kernel, dtype=torch.float64, device="cuda"):
         parts = [to_sde_matrices(c, dtype, device) for c in k.kernels]
         return (psd.block_diag([p[0] for p in parts]), tuple(p[1] for p in parts),
                 torch.cat([p[2] for p in parts]))
-    raise NotImplementedError(f"the SDE of {type(k).__name__} {_NOT_PORTED}")
+    raise TypeError(type(k))
+
+
+# ---------------------------------------------------------------------------
+# The deterministic summands as basis functions (the basis engine's front end)
+# ---------------------------------------------------------------------------
+
+def split_deterministic(k):
+    """(stochastic summands, deterministic summands) of a kernel, two lists.
+    A deterministic summand (Cosine, Constant, ApproxPeriodic, no diffusion)
+    is a finite set of basis functions with Gaussian weights, f(t) = H
+    expm(F t) w, w ~ N(0, P_inf), which the basis engine marginalises
+    against the reduced stochastic model. Scaled and Stretched distribute
+    over the split. A Product is deterministic only when all its factors
+    are: with a stochastic factor its Q = Q_stoch (x) P_det is positive
+    definite, and it stays on the stochastic side."""
+    if isinstance(k, Sum):
+        stoch, det = [], []
+        for c in k.kernels:
+            s, d = split_deterministic(c)
+            stoch += s
+            det += d
+        return stoch, det
+    if isinstance(k, (Scaled, Stretched)):
+        s, d = split_deterministic(k.kernel)
+        wrap = ((lambda c: Scaled(c, k.sigma2)) if isinstance(k, Scaled)
+                else (lambda c: Stretched(c, k.s)))
+        return [wrap(c) for c in s], [wrap(c) for c in d]
+    if isinstance(k, (Cosine, Constant, ApproxPeriodic)):
+        return [], [k]
+    if isinstance(k, Product):
+        if all(has_deterministic_component(c) for c in k.kernels):
+            return [], [k]
+        return [k], []
+    return [k], []
+
+
+def det_basis_columns(k: Kernel, tau, dtype=torch.float64, device="cuda"):
+    """(M, P0): the basis matrix M (N, d) and weight prior P0 (d, d) of a
+    deterministic kernel, f(t) = M(t) w, w ~ N(0, P0), M(t) = H expm(F tau),
+    tau = t - t0 (N,). The rotations preserve P_inf, so M(t) P0 M(t')^T is
+    the kernel's gram for any t0. Closed forms per leaf: an ApproxPeriodic
+    gives (N, 2) columns per harmonic, no (N, d, d) transition."""
+    tau = torch.as_tensor(tau, dtype=dtype, device=device)
+    if isinstance(k, Cosine):
+        return (torch.stack([torch.cos(tau), -torch.sin(tau)], dim=-1),
+                torch.eye(2, dtype=dtype, device=device))
+    if isinstance(k, Constant):
+        return (torch.ones(*tau.shape, 1, dtype=dtype, device=device),
+                torch.as_tensor(k.c, dtype=dtype, device=device).reshape(1, 1))
+    if isinstance(k, ApproxPeriodic):
+        # Columns cos(2 pi j tau), -sin(2 pi j tau), harmonic by harmonic.
+        th = tau[..., None] * (2.0 * math.pi * torch.arange(k.n_cos, dtype=dtype, device=device))
+        M = torch.stack([torch.cos(th), -torch.sin(th)], dim=-1).reshape(*tau.shape, -1)
+        return M, _periodic_cov(k, dtype, device)
+    if isinstance(k, Scaled):
+        M, P0 = det_basis_columns(k.kernel, tau, dtype, device)
+        return torch.sqrt(torch.as_tensor(k.sigma2, dtype=dtype, device=device)) * M, P0
+    if isinstance(k, Stretched):
+        s = torch.as_tensor(k.s, dtype=dtype, device=device)
+        return det_basis_columns(k.kernel, s * tau, dtype, device)
+    if isinstance(k, Product):
+        M, P0 = det_basis_columns(k.kernels[0], tau, dtype, device)
+        for c in k.kernels[1:]:
+            Mc, Pc = det_basis_columns(c, tau, dtype, device)
+            M = (M[..., :, None] * Mc[..., None, :]).reshape(*M.shape[:-1], -1)
+            P0 = torch.kron(P0, Pc)
+        return M, P0
+    raise TypeError(f"{type(k).__name__} is not a deterministic kernel")

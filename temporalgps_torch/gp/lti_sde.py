@@ -11,7 +11,11 @@ summed h); a CustomMean to a per-step emission offset h. A Separable kernel
 on a RectilinearGrid (space_time/) compiles to the space-time LGSSM of
 space_time/builder.py; `logpdf`, `marginals` and `rand` take and give flat
 (space-fastest) observations for it, and with engine="kron" run the
-factored engine of space_time/kron.py on it instead (_route_kron).
+factored engine of space_time/kron.py on it instead (_route_kron). A
+kernel with a deterministic summand (Cosine, Constant, ApproxPeriodic) and
+a stochastic one scores on the basis engine (ops/basis.py, `basis_setup`):
+the deterministic summands as basis functions marginalised against the
+reduced stochastic model.
 
 The storage dtype and the device are explicit per model. The device is the
 CUDA card unless the caller asks for the CPU: `to_sde(f, ArrayStorage(
@@ -127,19 +131,24 @@ def _destructure(x, ys):
     return grids.destructure(x, ys) if _is_grid(x) else ys
 
 
-def broadcast_components(atoms: K.SDEAtoms, x, dtype, device):
+def broadcast_components(atoms: K.SDEAtoms, x, dtype, device, det=False):
     """Discretise the SDE over the time grid.
 
     Q = P_inf - A P_inf A^T cancels catastrophically at small dt, so A and Q
     are always evaluated in float64 and then cast to the storage dtype, as in
-    the reference."""
+    the reference. `det` marks a leaf with a deterministic component (its
+    Q vanishes on those blocks, to rounding): in float32 storage its Q is
+    floored at 1e-5 P_inf, as the reference's, so that the filter's
+    round-off along those blocks (~1e-7 |P| a step, nothing to damp it)
+    does not drive the covariance indefinite; float64 takes no floor."""
     hi = torch.float64
     P = symmetrize(atoms.P_inf).to(hi)
     D = P.shape[-1]
     N = num_times(x)
+    q_floor = 1e-5 if det and torch.finfo(dtype).bits < 64 else 0.0
     if isinstance(x, RegularSpacing):
         A = atoms.transition(torch.as_tensor(x.dt, dtype=hi, device=device)).to(hi)
-        Q = symmetrize(P - A @ P @ A.T)
+        Q = symmetrize(P - A @ P @ A.T) + q_floor * P
         As = Fill(A.to(dtype), N)
         Qs = Fill(Q.to(dtype), N)
     else:
@@ -148,7 +157,7 @@ def broadcast_components(atoms: K.SDEAtoms, x, dtype, device):
         # first marginal.
         dts = torch.cat([torch.ones(1, dtype=hi, device=device), torch.diff(t)])
         As_hi = atoms.transition(dts).to(hi)
-        Qs = symmetrize(P - As_hi @ P @ As_hi.transpose(-1, -2)).to(dtype)
+        Qs = (symmetrize(P - As_hi @ P @ As_hi.transpose(-1, -2)) + q_floor * P).to(dtype)
         As = As_hi.to(dtype)
     offs = Fill(torch.zeros(D, dtype=dtype, device=device), N)
     Hs = Fill(atoms.H.to(dtype), N)
@@ -206,7 +215,8 @@ def lgssm_components(kernel, x, dtype, device):
         return lgssm_components(kernel.kernel, x_st, dtype, device)
     # Atoms are built in float64; broadcast_components applies the storage dtype.
     atoms = K.sde_atoms(kernel, torch.float64, device)
-    As, offs, Qs, Hs, hs = broadcast_components(atoms, x, dtype, device)
+    As, offs, Qs, Hs, hs = broadcast_components(atoms, x, dtype, device,
+                                                det=K.has_deterministic_component(kernel))
     D = atoms.P_inf.shape[-1]
     x0 = Gaussian(
         torch.zeros(D, dtype=dtype, device=device),
@@ -238,7 +248,8 @@ def build_lgssm(fx: FiniteLTISDE) -> LGSSM:
     As, offs, Qs, (Hs, hs), x0 = lgssm_components(f.f.kernel, fx.x, dtype, f.device)
     hs = _add_mean_to_hs(hs, f.f.mean, fx.x, dtype, f.device)
     return LGSSM(
-        GaussMarkov(As=As, offs=offs, Qs=Qs, x0=x0, forward=True),
+        GaussMarkov(As=As, offs=offs, Qs=Qs, x0=x0, forward=True,
+                    det_blocks=K.has_deterministic_component(f.f.kernel)),
         ScalarEmissions(H=Hs, h=hs, s=fx.noise),
     )
 
@@ -261,15 +272,98 @@ def _route_kron(fx, engine, verb) -> bool:
             and kron.supports(fx) and kron.takes_engine_none(fx, verb))
 
 
+def basis_setup(fx: FiniteLTISDE):
+    """The basis engine's front end (ops/basis.py): (model, M, P0), the
+    LGSSM of the kernel's stochastic summands, the basis columns M (N, d)
+    of its deterministic summands at tau = t - t[0] and their weights'
+    prior covariance P0 (d, d), M and P0 in the storage dtype. tau and the
+    columns are formed in float64 and then cast: a float32 time axis at
+    N = 1M would put cos(2 pi 6 t) off by ~1e-3. M and P0 are None for a
+    kernel with no deterministic summand (the model is then fx's own).
+    Raises TypeError for a grid's inputs and for a purely deterministic
+    kernel."""
+    if _is_grid(fx.x):
+        raise TypeError("engine='basis' supports time-series inputs only")
+    f = fx.f
+    dtype, device = _storage_dtype(f.storage), f.device
+    stoch, det = K.split_deterministic(f.f.kernel)
+    if not det:
+        return build_lgssm(fx), None, None
+    if not stoch:
+        raise TypeError(
+            "engine='basis' needs at least one stochastic summand; a purely deterministic "
+            "kernel has a singular prior: add observation noise to the model instead "
+            "(engine='sequential')")
+    k_stoch = stoch[0] if len(stoch) == 1 else K.Sum(tuple(stoch))
+    model = build_lgssm(FiniteLTISDE(LTISDE(GP(k_stoch, f.f.mean), f.storage, device), fx.x,
+                                     fx.noise))
+    t = time_array(fx.x, device).to(torch.float64)
+    cols = [K.det_basis_columns(kd, t - t[0], torch.float64, device) for kd in det]
+    M = torch.cat([c[0] for c in cols], dim=-1).to(dtype)
+    P0 = psd.block_diag([c[1] for c in cols]).to(dtype)
+    return model, M, P0
+
+
+def _logpdf_basis(fx: FiniteLTISDE, y, *, sub_engine=None, n_blocks=None, n_warmup=None,
+                  fwd_mode=False):
+    """The lml on the basis engine (ops/basis.py) on `sub_engine`
+    ("sequential", "block", the default, or "steady"). NaNs in y are missing
+    observations: the large-variance fill of the reduced model zeroes every
+    column's innovation at a missing step, and the volume compensation
+    applies unchanged. "steady" runs on the Fill model as it is and takes
+    no missing data: a NaN raises ValueError (the port's y is always
+    concrete, so the reference's traced-NaN fallback and its `nan_fallback`
+    option have no counterpart). `fwd_mode=True` bypasses the steady late
+    segment's autograd.Function, for forward-mode gradients."""
+    from ..ops import basis
+
+    model, M, P0 = basis_setup(fx)
+    y = torch.as_tensor(y, dtype=model.dtype, device=model.device)
+    if M is None:  # no deterministic part
+        return missings.logpdf_with_missings(model, y, engine=sub_engine)
+    w_off = torch.zeros(M.shape[-1] + 1, dtype=model.dtype, device=model.device)
+    w_off[0] = 1.0
+
+    def lml(model_, y_, engine):
+        return basis.logpdf_basis(model_, torch.cat([y_[:, None], M], dim=-1), w_off, P0,
+                                  engine=engine, n_blocks=n_blocks, n_warmup=n_warmup,
+                                  fwd_mode=fwd_mode)
+
+    if sub_engine == "steady":
+        if bool(torch.isnan(y).any()):
+            raise ValueError("sub_engine='steady' requires fully-observed data (no NaNs); "
+                             "use sub_engine='block' for missing data")
+        return lml(model, y, "steady")
+    model_f, y_f, comp = missings.transform_model_and_obs(model, y)
+    return lml(model_f, y_f, sub_engine or "block") + comp
+
+
+def _takes_basis(fx, engine) -> bool:
+    """engine="basis", or engine=None for a time series whose kernel has a
+    deterministic summand and a stochastic one, as the reference routes."""
+    if engine == "basis":
+        return True
+    if engine is not None or _is_grid(fx.x):
+        return False
+    kern = fx.f.f.kernel
+    return K.has_deterministic_component(kern) and bool(K.split_deterministic(kern)[0])
+
+
 def logpdf(fx: FiniteLTISDE, y, *, engine=None, **engine_kwargs):
     """Log marginal likelihood of y under fx; NaNs in y are missing
-    observations. `engine=None` picks the block engine for a model on a CUDA
-    device (its kernels, constant or streamed; the matrix path for D > 3),
+    observations. `engine=None` takes the basis engine for a time series
+    whose kernel has a deterministic summand and a stochastic one
+    (`_logpdf_basis`: the exact lml without the deterministic blocks in the
+    filter; `sub_engine`, `n_warmup`, `fwd_mode` go there), as
+    engine="basis" does; otherwise, for a model on a CUDA device, the block
+    engine where its kernels take the model and the parallel one above D = 3,
     for a grid's model there the kron engine or the parallel one
     (_route_kron, models.lgssm._resolve_engine), and the sequential engine
     otherwise; `engine_kwargs` (`fused`, `n_blocks`) go to
     models.lgssm.logpdf. On a grid, y is flat (space fastest);
     engine="kron" runs the factored engine (space_time/kron.py) on it."""
+    if _takes_basis(fx, engine):
+        return _logpdf_basis(fx, y, **engine_kwargs)
     if _route_kron(fx, engine, "logpdf"):
         from ..space_time import kron
 

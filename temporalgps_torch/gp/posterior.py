@@ -15,8 +15,8 @@ RegularSpacing model runs on K1, K2, K7 and the marginals on K8-K10. At new
 inputs (or irregular training times) the merged times are irregular, so
 the model has per-step transitions: its filter runs on the streamed forms
 of K1 and K7 (each step's (A, a, Q) read from a row stream) with K2, and
-its marginals on K8-K10. Models of more than three states take the block
-engine's plain matrix path. The dense posterior covariance is refused, as
+its marginals on K8-K10. Models of more than three states take the
+parallel engine on the card (models.lgssm._resolve_engine). The dense posterior covariance is refused, as
 in the reference.
 
 Grids (space_time/): a RectilinearGrid posterior merges along time only (the

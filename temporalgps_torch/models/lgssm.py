@@ -94,14 +94,17 @@ def model_like(model, leaves):
 
 
 def _resolve_engine(engine, model=None):
-    """`None` picks, for a model on a CUDA device, "block" for scalar
-    emissions (the kernels for D <= 3, constant or per-step transitions; the
-    matrix path beyond) and "parallel" for vector emissions (the space-time
-    models, which no kernel takes), and "sequential" everywhere else (the
-    reference picks "block" on the TPU up to D = 32, "sequential" above).
-    The vector rule is the card's: c4's model (chip_smoke.py phase 18,
-    "NVIDIA H100 80GB HBM3, 700.00 W") at D = 150 (50 x 1000) and D = 30
-    (10 x 1000), ms float32 / float64:
+    """`None` picks, for a model on a CUDA device, "block" where its kernels
+    take the model (scalar emissions with a Fill H, D <= 3, constant or
+    per-step transitions: `block._streamed_supported`) and "parallel"
+    everywhere else (vector emissions, the space-time models; scalar models
+    above D = 3, which "block" would run on its matrix path); "sequential"
+    on the CPU (the reference picks "block" on the TPU up
+    to D = 32, "sequential" above; it stays "sequential" for a model with
+    deterministic blocks, a Python loop of N steps here). Measured on
+    "NVIDIA H100 80GB HBM3, 700.00 W", ms float32 / float64. The vector
+    models: c4's (chip_smoke.py phase 18) at D = 150 (50 x 1000) and D = 30
+    (10 x 1000):
 
         D = 150  logpdf               parallel 66 / 78,   block 81 / 92,
                                       sequential 1006 / 1057
@@ -112,7 +115,27 @@ def _resolve_engine(engine, model=None):
                  posterior marginals  parallel 32 / 38,   block 56 / 70,
                                       sequential 2219 / 2536
 
-    "parallel" wins at both sizes, so one rule, no latent_dim threshold.
+    The scalar models above D = 3 at N = 100k (phase 21): c3's model (D =
+    19, an ApproxPeriodic: `det_blocks`, Q = 0 there, float32 floored),
+    and two with no deterministic block, c3 without its ApproxPeriodic
+    (D = 5) and with seven Matern32 summands in its place (D = 19):
+
+        det D = 19     logpdf               block 225 / 202, parallel 65 / 78
+                       posterior marginals  block 238 / 262, parallel 88 / 102
+        no det D = 5   logpdf               block 154 / 142, parallel 49 / 43
+                       posterior marginals  block 190 / 174, parallel 62 / 91
+        no det D = 19  logpdf               block 165 / 179, parallel 83 / 70
+                       posterior marginals  block 220 / 263, parallel 105 / 91
+
+    "parallel" wins at every size, with a deterministic block or without:
+    one rule. No NaN on either engine; the det model's float32 lies 9.3e-7
+    (parallel) and 3.7e-6 (block) from the float32 problem (its floored Q
+    as float32 stores it) solved in float64, and 1.2e-3 (lml) from float64
+    on both, the floor's own change of the model. The D = 3 det model
+    Matern12() + 0.5 * Cosine().stretch(2) at N = 1M runs the kernels on
+    "block": logpdf 3.5 / 2.9 ms, posterior marginals 14.7 / 12.0 ms; its
+    gp-level logpdf with engine=None takes the basis engine instead, as the
+    reference routes (gp/lti_sde.logpdf), at 717 / 517 ms.
     Either ordering: the reverse-ordered posterior's data-free functions
     (marginals, rand) run the affine prefix, and its `logpdf` the filter of
     its iteration view, where the reference's filtering functions fall back
@@ -124,17 +147,25 @@ def _resolve_engine(engine, model=None):
     if engine is not None:
         return engine
     if model is not None and model.device.type == "cuda":
-        return "block" if isinstance(model.emis, em.ScalarEmissions) else "parallel"
+        from ..ops import block
+
+        return "block" if block._streamed_supported(model) else "parallel"
     return "sequential"
 
 
 def _check_engine(engine, model=None):
     """Raise for an engine the port does not have, or, for "lti" and
-    "steady", a model they do not take. "kron" is no engine of an LGSSM: it
+    "steady", a model they do not take ("steady" none with `det_blocks`,
+    ops/steady._check). "kron" is no engine of an LGSSM: it
     factors a grid's Separable model before any LGSSM is built
     (space_time/kron.py), so it is refused here rather than run on another
     engine."""
     if engine in ("block", "sequential", "parallel", "sqrt"):
+        return
+    if engine == "steady" and model is not None:
+        from ..ops import steady
+
+        steady._check(model)
         return
     if engine in ("lti", "steady"):
         from ..ops import lti
@@ -293,7 +324,8 @@ def posterior(model: LGSSM, y, *, engine=None, n_blocks=None) -> LGSSM:
             dyn.append(_invert_dynamics(x64, xf64, A64))
             x = narrow(x64)
     As, offs, Qs = (_stack([d[i] for d in dyn], forward).to(model.dtype) for i in range(3))
-    trans = GaussMarkov(As=As, offs=offs, Qs=Qs, x0=x, forward=not forward)
+    trans = GaussMarkov(As=As, offs=offs, Qs=Qs, x0=x, forward=not forward,
+                        det_blocks=model.trans.det_blocks)
     return LGSSM(trans, model.emis)
 
 

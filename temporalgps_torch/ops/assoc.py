@@ -302,7 +302,8 @@ def widened(model):
     wide = lambda leaf: (Fill(leaf.value.double(), leaf.N) if is_fill(leaf) else leaf.double())
     t = model.trans
     trans = GaussMarkov(As=wide(t.As), offs=wide(t.offs), Qs=wide(t.Qs),
-                        x0=Gaussian(t.x0.mean.double(), t.x0.cov.double()), forward=t.forward)
+                        x0=Gaussian(t.x0.mean.double(), t.x0.cov.double()), forward=t.forward,
+                        det_blocks=t.det_blocks)
     return LGSSM(trans, em.map_leaves(wide, model.emis))
 
 
@@ -336,7 +337,8 @@ def _reversed_model_matrix(model, xf: Gaussian, jitter=POSTERIOR_JITTER):
     xp = _batched_predict(prev, F, c, Q)
     A_rev, a_rev, Q_rev = (x.to(model.dtype) for x in _invert_dynamics(prev, xp, F, jitter))
     trans = GaussMarkov(As=A_rev, offs=a_rev, Qs=Q_rev, forward=False,
-                        x0=Gaussian(xf.mean[-1].to(model.dtype), xf.cov[-1].to(model.dtype)))
+                        x0=Gaussian(xf.mean[-1].to(model.dtype), xf.cov[-1].to(model.dtype)),
+                        det_blocks=t.det_blocks)
     return LGSSM(trans, model.emis), xp
 
 
@@ -356,7 +358,7 @@ def _posterior_from_prefix(model, outs, it):
     A_rev, a_rev, Q_rev = (x.to(model.dtype) for x in _flip(_invert_dynamics(xp, u, F)))
     trans = GaussMarkov(As=A_rev, offs=a_rev, Qs=Q_rev,
                         x0=Gaussian(xp.mean[-1].to(model.dtype), xp.cov[-1].to(model.dtype)),
-                        forward=True)
+                        forward=True, det_blocks=model.trans.det_blocks)
     return LGSSM(trans, model.emis)
 
 

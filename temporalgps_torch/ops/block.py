@@ -302,7 +302,8 @@ def _forward_view(model, y=None):
         return model, y
     F, c, Q = _iteration_view(model)
     flip = lambda leaf: leaf if is_fill(leaf) else leaf.flip(0)
-    view = LGSSM(GaussMarkov(As=F, offs=c, Qs=Q, x0=model.trans.x0, forward=True),
+    view = LGSSM(GaussMarkov(As=F, offs=c, Qs=Q, x0=model.trans.x0, forward=True,
+                             det_blocks=model.trans.det_blocks),
                  em.map_leaves(flip, model.emis))
     return view, None if y is None else y.flip(0)
 
@@ -695,7 +696,8 @@ def _reversed_model(model, xf, jitter=POSTERIOR_JITTER):
     x_last = Gaussian(xf[:D, -1], xf[D:, -1].reshape(D, D))
     narrow = lambda x: x.to(model.dtype)
     trans = GaussMarkov(As=narrow(_mat_to_array(A_rev)), offs=narrow(torch.stack(a_rev, dim=-1)),
-                        Qs=narrow(_mat_to_array(Q_rev)), x0=x_last, forward=False)
+                        Qs=narrow(_mat_to_array(Q_rev)), x0=x_last, forward=False,
+                        det_blocks=model.trans.det_blocks)
     return LGSSM(trans, model.emis), Gaussian(torch.stack(mp, dim=-1), _mat_to_array(Pp))
 
 

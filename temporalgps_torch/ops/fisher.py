@@ -130,7 +130,7 @@ def fisher_cotangents(model, y, g, *, engine="parallel"):
 
     t = model.trans
     trans_bar = GaussMarkov(As=like(t.As, dA), offs=like(t.offs, da), Qs=like(t.Qs, dQ),
-                            x0=Gaussian(g * dm0, g * dP0), forward=True)
+                            x0=Gaussian(g * dm0, g * dP0), forward=True, det_blocks=t.det_blocks)
     emis_bar = ScalarEmissions(H=like(e.H, dH), h=like(e.h, dh), s=like(e.s, ds))
     return LGSSM(trans_bar, emis_bar), g * dy
 

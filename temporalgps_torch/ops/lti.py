@@ -265,7 +265,8 @@ def posterior(model, y, *, n_blocks=None, cov_hi=False):
     G = _mT(psd.chol_solve(Lp, A0 @ P_prev))
     trans = GaussMarkov(As=G, offs=m_prev - _mv(G, q["m_pred"]),
                         Qs=symmetrize(P_prev - G @ (A0 @ P_prev)),
-                        x0=Gaussian(q["means"][-1], symmetrize(q["P_f"][-1])), forward=False)
+                        x0=Gaussian(q["means"][-1], symmetrize(q["P_f"][-1])), forward=False,
+                        det_blocks=model.trans.det_blocks)
     return LGSSM(trans, model.emis)
 
 

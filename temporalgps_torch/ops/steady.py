@@ -83,7 +83,8 @@ def _trim(model, k):
 
     cut = lambda leaf: Fill(leaf.value, k) if is_fill(leaf) else leaf
     t = model.trans
-    trans = GaussMarkov(As=cut(t.As), offs=cut(t.offs), Qs=cut(t.Qs), x0=t.x0, forward=t.forward)
+    trans = GaussMarkov(As=cut(t.As), offs=cut(t.offs), Qs=cut(t.Qs), x0=t.x0, forward=t.forward,
+                        det_blocks=t.det_blocks)
     return LGSSM(trans, em.map_leaves(cut, model.emis))
 
 
@@ -129,14 +130,18 @@ class _AffineConstStates(torch.autograd.Function):
         return lam.T @ m_prev, lam, G.T @ lam[0], None
 
 
-def affine_const_states(G, w, m0, *, block_len=16):
+def affine_const_states(G, w, m0, *, block_len=16, fwd_mode=False):
     """The states m_t = G m_{t-1} + w_t, t = 1..M, from m0, G constant; w
     (M, D) -> (M, D). The powers G^0..G^L once; each block of L steps' sums
     as one dense (B, L D) x (L D, L D) product with the block-Toeplitz
     operator of the powers; the block starts by a log2(B)-level scan whose
     step is one (B, D) x (D, D) product; the expansion within blocks one
     (L D, D) x (D, B) product. Reverse mode runs `_AffineConstStates`'s
-    adjoint (the Function takes no forward mode)."""
+    adjoint. The Function takes no forward mode: `fwd_mode=True` runs the
+    same schedule without it, so that torch.func.jvp / jacfwd go through
+    (its reverse mode is then autograd's own)."""
+    if fwd_mode:
+        return _acs_impl(G, w, m0, block_len)
     return _AffineConstStates.apply(G, w, m0, block_len)
 
 
@@ -240,10 +245,22 @@ def _steady_ops(model, dtype, N, n_warmup=None, P_seed=None):
     return cast
 
 
+def supported(model) -> bool:
+    """A model the steady engine takes: lti's, without deterministic blocks."""
+    return lti.supported(model) and not model.trans.det_blocks
+
+
 def _check(model):
+    """Raise the reference's ValueError for a model `supported` refuses."""
+    if supported(model):
+        return
     if not lti.supported(model):
         raise ValueError("engine='steady' requires a forward model with all-Fill "
                          "(time-invariant) transition and emission parameters")
+    raise ValueError(
+        "engine='steady' rejects models with deterministic diffusion blocks "
+        "(Cosine/Constant/ApproxPeriodic): their Riccati recursion converges too slowly "
+        "for a fixed warmup; use engine='sequential'")
 
 
 def _hi_mode(model):

@@ -3,6 +3,7 @@ FiniteLTISDE -> LGSSM (temporalgps_tpu/space_time/builder.py)."""
 
 import torch
 
+from ..gp import kernels as K
 from ..gp.lti_sde import _combine_leaves, _storage_dtype
 from ..gp.means import ConstMean, ZeroMean
 from ..models.emissions import DenseEmissions
@@ -44,5 +45,22 @@ def build_lgssm_spacetime(fx) -> LGSSM:
         raise NotImplementedError(
             "spatio-temporal models support ZeroMean/ConstMean mean functions")
     S = _combine_leaves(torch.diag_embed, [noise_tf], Nt)
-    return LGSSM(GaussMarkov(As=As, offs=offs, Qs=Qs, x0=x0, forward=True),
+    return LGSSM(GaussMarkov(As=As, offs=offs, Qs=Qs, x0=x0, forward=True,
+                             det_blocks=_temporal_det(f.f.kernel)),
                  DenseEmissions(H=Hs, h=hs, S=S))
+
+
+def _temporal_det(kernel) -> bool:
+    """Whether the temporal part of a space-time kernel tree has a
+    deterministic component (gp.kernels.has_deterministic_component)."""
+    from .pseudo_point import DTCSeparable
+    from .separable import Separable
+
+    if isinstance(kernel, (Separable, DTCSeparable)):
+        sep = kernel.k if isinstance(kernel, DTCSeparable) else kernel
+        return K.has_deterministic_component(sep.r)
+    if isinstance(kernel, K.Scaled):
+        return _temporal_det(kernel.kernel)
+    if isinstance(kernel, (K.Sum, K.Product)):
+        return any(_temporal_det(c) for c in kernel.kernels)
+    return False

@@ -169,8 +169,11 @@ def build_dtc_lgssm(kernel, x, noise_tf, mean_fn, dtype, device) -> LGSSM:
     (Nt, Ns) or Fill((Ns,)) per-observation variances. ZeroMean only."""
     if not isinstance(mean_fn, ZeroMean):
         raise NotImplementedError("pseudo-point inference assumes a zero mean")
+    from .builder import _temporal_det
+
     As, offs, Qs, (Cs, cs, Hs, hs), x0 = lgssm_components_dtc(kernel, x, dtype, device)
-    return LGSSM(GaussMarkov(As=As, offs=offs, Qs=Qs, x0=x0, forward=True),
+    return LGSSM(GaussMarkov(As=As, offs=offs, Qs=Qs, x0=x0, forward=True,
+                             det_blocks=_temporal_det(kernel)),
                  BottleneckEmissions(H=Hs, h=hs, C=Cs, c=cs, s_diag=noise_tf))
 
 

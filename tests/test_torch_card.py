@@ -1003,3 +1003,92 @@ def test_kron_on_card_matches_cpu(cuda_device):
         assert bool(torch.isfinite(a).all())
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-9,
                                    atol=1e-9 * b.abs().max().item())
+
+
+def _det_calls(device, N=3001):
+    """(lml, value, gradient, posterior means, posterior variances) of the
+    full-state model (s1 * Matern12()) + (s2 * Cosine()).stretch(2.0) (D =
+    3, a block of no process noise), float64, one NaN, on `device` (the
+    block engine: the kernels on the card, their plain versions on the CPU);
+    and the launch counts of each of the three calls."""
+    from temporalgps_torch.gp import Cosine, Matern12
+
+    y = np.random.default_rng(21).standard_normal(N)
+    y[29] = np.nan
+    x = tt.RegularSpacing(0.0, 0.01, N)
+
+    def fx_of(p):
+        s1, s2, noise = torch.exp(p)
+        return to_sde(GP(s1 * Matern12() + (s2 * Cosine()).stretch(2.0)), device=device)(x, noise)
+
+    p0 = torch.log(torch.tensor([1.0, 0.5, 0.1], dtype=torch.float64, device=device))
+    fx = fx_of(p0)
+    counts = []
+    tk.reset_launch_counts()
+    lml = tt.logpdf(fx, y, engine="block").item()
+    counts.append(tk.launch_counts())
+    tk.reset_launch_counts()
+    value, grad = tt.value_and_grad_fwd_lgssm(lambda p: build_lgssm(fx_of(p)), y)(p0)
+    counts.append(tk.launch_counts())
+    tk.reset_launch_counts()
+    m, v = tpost.marginals(tpost.posterior(fx, y)(x, 0.1), engine="block")
+    counts.append(tk.launch_counts())
+    out = (np.array([lml]), np.array([value.item()]), grad.cpu().numpy(), m.cpu().numpy(),
+           v.cpu().numpy())
+    return out, counts
+
+
+@pytest.mark.cuda
+def test_det_model_on_card_launches_the_kernels_and_matches_cpu(cuda_device):
+    """A full-state model with a deterministic block (Q = 0 there): logpdf
+    launches K1-K3, the forward-mode gradient K4-K6, the posterior marginals
+    K1, K2, K7 and K8-K10; each agrees with the CPU port's plain versions,
+    float64: 1e-10, the gradient 1e-8. engine=None takes "parallel" for a
+    model the kernels do not take (D = 5 with a det block, D = 6 without)."""
+    got, counts = _det_calls(cuda_device)
+    for kern in (Matern52() + tt.Cosine(), Matern52() + Matern52().stretch(2.0)):
+        assert tlgssm._resolve_engine(None, build_lgssm(to_sde(GP(kern), device=cuda_device)(
+            tt.RegularSpacing(0.0, 0.1, 8)))) == "parallel"
+    assert [counts[0][n] for n in ("phase1_aggregate", "phase2_starts", "phase3_lml")] == [1, 1, 1]
+    assert [counts[1][n] for n in ("phase1_jvp", "phase2_jvp_starts", "phase3_jvp_lml")] == [1, 1, 1]
+    assert all(counts[2][n] == 1 for n in _STATE_KERNELS) and counts[2]["phase3_lml"] == 0
+    want, _ = _det_calls("cpu")
+    for i, (g, w) in enumerate(zip(got, want)):
+        rtol = 1e-8 if i == 2 else 1e-10
+        np.testing.assert_allclose(g, w, rtol=rtol, atol=rtol * np.abs(w).max())
+
+
+@pytest.mark.cuda
+def test_c3_basis_engine_on_card_matches_cpu(cuda_device):
+    """c3's kernel (s2 Matern52 + 0.6 Matern32.stretch(sc) + 0.3
+    ApproxPeriodic(0.5)) at N = 3000, float64, one NaN on "block": the
+    basis engine's lml and its reverse-mode gradient on "block" and (no
+    NaN) "steady" on the card within 1e-10 of the CPU port (the gradient
+    1e-8); no kernel launched."""
+    from temporalgps_torch.gp import ApproxPeriodic, Matern32
+
+    N = 3000
+    y = np.random.default_rng(22).standard_normal(N)
+    y_nan = y.copy()
+    y_nan[31] = np.nan
+
+    def run(device):
+        out = []
+        for sub, yy, kw in (("block", y_nan, {}), ("steady", y, {"n_warmup": 1024})):
+            p = torch.log(torch.tensor([1.0, 0.5, 0.1], dtype=torch.float64,
+                                       device=device)).requires_grad_()
+            s2, sc, noise = torch.exp(p)
+            kern = s2 * Matern52() + 0.6 * Matern32().stretch(sc) + 0.3 * ApproxPeriodic(0.5)
+            fx = to_sde(GP(kern), device=device)(tt.RegularSpacing(0.0, 1e-3, N), noise)
+            lml = tt.logpdf(fx, yy, engine="basis", sub_engine=sub, **kw)
+            out += [lml.detach().reshape(1).cpu(), torch.autograd.grad(lml, p)[0].cpu()]
+        return out
+
+    tk.reset_launch_counts()
+    got = run(cuda_device)
+    assert sum(tk.launch_counts().values()) == 0
+    for i, (a, b) in enumerate(zip(got, run("cpu"))):
+        rtol = 1e-8 if i % 2 else 1e-10
+        assert bool(torch.isfinite(a).all())
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=rtol,
+                                   atol=rtol * b.abs().max().item())

@@ -307,7 +307,7 @@ def test_refusals():
     with pytest.raises(NotImplementedError, match="zero mean"):
         tt.dtc(tgp.to_sde(tgp.GP(Separable(tgp.EQ(), tgp.Matern32()), tgp.ConstMean(1.0)),
                           device="cpu")(tfx.x, NOISE), _y(), torch.zeros(2, dtype=torch.float64))
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(TypeError, match="no SDE representation"):
         tt.logpdf(tgp.to_sde(tgp.GP(tgp.EQ()), device="cpu")(torch.arange(3.0), 0.1),
                   np.zeros(3))
     other = RectilinearGrid(torch.as_tensor(XL + 0.1), torch.as_tensor(T_NEW))
